@@ -1,0 +1,68 @@
+"""Architecture registry of the port: the dense configs the lock-step
+engine serves (the paper's own Qwen3-8B and Qwen2-1.5B), and reduced
+smoke variants for CPU tests."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from . import qwen2_1_5b, qwen3_8b
+from .base import ModelConfig, active_params, count_params
+
+_MODULES = (qwen2_1_5b, qwen3_8b)
+
+REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in REGISTRY:
+        raise KeyError(
+            f"unknown arch {name!r}; available: {sorted(REGISTRY)}"
+        )
+    return REGISTRY[name]
+
+
+def smoke_variant(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family variant: one block-pattern unit (>= 2 layers),
+    d_model <= 512, <= 4 experts — runs a CPU forward/train step fast."""
+    d_model = min(cfg.d_model, 256)
+    heads = min(cfg.num_heads, 4)
+    kv = max(1, min(cfg.num_kv_heads, heads))
+    while heads % kv:
+        kv -= 1
+    head_dim = max(32, d_model // heads)
+    unit = cfg.block_pattern
+    layers = max(2, len(unit))
+    changes = dict(
+        num_layers=layers,
+        d_model=d_model,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=head_dim,
+        d_ff=0 if cfg.d_ff == 0 else min(cfg.d_ff, 512),
+        vocab_size=min(cfg.vocab_size, 1024),
+        vocab_pad_multiple=128,
+        rnn_width=min(cfg.rnn_width, d_model),
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        local_window=min(cfg.local_window, 64),
+        dtype="float32",
+    )
+    if cfg.num_experts > 0:
+        changes["num_experts"] = min(cfg.num_experts, 4)
+        changes["experts_per_token"] = min(cfg.experts_per_token, 2)
+    if cfg.is_encoder_decoder:
+        changes["num_encoder_layers"] = 2
+    if cfg.rope == "mrope":
+        n = head_dim // 4  # keep sections summing to the rotary half
+        changes["mrope_sections"] = (head_dim // 2 - 2 * n, n, n)
+    return cfg.replace(name=cfg.name + "-smoke", **changes)
+
+
+__all__ = [
+    "ModelConfig",
+    "REGISTRY",
+    "get_config",
+    "smoke_variant",
+    "count_params",
+    "active_params",
+]

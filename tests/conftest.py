@@ -52,3 +52,9 @@ def hypothesis_or_stub():
             return pytest.mark.skip(reason="hypothesis not installed")
 
         return given, settings, _AnyStrategy()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips with a reason without one"
+    )

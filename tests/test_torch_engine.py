@@ -1,0 +1,105 @@
+"""The port's lock-step ``SpecEngine.generate`` against the JAX engine.
+
+Same weights (JAX ``init_params`` through numpy), same prompts and
+problem ids, T = 0. Two ``generate`` calls over the same problems, so the
+second drafts from the first one's trees. Checked for the fused path
+(``fuse_rounds="auto"``, scope ``problem``: device drafting through the
+suffix-match plain version) and the unfused path (``fuse_rounds="off"``,
+scope ``problem+request``: host sessions). Outputs must be
+token-identical and ``n_rounds``/``n_drafted``/``n_accepted`` equal.
+
+Greedy parity across frameworks needs no near-tie on the emitted path:
+the logits agree to ~2e-4 (tests/test_torch_model.py), so the test
+asserts that JAX's top-2 logit gap at every emitted position stays above
+1e-3. The weight and prompt seeds below were chosen so that it does.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from conftest import make_params
+from repro.configs.base import ModelConfig as JModelConfig
+from repro.core.drafter import DrafterConfig as JDrafterConfig
+from repro.core.drafter import SuffixDrafter as JSuffixDrafter
+from repro.core.spec_engine import EngineConfig as JEngineConfig
+from repro.core.spec_engine import SpecEngine as JSpecEngine
+from repro.models import model as JM
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
+from repro_torch.core.spec_engine import EngineConfig, SpecEngine
+from repro_torch.models.convert import params_from_numpy
+
+CFG = JModelConfig(
+    name="engine-dense", family="dense", num_layers=2, d_model=64,
+    num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=64,
+    vocab_pad_multiple=8, dtype="float32",
+)
+WEIGHT_SEED = 0
+PROMPT_SEED = 1
+MAX_NEW = [24, 12, 30, 18]
+PIDS = ["a", "b", "a", "c"]
+MIN_GAP = 1e-3  # 5x the cross-framework logits tolerance
+
+
+def _prompts():
+    rng = np.random.default_rng(PROMPT_SEED)
+    base = {pid: [int(t) for t in rng.integers(2, CFG.vocab_size, size=n)]
+            for pid, n in (("a", 7), ("b", 4), ("c", 11))}
+    return [base[p] for p in PIDS]
+
+
+def _engines(fuse, scope):
+    eng_kw = dict(max_new_tokens=24, max_draft=4, block_buckets=(0, 2, 4),
+                  eos_token=1, fuse_rounds=fuse)
+    dr_kw = dict(scope=scope, min_match=1, device_tail=16)
+    jparams = make_params(CFG, seed=WEIGHT_SEED)
+    jeng = JSpecEngine(jparams, CFG, JEngineConfig(**eng_kw),
+                       drafter=JSuffixDrafter(JDrafterConfig(**dr_kw)))
+    cfg = ModelConfig(**dataclasses.asdict(CFG))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    teng = SpecEngine(params, cfg, EngineConfig(**eng_kw),
+                      drafter=SuffixDrafter(DrafterConfig(**dr_kw)),
+                      device="cpu")
+    return jparams, jeng, teng
+
+
+def _min_top2_gap(jparams, prompts, outs):
+    """Smallest JAX top-2 logit gap over the positions that emitted."""
+    gap = np.inf
+    for p, o in zip(prompts, outs):
+        if not o:
+            continue
+        seq = jnp.asarray([list(p) + list(o)], jnp.int32)
+        logits, _, _ = JM.forward(jparams, CFG, seq)
+        lg = np.asarray(logits[0, len(p) - 1: len(p) - 1 + len(o),
+                               : CFG.vocab_size])
+        top2 = np.sort(lg, axis=-1)[:, -2:]
+        gap = min(gap, float((top2[:, 1] - top2[:, 0]).min()))
+    return gap
+
+
+@pytest.mark.parametrize("fuse,scope", [("auto", "problem"),
+                                        ("off", "problem+request")])
+def test_generate_token_identical_to_jax(fuse, scope):
+    jparams, jeng, teng = _engines(fuse, scope)
+    prompts = _prompts()
+    total_accepted = 0
+    for it in range(2):  # the second pass drafts from the first's trees
+        jeng.begin_iteration(it)
+        teng.begin_iteration(it)
+        jouts, jst = jeng.generate(prompts, PIDS, max_new_tokens=MAX_NEW,
+                                   key=jax.random.key(0))
+        touts, tst = teng.generate(prompts, PIDS, max_new_tokens=MAX_NEW)
+        assert _min_top2_gap(jparams, prompts, jouts) > MIN_GAP
+        assert touts == jouts
+        assert (tst.n_rounds, tst.n_drafted, tst.n_accepted) == (
+            jst.n_rounds, jst.n_drafted, jst.n_accepted)
+        assert tst.n_toks_emitted == jst.n_toks_emitted
+        total_accepted += tst.n_accepted
+    assert total_accepted > 0, "the case must exercise accepted drafts"
+    if fuse == "auto":
+        assert teng.drafter.stats["batched_proposes"] > 0

@@ -1,0 +1,211 @@
+"""Suffix-match drafting: the port against the JAX package.
+
+Same seeded trees through both packages' ``SuffixTree.pack()`` and
+``pack_forest`` (arrays must be equal), then the port's plain propose
+against JAX ``suffix_match_propose`` with ``impl="ref"`` and with the
+Pallas kernel in interpret mode: bit-identical (integers only, no
+tolerance). The CUDA kernel is held against the plain version in the
+``gpu`` test (and in ``chip_smoke.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.drafter import DrafterConfig as JDrafterConfig
+from repro.core.drafter import SuffixDrafter as JSuffixDrafter
+from repro.core.suffix_tree import SuffixTree as JSuffixTree
+from repro.kernels.suffix_match import ops as jops
+from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
+from repro_torch.core.suffix_tree import SuffixTree
+from repro_torch.kernels.suffix_match import ops as tops
+from repro_torch.kernels.suffix_match.ref import suffix_match_propose_ref
+
+TAIL = 16
+KMAX = 8
+FIELDS = ("edge_node", "edge_tok", "edge_child", "suffix_link", "edge_start",
+          "edge_len", "first_tok", "best_child", "corpus", "first_child",
+          "next_sibling")
+
+
+def _mk(cls, docs, decay=1.0, epochs=None, remove=(), current=None):
+    tree = cls(epoch_decay=decay)
+    for i, d in enumerate(docs):
+        tree.add_document(list(d), epoch=epochs[i] if epochs else 0)
+    for d in remove:
+        tree.remove_document(d)
+    if current is not None:
+        tree.current_epoch = current
+        tree._dirty = True
+    return tree
+
+
+def _seeded_docs(seed, n_docs, vocab, max_len):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, vocab, size=rng.integers(1, max_len))]
+            for _ in range(n_docs)]
+
+
+TREES = {
+    "basic": dict(docs=[[1, 2, 3, 4, 5], [1, 2, 3, 9, 9], [7, 1, 2, 3, 9]]),
+    "decay_removal": dict(
+        docs=[[1, 2, 3, 4], [1, 2, 3, 8], [1, 2, 3, 8], [1, 2, 3, 4]],
+        decay=0.5, epochs=[0, 1, 2, 3], remove=(1,), current=5,
+    ),
+    "seeded_stream": dict(
+        docs=_seeded_docs(11, 10, 6, 30), decay=0.9,
+        epochs=list(range(10)), remove=(2, 5), current=12,
+    ),
+    "seeded_wide": dict(docs=_seeded_docs(12, 6, 40, 60), decay=0.8,
+                        epochs=[0, 0, 1, 1, 2, 2], remove=(0,), current=3),
+}
+
+
+def _pair(name):
+    kw = TREES[name]
+    return _mk(JSuffixTree, **kw), _mk(SuffixTree, **kw)
+
+
+@pytest.mark.parametrize("name", sorted(TREES))
+def test_pack_equals_jax(name):
+    jt, tt = _pair(name)
+    jp, tp = jt.pack(), tt.pack()
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(jp, f), getattr(tp, f), err_msg=f)
+    assert (jp.n_nodes, jp.version, jp.epoch) == (tp.n_nodes, tp.version, tp.epoch)
+
+
+def test_pack_forest_equals_jax():
+    pairs = [_pair(n) for n in sorted(TREES)]
+    jf, jr = jops.pack_forest([j.pack() for j, _ in pairs])
+    tf, tr = tops.pack_forest([t.pack() for _, t in pairs], device="cpu")
+    np.testing.assert_array_equal(jr, tr)
+    for name, a, b in zip(tops.PackedForest._fields, jf, tf):
+        assert b.dtype == torch.int32 and b.device.type == "cpu"
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+
+
+# (tree ordinal in sorted(TREES) order, document) — the forests below
+# pack the trees in that order
+ALL_DOCS = [(i, d) for i, n in enumerate(sorted(TREES)) for d in TREES[n]["docs"]]
+
+
+def _batch(seed, B, vocab, troots, p_inactive=0.25):
+    """Seeded rows: half the tails are cut from the trees' documents (so
+    they match deeply), half are random tokens."""
+    rng = np.random.default_rng(seed)
+    tails = np.full((B, TAIL), -1, np.int32)
+    roots = troots[rng.integers(0, len(troots), size=B)].astype(np.int32)
+    for b in range(B):
+        n = int(rng.integers(0, TAIL + 1))
+        if b % 2 == 0:
+            ti, doc = ALL_DOCS[int(rng.integers(0, len(ALL_DOCS)))]
+            roots[b] = troots[min(ti, len(troots) - 1)]
+            cut = int(rng.integers(1, len(doc) + 1))
+            src = np.asarray(doc[:cut][-n:], np.int32) if n else []
+            n = len(src)
+            tails[b, TAIL - n:] = src
+        else:
+            tails[b, TAIL - n:] = rng.integers(0, vocab, size=n)
+        if n > 3 and rng.random() < 0.3:  # a reset (separator) mid-tail
+            tails[b, TAIL - n + 1] = -1
+    roots[rng.random(B) < p_inactive] = -1
+    roots[0] = troots[0]
+    budgets = rng.integers(0, KMAX + 3, size=B).astype(np.int32)
+    return tails, roots, budgets
+
+
+@pytest.mark.parametrize("min_match", [1, 2, 3])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_propose_bit_identical_to_jax(seed, min_match):
+    pairs = [_pair(n) for n in sorted(TREES)]
+    jf, troots = jops.pack_forest([j.pack() for j, _ in pairs])
+    tf, _ = tops.pack_forest([t.pack() for _, t in pairs], device="cpu")
+    tails, roots, budgets = _batch(seed, 12, 8, troots)
+    want = [np.asarray(x) for x in jops.suffix_match_propose(
+        jf, tails, roots, budgets, n_prop_max=KMAX, min_match=min_match,
+        impl="ref",
+    )]
+    got = [x.numpy() for x in tops.suffix_match_propose(
+        tf, tails, roots, budgets, n_prop_max=KMAX, min_match=min_match,
+    )]
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+    assert (got[1] > 0).any(), "the case must actually propose something"
+    assert (got[0][roots < 0] == 0).all() and (got[2][roots < 0] == -1).all()
+
+
+def test_plain_propose_bit_identical_to_pallas_interpret():
+    jt, tt = _pair("seeded_stream")
+    jf, troots = jops.pack_forest([jt.pack()])
+    tf, _ = tops.pack_forest([tt.pack()], device="cpu")
+    tails, roots, budgets = _batch(5, 4, 6, troots)
+    want = [np.asarray(x) for x in jops.suffix_match_propose(
+        jf, tails, roots, budgets, n_prop_max=KMAX, min_match=1,
+        impl="pallas", interpret=True,
+    )]
+    got = [x.numpy() for x in tops.suffix_match_propose(
+        tf, tails, roots, budgets, n_prop_max=KMAX, min_match=1,
+    )]
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+
+
+def _drafters(cls_cfg, cls_drafter, docs):
+    d = cls_drafter(cls_cfg(scope="problem", min_match=1, window_size=3,
+                            device_tail=TAIL, max_draft=KMAX))
+    for e, (pid, toks) in enumerate(docs):
+        d.observe_rollout(pid, toks, epoch=e)  # evicts beyond the window
+        if e % 3 == 2:
+            d.begin_iteration(e + 1)
+    return d
+
+
+def test_batched_sessions_equal_jax():
+    rng = np.random.default_rng(7)
+    docs = [(f"p{i % 3}", [int(t) for t in rng.integers(0, 6, size=20)])
+            for i in range(9)]
+    jd = _drafters(JDrafterConfig, JSuffixDrafter, docs)
+    td = _drafters(DrafterConfig, SuffixDrafter, docs)
+    ctxs = [(f"p{b % 4}", [int(t) for t in rng.integers(0, 6, size=b + 2)])
+            for b in range(6)]
+    jb = jd.batched_sessions(len(ctxs))
+    tb = td.batched_sessions(len(ctxs), tensor_device="cpu")
+    assert jb.device and tb.device
+    for row, (pid, ctx) in enumerate(ctxs):
+        jb.open(row, pid, ctx)
+        tb.open(row, pid, ctx)
+    budgets = [4, 8, 2, 0, 6, 8]
+    want = jb.propose_batch(budgets)
+    assert tb.propose_batch(budgets) == want
+    assert any(want)
+    jb.feed(0, [3, 4])
+    tb.feed(0, [3, 4])
+    jb.close(1)
+    tb.close(1)
+    assert tb.propose_batch(budgets) == jb.propose_batch(budgets)
+
+
+def test_chunked_layout_is_refused():
+    d = SuffixDrafter(DrafterConfig(forest_layout="chunked"))
+    d.observe_rollout("p", [1, 2, 3, 4], 0)
+    bds = d.batched_sessions(1, tensor_device="cpu")
+    bds.open(0, "p", [1, 2])
+    with pytest.raises(NotImplementedError):
+        bds.propose_batch([4])
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_bit_identical_to_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    pairs = [_pair(n) for n in sorted(TREES)]
+    tf, troots = tops.pack_forest([t.pack() for _, t in pairs], device="cuda")
+    tails, roots, budgets = _batch(3, 64, 8, troots)
+    up = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    args = (up(tails), up(roots), up(budgets))
+    got = tops.suffix_match_propose_cuda(tf, *args, n_prop_max=KMAX, min_match=1)
+    want = suffix_match_propose_ref(*args, *tf, n_prop_max=KMAX, min_match=1)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
