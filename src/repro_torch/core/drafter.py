@@ -33,6 +33,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import resolve_device
+
 from .suffix_tree import MatchState, SuffixTree
 
 
@@ -160,8 +162,8 @@ class BatchedDraftSessions:
 
     ``device`` (bool) selects batched device drafting; scope
     ``problem+request`` needs the per-request tree and keeps per-row host
-    sessions instead. ``tensor_device`` is where the forest lives (the
-    engine's device).
+    sessions instead. ``tensor_device`` is where the forest lives: CUDA
+    unless the caller asks for the CPU (it raises without a card).
     """
 
     def __init__(
@@ -172,7 +174,7 @@ class BatchedDraftSessions:
         self.cfg = drafter.cfg
         self.n_rows = int(n_rows)
         self.device = bool(device) and self.cfg.scope != "problem+request"
-        self.tensor_device = tensor_device
+        self.tensor_device = resolve_device(tensor_device)
         self.tail_len = int(self.cfg.device_tail)
         self._sessions: List[Optional[DraftSession]] = [None] * self.n_rows
         self._keys: List[object] = [None] * self.n_rows

@@ -22,6 +22,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.suffix_match.ref import (
     n_search_steps,
@@ -118,8 +119,9 @@ def pack_forest(
         coff += c
     # Inert padding nodes self-link so a (masked) hop can never escape.
     sl[noff:] = np.arange(noff, N, dtype=np.int32)
+    dev = resolve_device(device)
     forest = PackedForest(*(
-        torch.from_numpy(a).to(device)
+        torch.tensor(a, device=dev)
         for a in (en, et, ec, sl, es, el, ft, bc, corpus)
     ))
     return forest, roots

@@ -186,6 +186,18 @@ def test_batched_sessions_equal_jax():
     assert tb.propose_batch(budgets) == jb.propose_batch(budgets)
 
 
+def test_batched_sessions_default_to_the_card(monkeypatch):
+    """Without a device the drafter's forest asks for CUDA, and raises
+    without a card: nothing quietly runs the plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = SuffixDrafter(DrafterConfig(scope="problem"))
+    d.observe_rollout("p", [1, 2, 3, 4], 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        d.batched_sessions(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tops.pack_forest([d.pack_for("p")])
+
+
 def test_chunked_layout_is_refused():
     d = SuffixDrafter(DrafterConfig(forest_layout="chunked"))
     d.observe_rollout("p", [1, 2, 3, 4], 0)
