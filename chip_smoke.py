@@ -8,19 +8,27 @@ imports only ``repro_torch``, torch and numpy. Phases (any failure exits
 non-zero; no phase's error is caught):
 
 1. device: the card's name and power limit (nvidia-smi), torch's view;
-2. build: both CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
+2. build: both CUDA sources from ``src/repro_torch/csrc`` with nvcc for
    sm_90a, in parallel, with the ptxas register/shared-memory report;
 3. kernels against their plain PyTorch versions at main-path shapes
    (spec-verify attention within the bfloat16 tolerance, suffix-match
-   bit-identical), with kernel / plain / library times (CUDA events,
-   L2 flushed before every launch) and each kernel's bound;
-4. main path: Qwen3-8B at full width (random weights from a seed, bf16),
-   lock-step DAS ``generate`` of 8 requests over 4 problems, two epochs
-   over the same prompts; epoch 2 must be token-identical to epoch 1 and
-   accept drafts, and both kernels must have launched during the run;
-   then a small float32 model's engine output against plain greedy
-   decoding without cache or kernels;
-5. the serving CLI as a subprocess.
+   flat and chunked bit-identical; the chunked kernel also against the
+   flat one over the same trees, at a forest larger than L2), with kernel
+   / plain / library times (CUDA events, L2 flushed before every launch)
+   and each kernel's bound;
+4. lock-step path: Qwen3-8B at full width (random weights from a seed,
+   bf16), DAS ``generate`` of 8 requests over 4 problems, two epochs over
+   the same prompts; epoch 2 must be token-identical to epoch 1 and
+   accept drafts, and the flat suffix-match and spec-verify kernels must
+   have launched during the run;
+5. continuous path: the same model through ``SpecEngine.serve`` — 24
+   requests over 12 problems in 8 slots, two epochs, with the chunked
+   forest and then, on a fresh engine and drafter, the flat one; the two
+   layouts must agree on every token, round and acceptance, and each run
+   must have launched its own suffix-match kernel and not the other;
+   then a small float32 model: lock-step and continuous (chunked) output
+   against plain greedy decoding without cache or kernels;
+6. the serving CLI as subprocesses (lock-step and ``--continuous``).
 
 The last lines are the card line, the per-kernel JSON line and the
 result line ``{"ok": true, "device": {...}}``.
@@ -224,10 +232,11 @@ def phase_spec_verify(torch, np, timer, card):
 # phase 3b: suffix-match drafting
 # ---------------------------------------------------------------------------
 
-def synthetic_rollouts(np, seed, n_problems=4, per_problem=8):
+def synthetic_rollouts(np, seed, n_problems=4, per_problem=8, doc_len=None):
     """Seeded rollouts that repeat themselves the way RL rollouts of one
     problem do: each problem has a few motifs; a rollout stitches motifs
-    with random edits."""
+    with random edits. Rollouts run to at least 300 tokens, or, with
+    ``doc_len=(lo, hi)``, to a length drawn from [lo, hi]."""
     rng = np.random.default_rng(seed)
     out = {}
     for p in range(n_problems):
@@ -235,15 +244,59 @@ def synthetic_rollouts(np, seed, n_problems=4, per_problem=8):
                   for _ in range(6)]
         docs = []
         for _ in range(per_problem):
+            target = (300 if doc_len is None
+                      else int(rng.integers(doc_len[0], doc_len[1] + 1)))
             doc = []
-            while len(doc) < 300:
+            while len(doc) < target:
                 m = list(motifs[rng.integers(0, len(motifs))])
                 if rng.random() < 0.3:
                     m[rng.integers(0, len(m))] = int(rng.integers(2, 5000))
                 doc += m
+            if doc_len is not None:
+                doc = doc[:target]
             docs.append([int(t) for t in doc])
         out[f"p{p}"] = docs
     return out
+
+
+class ReadCounter:
+    """Stands in for one forest array in the plain version and marks each
+    entry the walk reads, so the bound counts the distinct entries these
+    inputs need (the plain version only indexes its arrays and reads their
+    shapes)."""
+
+    def __init__(self, torch, t):
+        self.t = t
+        self.shape = t.shape
+        self.seen = torch.zeros(t.shape, dtype=torch.bool, device=t.device)
+
+    def __getitem__(self, idx):
+        self.seen[idx] = True
+        return self.t[idx]
+
+
+def suffix_match_bound_ms(torch, tails, roots, budgets, forest, *, chunked,
+                          n_prop_max, min_match):
+    """Least time for the same work: the distinct forest entries the plain
+    walk reads for these inputs, the query (tails, roots, budgets) and the
+    outputs (match_len, n_prop, props), each int32 moved once at the HBM
+    rate. Returns (ms, forest entries read)."""
+    from repro_torch.kernels.suffix_match import ref
+
+    kw = dict(n_prop_max=n_prop_max, min_match=min_match)
+    if chunked:
+        counters = [ReadCounter(torch, a) for a in forest]
+        ref.suffix_match_propose_chunked_ref(tails, roots, budgets,
+                                             *counters, **kw)
+    else:  # the flat layout is the one-tree case of the same core
+        counters = [ReadCounter(torch, a[None]) for a in forest]
+        tree = torch.zeros(tails.shape[0], dtype=torch.long,
+                           device=tails.device)
+        ref._propose_rows(tails, tree, roots, budgets, counters, **kw)
+    entries = sum(int(c.seen.sum()) for c in counters)
+    B, m = tails.shape
+    nbytes = 4 * (entries + B * m + 2 * B + 2 * B + B * n_prop_max)
+    return nbytes / HBM_BYTES_PER_S * 1e3, entries
 
 
 def phase_suffix_match(torch, np, timer, card):
@@ -288,14 +341,11 @@ def phase_suffix_match(torch, np, timer, card):
         forest, *args, n_prop_max=K, min_match=1), 50)
     plain_ms = timer.ms(lambda: suffix_match_propose_ref(
         *args, *forest, n_prop_max=K, min_match=1), 5, warmup=1)
-    # bytes that must move: the query in, the proposals out. The forest
-    # entries a row visits depend on the data and are a few KB; the bound
-    # leaves them out, so it stays a lower bound.
-    nbytes = 4 * (B * m + 2 * B) + 4 * (2 * B + B * K)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, entries = suffix_match_bound_ms(
+        torch, *args, forest, chunked=False, n_prop_max=K, min_match=1)
     log(f"suffix_match timing: kernel {ms * 1e3:.1f} us, plain "
-        f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.4f} us (bytes)  "
-        f"[{card}]")
+        f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.4f} us (bytes: "
+        f"{entries} forest entries read + query + outputs)  [{card}]")
     return dict(name="suffix_match_propose", route="cuda",
                 source="src/repro_torch/csrc/suffix_match.cu",
                 replaces="src/repro/kernels/suffix_match/kernel.py:331",
@@ -304,15 +354,131 @@ def phase_suffix_match(torch, np, timer, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path at full width
+# phase 3c: chunked suffix-match drafting at a forest larger than L2
 # ---------------------------------------------------------------------------
 
-def phase_main_path(torch, np, card):
-    from repro_torch.configs import get_config
+def chunked_case(torch, np, dev, n_problems=64, B=64, m=64, K=16,
+                 doc_len=(1024, 2048)):
+    """The phase's forest and query: ``n_problems`` problems of 8 seeded
+    rollouts each, packed chunked and flat; B rows, one tree each, most
+    tails cut from a rollout of the row's problem, some unseen, with
+    inactive rows and zero budgets among them."""
     from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
-    from repro_torch.core.spec_engine import EngineConfig, SpecEngine
+    from repro_torch.kernels.suffix_match import ops as sm_ops
+
+    rollouts = synthetic_rollouts(np, 21, n_problems=n_problems,
+                                  per_problem=8, doc_len=doc_len)
+    d = SuffixDrafter(DrafterConfig(scope="problem"))
+    for pid, docs in rollouts.items():
+        for doc in docs:
+            d.observe_rollout(pid, doc, epoch=0)
+    keys = list(rollouts)
+    packs = [d.pack_for(k) for k in keys]
+    cf, troots = sm_ops.pack_forest_chunked(packs, device=dev)
+    ff, froots = sm_ops.pack_forest(packs, device=dev)
+    rng = np.random.default_rng(22)
+    tails = np.full((B, m), -1, np.int32)
+    roots = np.zeros(B, np.int32)
+    for b in range(B):
+        p = (b * 37) % len(keys)
+        roots[b] = troots[p]
+        if b % 8 == 7:  # a context the tree has not seen
+            tail = rng.integers(2, 5000, size=m)
+        else:
+            doc = rollouts[keys[p]][int(rng.integers(0, 8))]
+            cut = int(rng.integers(m, len(doc)))
+            tail = doc[cut - m:cut]
+        tails[b, m - len(tail):] = tail
+    roots[4::9] = -1  # inactive rows
+    budgets = np.full(B, K, np.int32)
+    budgets[3::10] = 0
+    budgets[6::10] = rng.integers(1, K, size=len(budgets[6::10]))
+    flat_roots = np.where(roots >= 0, froots[np.maximum(roots, 0)], -1)
+    up = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    n_tok = sum(len(doc) for docs in rollouts.values() for doc in docs)
+    return (cf, ff, (up(tails), up(roots), up(budgets)), up(flat_roots),
+            n_tok)
+
+
+def phase_suffix_match_chunked(torch, np, timer, card):
+    from repro_torch.kernels.suffix_match import ops as sm_ops
+    from repro_torch.kernels.suffix_match.ref import (
+        suffix_match_propose_chunked_ref,
+    )
+
+    K = 16
+    t0 = time.perf_counter()
+    cf, ff, args, flat_roots, n_tok = chunked_case(torch, np, "cuda", K=K)
+    fargs = (args[0], flat_roots, args[2])
+    B, m = args[0].shape
+    T, Es = cf.edge_node.shape
+    mb = sum(t.numel() for t in cf) * 4 / 1e6
+    log(f"suffix_match chunked forest: {T} trees, {n_tok} tokens, strides "
+        f"Es={Es} Ns={cf.suffix_link.shape[1]} Cs={cf.corpus.shape[1]}, "
+        f"{mb:.1f} MB (flat: {sum(t.numel() for t in ff) * 4 / 1e6:.1f} MB), "
+        f"built in {time.perf_counter() - t0:.1f} s on the host")
+    kw = dict(n_prop_max=K, min_match=1)
+    got = sm_ops.suffix_match_propose_chunked_cuda(cf, *args, **kw)
+    want = suffix_match_propose_chunked_ref(*args, *cf, **kw)
+    flat = sm_ops.suffix_match_propose_cuda(ff, *fargs, **kw)
+    torch.cuda.synchronize()
+    for name, g, w, f in zip(("match_len", "n_prop", "props"), got, want,
+                             flat):
+        check(torch.equal(g, w), f"suffix_match chunked {name} differs "
+              "from its plain version")
+        check(torch.equal(g, f), f"suffix_match chunked {name} differs "
+              "from the flat kernel over the same trees")
+    n_prop = got[1].cpu().numpy()
+    check(int(n_prop.sum()) > 0, "suffix_match chunked proposed nothing")
+    log(f"suffix_match chunked (B={B} m={m} K={K}): bit-identical to the "
+        f"plain version and the flat kernel; {int((n_prop > 0).sum())} rows "
+        f"proposed {int(n_prop.sum())} tokens")
+    ms = timer.ms(lambda: sm_ops.suffix_match_propose_chunked_cuda(
+        cf, *args, **kw), 50)
+    flat_ms = timer.ms(lambda: sm_ops.suffix_match_propose_cuda(
+        ff, *fargs, **kw), 50)
+    plain_ms = timer.ms(lambda: suffix_match_propose_chunked_ref(
+        *args, *cf, **kw), 5, warmup=1)
+    bound_ms, entries = suffix_match_bound_ms(torch, *args, cf, chunked=True,
+                                              **kw)
+    flat_bound_ms, flat_entries = suffix_match_bound_ms(
+        torch, *fargs, ff, chunked=False, **kw)
+    log(f"suffix_match chunked timing: kernel {ms * 1e3:.1f} us, flat kernel "
+        f"{flat_ms * 1e3:.1f} us (same trees, same call), plain "
+        f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.4f} us (bytes: "
+        f"{entries} forest entries read + query + outputs; flat walk "
+        f"{flat_entries} entries, {flat_bound_ms * 1e3:.4f} us)  [{card}]")
+    return dict(name="suffix_match_propose_chunked", route="cuda",
+                source="src/repro_torch/csrc/suffix_match.cu",
+                replaces="src/repro/kernels/suffix_match/kernel.py:415",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the lock-step path at full width
+# ---------------------------------------------------------------------------
+
+def reset_launches():
     from repro_torch.kernels.spec_verify import ops as sv_ops
     from repro_torch.kernels.suffix_match import ops as sm_ops
+
+    sv_ops.LAUNCHES = 0
+    sm_ops.LAUNCHES = 0
+    sm_ops.LAUNCHES_CHUNKED = 0
+
+
+def read_launches():
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    from repro_torch.kernels.suffix_match import ops as sm_ops
+
+    return {"spec_verify_attention": sv_ops.LAUNCHES,
+            "suffix_match_propose": sm_ops.LAUNCHES,
+            "suffix_match_propose_chunked": sm_ops.LAUNCHES_CHUNKED}
+
+
+def full_width_model(torch):
+    from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
     cfg = get_config("qwen3-8b")
@@ -324,6 +490,14 @@ def phase_main_path(torch, np, card):
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
         f"{cfg.padded_vocab}) initialised on the card in "
         f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def phase_main_path(torch, np, card, cfg, params):
+    from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
+    from repro_torch.core.spec_engine import EngineConfig, SpecEngine
+    from repro_torch.models import model as M
+
     # One K bucket (16): every verify round runs the same (8, 17) block
     # shape, so the GEMMs of both epochs use the same kernels and T=0
     # identity across epochs does not rest on cuBLAS picking the same
@@ -355,8 +529,7 @@ def phase_main_path(torch, np, card):
     check(tuple(last.shape) == (8, cfg.padded_vocab), "prefill logits shape")
     check(bool(torch.isfinite(last).all()), "prefill logits not finite")
 
-    sv_ops.LAUNCHES = 0
-    sm_ops.LAUNCHES = 0
+    reset_launches()
     epochs = []
     for ep in range(2):
         eng.begin_iteration(ep)
@@ -373,9 +546,8 @@ def phase_main_path(torch, np, card):
             f"{st.n_drafted}, accepted {st.n_accepted} "
             f"({st.acceptance_per_round:.2f}/round), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
-    launches = {"spec_verify_attention": sv_ops.LAUNCHES,
-                "suffix_match_propose": sm_ops.LAUNCHES}
-    log(f"main-path launches: {launches}")
+    launches = read_launches()
+    log(f"lock-step path launches: {launches}")
     (o1, s1), (o2, s2) = epochs
     for b, o in enumerate(o1):
         check(len(o) <= max_new[b], f"row {b} emitted {len(o)} > {max_new[b]}")
@@ -383,18 +555,168 @@ def phase_main_path(torch, np, card):
     check(o2 == o1, "epoch 2 outputs differ from epoch 1 (T=0 is lossless)")
     check(s2.n_accepted > 0, "epoch 2 accepted no drafts")
     check(s2.n_rounds < s1.n_rounds, "epoch 2 did not cut verify rounds")
-    for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the main path")
-    del eng, params
+    for name in ("spec_verify_attention", "suffix_match_propose"):
+        check(launches[name] > 0, f"{name} never launched on the lock-step "
+              "path")
+    check(launches["suffix_match_propose_chunked"] == 0,
+          "the chunked kernel launched on the flat lock-step path")
+    del eng
     torch.cuda.empty_cache()
-    return launches, [dict(rounds=s.n_rounds, tokens=s.n_toks_emitted,
-                           accepted=s.n_accepted) for _, s in epochs]
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the continuous path at full width
+# ---------------------------------------------------------------------------
+
+def continuous_requests(np, vocab, n_problems=12, n_requests=24,
+                        limits=(32, 64, 128, 256), prompt_len=(128, 256)):
+    """Seeded prompts of ``prompt_len`` tokens, two requests a problem,
+    token limits cycling through ``limits``."""
+    rng = np.random.default_rng(7)
+    problems = [[int(t) for t in rng.integers(
+                    2, vocab, size=int(rng.integers(prompt_len[0],
+                                                    prompt_len[1] + 1)))]
+                for _ in range(n_problems)]
+    per = n_requests // n_problems
+    return ([problems[i // per] for i in range(n_requests)],
+            [f"p{i // per}" for i in range(n_requests)],
+            [limits[i % len(limits)] for i in range(n_requests)])
+
+
+def serve_epochs(torch, eng, prompts, pids, max_new, slots, dev, card, tag):
+    """Two epochs of ``SpecEngine.serve`` over the same requests; returns
+    per epoch the outputs, per-request rounds and admission rounds, and
+    the stats."""
+    from repro_torch.core.scheduler import Request
+    from repro_torch.core.spec_engine import RolloutStats
+
+    runs = []
+    for ep in range(2):
+        eng.begin_iteration(ep)
+        reqs = [Request(rid=i, problem_id=pids[i], prompt=list(prompts[i]),
+                        max_new_tokens=max_new[i])
+                for i in range(len(prompts))]
+        st = RolloutStats()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in eng.serve(reqs, slots=slots, stats=st):
+            pass
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        toks = st.n_toks_emitted
+        log(f"{tag} epoch {ep + 1}: makespan {st.n_rounds} rounds, wall "
+            f"{wall * 1e3:.1f} ms, tokens {toks}, {toks / wall:.1f} tok/s, "
+            f"drafted {st.n_drafted}, accepted {st.n_accepted}  [{card}]")
+        runs.append(dict(outputs=[r.output for r in reqs],
+                         rounds=[r.rounds for r in reqs],
+                         admit=[r.admit_round for r in reqs],
+                         makespan=st.n_rounds, accepted=st.n_accepted,
+                         stats=st))
+    return runs
+
+
+def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
+                       n_problems, n_requests, limits, prompt_len):
+    """The continuous path with the chunked forest, then with the flat one
+    on a fresh engine and drafter; gated as ``phase_continuous`` says.
+    Returns the chunked run's launches, its runs and the lock-step
+    outputs of the same prompts."""
+    from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
+    from repro_torch.core.spec_engine import EngineConfig, SpecEngine
+    from repro_torch.kernels.suffix_match import ops as sm_ops
+
+    prompts, pids, max_new = continuous_requests(
+        np, cfg.vocab_size, n_problems, n_requests, limits, prompt_len)
+    trees_seen = []
+    chunked_cuda = sm_ops.suffix_match_propose_chunked_cuda
+
+    def spy(forest, *a, **k):  # records the forest each launch walks
+        trees_seen.append(int(forest.edge_node.shape[0]))
+        return chunked_cuda(forest, *a, **k)
+
+    result = {}
+    for layout in ("chunked", "flat"):
+        # one K bucket (16): every verify round runs one (slots, 17) block
+        eng = SpecEngine(
+            params, cfg,
+            EngineConfig(max_draft=16, block_buckets=(16,),
+                         max_new_tokens=max(limits), eos_token=1,
+                         fuse_rounds="auto"),
+            drafter=SuffixDrafter(DrafterConfig(scope="problem",
+                                                forest_layout=layout)),
+            device=dev,
+        )
+        sm_ops.suffix_match_propose_chunked_cuda = spy
+        try:
+            reset_launches()
+            runs = serve_epochs(torch, eng, prompts, pids, max_new, slots,
+                                dev, card, f"continuous ({layout})")
+            launches = read_launches()
+        finally:
+            sm_ops.suffix_match_propose_chunked_cuda = chunked_cuda
+        log(f"continuous ({layout}) launches: {launches}")
+        result[layout] = (runs, launches, eng)
+    (c_runs, c_launch, c_eng), (f_runs, f_launch, f_eng) = (
+        result["chunked"], result["flat"])
+    for ep, (c, f) in enumerate(zip(c_runs, f_runs)):
+        for key in ("outputs", "rounds", "makespan", "accepted"):
+            check(c[key] == f[key], f"continuous epoch {ep + 1}: {key} "
+                  "differ between the chunked and the flat layouts")
+        for i, o in enumerate(c["outputs"]):
+            check(len(o) <= max_new[i], f"request {i} emitted {len(o)}")
+            check(all(0 <= t < cfg.vocab_size for t in o),
+                  f"request {i}: bad token")
+        check(max(c["admit"]) > 0, "no slot was recycled")
+    check(c_runs[1]["accepted"] > 0, "continuous epoch 2 accepted no drafts")
+    if dev == "cuda":
+        check(c_launch["suffix_match_propose_chunked"] > 0,
+              "the chunked kernel never launched on the chunked run")
+        check(c_launch["suffix_match_propose"] == 0,
+              "the flat kernel launched on the chunked run")
+        check(f_launch["suffix_match_propose"] > 0,
+              "the flat kernel never launched on the flat run")
+        check(f_launch["suffix_match_propose_chunked"] == 0,
+              "the chunked kernel launched on the flat run")
+        check(c_launch["spec_verify_attention"] > 0,
+              "spec_verify never launched on the continuous path")
+        check(max(trees_seen, default=0) >= n_problems,
+              f"the chunked forest held {max(trees_seen, default=0)} trees")
+    del c_eng
+    lock, _ = f_eng.generate(prompts, pids, max_new_tokens=max_new)
+    del f_eng
+    return c_launch, c_runs, lock
+
+
+def phase_continuous(torch, np, card, cfg, params):
+    """``SpecEngine.serve`` at full width: 24 requests over 12 problems in
+    8 slots, two epochs, chunked then flat. Gated: identical outputs,
+    per-request rounds, makespan and acceptances between the layouts;
+    each run launched its own suffix-match kernel and not the other; the
+    chunked forest held every problem's tree; slots were recycled; epoch 2
+    accepted drafts. Reported: how many outputs equal lock-step
+    ``generate`` on the same prompts (bf16 admissions prefill in chunks of
+    other sizes than the lock-step batch, so cuBLAS may round
+    differently)."""
+    launches, runs, lock = continuous_layouts(
+        torch, np, cfg, params, "cuda", card, slots=8, n_problems=12,
+        n_requests=24, limits=(32, 64, 128, 256), prompt_len=(128, 256))
+    same = [sum(a == b for a, b in zip(r["outputs"], lock)) for r in runs]
+    log(f"continuous vs lock-step generate (bf16, reported): {same[0]} / "
+        f"{len(lock)} outputs equal in epoch 1, {same[1]} / {len(lock)} in "
+        f"epoch 2  [{card}]")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_small_reference(torch, np):
     """The engine (kernels, ring cache, drafts) against plain greedy
     decoding (full-sequence forward, no cache, no kernels) on a small
-    float32 model, compared up to the first near-tie (top-2 gap < 1e-3)."""
+    float32 model, compared up to the first near-tie (top-2 gap < 1e-3);
+    the continuous engine (fewer slots than requests, chunked forest) must
+    give the lock-step engine's tokens in both epochs."""
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
     from repro_torch.core.spec_engine import EngineConfig, SpecEngine
@@ -402,17 +724,30 @@ def phase_small_reference(torch, np):
 
     cfg = smoke_variant(get_config("qwen3-8b"))
     params = M.init_params(cfg, seed=3, device="cuda")
-    eng = SpecEngine(params, cfg, EngineConfig(max_new_tokens=24, max_draft=8,
-                                               eos_token=1),
-                     drafter=SuffixDrafter(DrafterConfig(scope="problem")),
-                     device="cuda")
+
+    def engine(layout):
+        return SpecEngine(
+            params, cfg,
+            EngineConfig(max_new_tokens=24, max_draft=8, eos_token=1),
+            drafter=SuffixDrafter(DrafterConfig(scope="problem",
+                                                forest_layout=layout)),
+            device="cuda")
+
+    eng, cont = engine("auto"), engine("chunked")
     rng = np.random.default_rng(2)
     prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, size=n)]
                for n in (9, 14, 20, 5)]
     pids = ["a", "b", "a", "c"]
+    accepted = 0
     for ep in range(2):
         eng.begin_iteration(ep)
+        cont.begin_iteration(ep)
         outs, st = eng.generate(prompts, pids)
+        couts, cst = cont.generate_continuous(prompts, pids, slots=2)
+        check(couts == outs, f"epoch {ep + 1}: generate_continuous differs "
+              "from lock-step generate (float32)")
+        accepted += cst.n_accepted
+    check(accepted > 0, "the continuous engine accepted no drafts")
     compared = 0
     with torch.inference_mode():
         for p, o in zip(prompts, outs):
@@ -430,21 +765,25 @@ def phase_small_reference(torch, np):
                 seq.append(tok)
     check(compared >= 40, f"only {compared} tokens compared")
     log(f"small float32 reference: {compared} tokens equal to plain greedy "
-        f"decoding (epoch 2 accepted {st.n_accepted})")
+        f"decoding; generate_continuous (2 slots, chunked) equal to "
+        f"lock-step generate in both epochs (epoch 2 accepted "
+        f"{st.n_accepted} lock-step, {cst.n_accepted} continuous)")
 
 
 def phase_cli(card):
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           "qwen3-8b", "--smoke", "--scope", "problem", "--rounds", "2"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True,
-                          text=True, timeout=600)
-    tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
-    check(proc.returncode == 0,
-          f"serve CLI exited {proc.returncode}: {' | '.join(tail)}")
-    log(f"serve CLI ok in {time.perf_counter() - t0:.1f} s [{card}]: "
-        f"{' | '.join(tail)}")
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke"]
+    for args in (["--arch", "qwen3-8b", "--scope", "problem", "--rounds",
+                  "2"],
+                 ["--arch", "qwen2-1.5b", "--continuous"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + args, cwd=str(ROOT), env=env,
+                              capture_output=True, text=True, timeout=600)
+        tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
+        check(proc.returncode == 0, f"serve CLI {' '.join(args)} exited "
+              f"{proc.returncode}: {' | '.join(tail)}")
+        log(f"serve CLI {' '.join(args)} ok in "
+            f"{time.perf_counter() - t0:.1f} s [{card}]: {' | '.join(tail)}")
 
 
 def main() -> None:
@@ -479,9 +818,16 @@ def main() -> None:
 
     timer = Timer(torch)
     kernels = [phase_spec_verify(torch, np, timer, card),
-               phase_suffix_match(torch, np, timer, card)]
+               phase_suffix_match(torch, np, timer, card),
+               phase_suffix_match_chunked(torch, np, timer, card)]
     del timer
-    launches, _ = phase_main_path(torch, np, card)
+    cfg, params = full_width_model(torch)
+    launches = phase_main_path(torch, np, card, cfg, params)
+    # the chunked kernel's main path is the continuous one
+    launches["suffix_match_propose_chunked"] = phase_continuous(
+        torch, np, card, cfg, params)["suffix_match_propose_chunked"]
+    del params
+    torch.cuda.empty_cache()
     phase_small_reference(torch, np)
     phase_cli(card)
     for k in kernels:

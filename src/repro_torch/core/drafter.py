@@ -17,12 +17,12 @@ Scopes
 Rollouts live in a local ``RolloutHistoryStore`` that keeps the last
 ``window_size`` rollouts per problem; trees are maintained live by an
 ``IncrementalIndex`` (online extend, online retire). Batched device
-drafting packs the rows' trees into one flat forest and proposes for the
-whole batch in one ``kernels/suffix_match`` call — the CUDA kernel on the
-card, its plain version on the CPU.
+drafting packs the rows' trees into one forest — flat (one concatenated
+table) or chunked (one row per tree) — and proposes for the whole batch
+in one ``kernels/suffix_match`` call: a CUDA kernel on the card, its
+plain version on the CPU.
 
-Not ported yet: the remote (history-service) backing and the chunked
-forest layout.
+Not ported yet: the remote (history-service) backing.
 """
 
 from __future__ import annotations
@@ -55,10 +55,13 @@ class DrafterConfig:
     # MatchState's resync_cap (acceptance-only effect — T=0 verification
     # is lossless either way).
     device_tail: int = 64
-    # Packed-forest device layout. "auto" and "flat" share one
-    # concatenated forest with every row; "chunked" (per-tree rows) is
-    # not ported yet and raises.
+    # Packed-forest device layout. "flat" shares one concatenated forest
+    # with every row; "chunked" packs one row per tree and each row reads
+    # only its own tree. "auto" takes chunked only on a TPU once the flat
+    # forest passes ``vmem_budget_bytes`` (the reference's rule), so in
+    # the port "auto" is flat and the budget is kept for config parity.
     forest_layout: str = "auto"  # auto | flat | chunked
+    vmem_budget_bytes: int = 6 << 20
 
     def __post_init__(self) -> None:
         if self.scope not in ("problem", "problem+request", "global"):
@@ -192,6 +195,11 @@ class BatchedDraftSessions:
         self._min_nodes = 0
         self._min_edges = 0
         self._min_corpus = 0
+        # chunked-layout floors (per-tree strides + tree count)
+        self._min_stride_n = 0
+        self._min_stride_e = 0
+        self._min_stride_c = 0
+        self._min_trees = 0
         # Bumped on every repack: the fused path keys its device
         # roots/forest uploads on this.
         self.repack_version = 0
@@ -264,36 +272,60 @@ class BatchedDraftSessions:
                     del self._packed_by_key[key]
             keys = list(self._packed_by_key.keys())
             packs = [self._packed_by_key[k] for k in keys]
-            self._pick_layout(packs)
-            # The packed corpus carries retired text until the index
-            # compacts at compact_ratio x live, so sizes cycle between
-            # ~live and ~ratio x live: floor every bucket at the cycle's
-            # maximum (nodes <= 2 x corpus tokens), rounded to a power of
-            # two, so steady-state serving keeps one forest geometry.
-            live = sum(drafter.live_tokens_for(k) for k in keys)
-            floor_c = int((drafter.index.compact_ratio + 1.0) * live)
-            p2 = sm_ops._bucket(max(floor_c, sm_ops._MIN_CORPUS), 1)
-            self._forest, roots = sm_ops.pack_forest(
-                packs,
-                min_nodes=max(self._min_nodes, 2 * p2, sm_ops._MIN_NODES),
-                min_edges=max(self._min_edges, 2 * p2, sm_ops._MIN_EDGES),
-                min_corpus=max(self._min_corpus, p2),
-                device=self.tensor_device,
-            )
-            self._min_nodes = int(self._forest.suffix_link.shape[0])
-            self._min_edges = int(self._forest.edge_node.shape[0])
-            self._min_corpus = int(self._forest.corpus.shape[0])
+            if self._pick_layout(packs) == "chunked":
+                # Per-tree strides floor at the cycle maximum of the
+                # largest tree (the compaction-cycle argument below,
+                # applied per chunk).
+                live_max = max(
+                    (drafter.live_tokens_for(k) for k in keys), default=0
+                )
+                floor_c = int((drafter.index.compact_ratio + 1.0) * live_max)
+                p2 = sm_ops._bucket(max(floor_c, sm_ops._MIN_STRIDE), 1)
+                self._forest, roots = sm_ops.pack_forest_chunked(
+                    packs,
+                    min_stride_nodes=max(self._min_stride_n, 2 * p2),
+                    min_stride_edges=max(self._min_stride_e, 2 * p2),
+                    min_stride_corpus=max(self._min_stride_c, p2),
+                    min_trees=max(self._min_trees, 1),
+                    device=self.tensor_device,
+                )
+                self._min_trees = int(self._forest.corpus.shape[0])
+                self._min_stride_n = int(self._forest.suffix_link.shape[1])
+                self._min_stride_e = int(self._forest.edge_node.shape[1])
+                self._min_stride_c = int(self._forest.corpus.shape[1])
+            else:
+                # The packed corpus carries retired text until the index
+                # compacts at compact_ratio x live, so sizes cycle between
+                # ~live and ~ratio x live: floor every bucket at the
+                # cycle's maximum (nodes <= 2 x corpus tokens), rounded to
+                # a power of two, so steady-state serving keeps one forest
+                # geometry.
+                live = sum(drafter.live_tokens_for(k) for k in keys)
+                floor_c = int((drafter.index.compact_ratio + 1.0) * live)
+                p2 = sm_ops._bucket(max(floor_c, sm_ops._MIN_CORPUS), 1)
+                self._forest, roots = sm_ops.pack_forest(
+                    packs,
+                    min_nodes=max(self._min_nodes, 2 * p2,
+                                  sm_ops._MIN_NODES),
+                    min_edges=max(self._min_edges, 2 * p2,
+                                  sm_ops._MIN_EDGES),
+                    min_corpus=max(self._min_corpus, p2),
+                    device=self.tensor_device,
+                )
+                self._min_nodes = int(self._forest.suffix_link.shape[0])
+                self._min_edges = int(self._forest.edge_node.shape[0])
+                self._min_corpus = int(self._forest.corpus.shape[0])
             self._roots_by_key = {k: int(r) for k, r in zip(keys, roots)}
             self.repack_version += 1
             self.drafter.stats["forest_repacks"] += 1
 
     def _pick_layout(self, packs) -> str:
-        """Flat forest layout; the chunked layout is not ported yet."""
-        if self.cfg.forest_layout == "chunked":
-            raise NotImplementedError(
-                "forest_layout='chunked' (per-tree forest rows and their "
-                "kernel) is not ported yet; use 'auto' or 'flat'"
-            )
+        """Flat vs chunked forest layout: a set layout wins. ``auto`` takes
+        chunked only on a TPU whose VMEM the flat forest outgrows (the
+        reference's rule, which then stays chunked), so in the port
+        ``auto`` is flat."""
+        if self.cfg.forest_layout != "auto":
+            return self.cfg.forest_layout
         return "flat"
 
     def prewarm(self) -> None:
@@ -316,21 +348,24 @@ class BatchedDraftSessions:
 
     def forest_arrays(self):
         """Current packed forest for the fused round. Falls back to a
-        cached empty flat forest when no tree is packed yet (cold start:
-        every row proposes nothing, root -1)."""
+        cached empty forest of the configured layout when no tree is
+        packed yet (cold start: every row proposes nothing, root -1), so
+        a chunked configuration launches only the chunked kernel."""
         if self._forest is not None:
             return self._forest
         if self._empty_forest is None:
             from repro_torch.kernels.suffix_match import ops as sm_ops
 
-            self._empty_forest, _ = sm_ops.pack_forest(
-                [], device=self.tensor_device
-            )
+            pack = (sm_ops.pack_forest_chunked
+                    if self._pick_layout([]) == "chunked"
+                    else sm_ops.pack_forest)
+            self._empty_forest, _ = pack([], device=self.tensor_device)
         return self._empty_forest
 
     def roots_array(self) -> np.ndarray:
-        """(n_rows,) per-row root node into the current forest; -1 for
-        closed rows and rows whose tree is not packed yet."""
+        """(n_rows,) per-row root handle into the current forest (node id
+        for the flat layout, tree ordinal for chunked); -1 for closed rows
+        and rows whose tree is not packed yet."""
         roots = np.full(self.n_rows, -1, np.int32)
         for b in range(self.n_rows):
             if self._open[b]:
@@ -340,14 +375,25 @@ class BatchedDraftSessions:
     def tails_matrix(self) -> np.ndarray:
         """(n_rows, tail_len) left-padded context tails — the one-time
         host→device seed of the fused round state."""
+        return np.stack([self.tail_row(b) for b in range(self.n_rows)])
+
+    def tail_row(self, row: int) -> np.ndarray:
+        """(tail_len,) left-padded tail of one row (fused admissions)."""
         m = self.tail_len
-        out = np.full((self.n_rows, m), -1, np.int32)
-        for b in range(self.n_rows):
-            cur = int(self._tlen[b])
-            n = min(cur, m)
-            if n:
-                out[b, m - n:] = self._tails[b, cur - n:cur]
+        out = np.full(m, -1, np.int32)
+        cur = int(self._tlen[row])
+        n = min(cur, m)
+        if n:
+            out[m - n:] = self._tails[row, cur - n:cur]
         return out
+
+    def feed_rows(self, rows, cand: np.ndarray, n_take) -> None:
+        """Feed each row its accepted tokens ``cand[b, :n_take[b]]`` (the
+        unfused consume path)."""
+        for b in rows:
+            k = int(n_take[b])
+            if k:
+                self.feed(b, cand[b, :k])
 
     def dispatch(self, budgets) -> Optional[tuple]:
         """Issue the round's batched propose; returns an opaque handle

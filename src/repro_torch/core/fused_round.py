@@ -5,7 +5,7 @@ yet).
 
 One round:
 
-    propose (suffix_match kernel over the packed forest)
+    propose (a suffix_match kernel over the packed forest, flat or chunked)
       → build the (B, K+1) verify block on the device
       → model forward (spec_verify kernel per layer) + ``verify_block``
       → cache commit (ring-slot overwrite, in place)
@@ -99,13 +99,15 @@ def emit_scan_device(
 
 
 def fused_round(
-    params, cfg, forest: sm_ops.PackedForest, cache: M.Cache,
+    params, cfg, forest, cache: M.Cache,
     state: RoundState, roots: torch.Tensor, budgets: torch.Tensor, *,
     K: int, temperature: float, eos_token: int, min_match: int,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """One fused round over device tensors: propose → verify → commit →
-    state. ``cache`` and ``state`` are updated in place. Returns ``out``
+    state. ``forest`` is a ``PackedForest`` (roots are node ids) or a
+    ``ChunkedForest`` (roots are tree ordinals); ``propose_device``
+    routes on its type. ``cache`` and ``state`` are updated in place. Returns ``out``
     (B, K+5) int32 = ``[cand (K+1) | accepted | n_take | alive | n_prop]``;
     rows outside ``state.active`` carry zeros in the bookkeeping columns
     and leave cache/state untouched."""

@@ -1,5 +1,6 @@
-"""Speculative-decoding rollout engine (paper Fig. 3), lock-step mode —
-the port's counterpart of ``repro.core.spec_engine``.
+"""Speculative-decoding rollout engine (paper Fig. 3), lock-step and
+continuous-batching modes — the port's counterpart of
+``repro.core.spec_engine``.
 
 Host side: the length-aware budget policy (length_policy.py + budget.py),
 per-request output assembly and rollout statistics. Device side, in the
@@ -19,16 +20,28 @@ budgets stay ragged (positions past a row's budget are auto-rejected).
 Greedy (T=0) verification is lossless: outputs are token-identical to
 plain autoregressive decoding.
 
-Not ported yet: continuous batching (``serve``/``generate_continuous``),
-the R-round micro-loop, telemetry, the flight recorder, the journal and
-the watchdog.
+Two serving modes share the round primitives:
+
+* ``generate`` — lock-step: one fixed batch, every row steps together;
+  finished rows ride along as dead slots until the stragglers drain.
+* ``serve`` / ``generate_continuous`` — continuous batching: a fixed pool
+  of device slots fed from an admission queue ordered
+  longest-predicted-first (``core/scheduler.py``). A finished row's slot
+  is re-prefilled with the next pending request at once, and rounds are
+  double-buffered: while round *t* runs on the device, the host observes
+  finished rollouts and pre-solves round *t+1* budgets; the round's
+  result is downloaded only when the next dispatch needs it.
+
+Not ported yet: the R-round micro-loop, telemetry, the flight recorder,
+the journal, drain and the watchdog (``serve`` raises when given them).
 """
 
 from __future__ import annotations
 
+import collections
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,13 +51,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.budget import LatencyModel, solve_budgets
 from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
 from repro_torch.core.fused_round import (
+    RoundState,
     fused_round,
     make_state,
     unpack_round_out,
     verify_step,
 )
 from repro_torch.core.length_policy import LengthPolicy
-from repro_torch.core.verify import sample_token
+from repro_torch.core.scheduler import Request, SlotScheduler
+from repro_torch.core.verify import sample_token, sample_token_rows
 from repro_torch.models import model as M
 
 
@@ -162,6 +177,42 @@ def _as_max_new_array(mn, B: int) -> np.ndarray:
             raise ValueError(f"max_new_tokens shape {arr.shape} != ({B},)")
         return arr
     return np.full(B, int(mn), np.int64)
+
+
+def _in_pool(slots, n_slots: int) -> np.ndarray:
+    """Positions of ``slots`` that name a pool slot. The reference pads
+    slot lists with ``n_slots`` and lets XLA drop those writes; PyTorch
+    would raise (CPU) or assert (CUDA), so the padding is left out."""
+    return np.nonzero(np.asarray(slots, np.int64) < n_slots)[0]
+
+
+def admit_state_rows(state: RoundState, slots, heads, tails, max_new,
+                     emitted) -> None:
+    """Write newly admitted rows into the device ``RoundState``, in place
+    (``emitted`` is 1 for a fresh admission, the salvaged length for a
+    resumed one). Uploads copy, so no host array aliases the state."""
+    keep = _in_pool(slots, state.active.shape[0])
+    dev = state.head.device
+
+    def up(a, dt):
+        return torch.tensor(np.asarray(a, dt)[keep], device=dev)
+
+    idx = up(slots, np.int64)
+    state.head[idx] = up(heads, np.int32)
+    state.tails[idx] = up(tails, np.int32)
+    state.active[idx] = True
+    state.emitted[idx] = up(emitted, np.int32)
+    state.max_new[idx] = up(max_new, np.int32)
+
+
+def evict_state_rows(state: RoundState, slots) -> None:
+    """Clear the device ``active`` bit of evicted rows, in place (the
+    other columns are dead once inactive; the next admission into the
+    slot overwrites them)."""
+    keep = _in_pool(slots, state.active.shape[0])
+    idx = torch.tensor(np.asarray(slots, np.int64)[keep],
+                       device=state.active.device)
+    state.active[idx] = False
 
 
 class SpecEngine:
@@ -521,6 +572,577 @@ class SpecEngine:
             emitted[mask] += n_take[mask]
             active &= alive
             stats.host_time_s += time.perf_counter() - t_h
+
+    # -- continuous-batching mode --------------------------------------------
+    def serve(
+        self,
+        requests: Iterable[Request],
+        *,
+        slots: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+        stats: Optional[RolloutStats] = None,
+        collect_effective_batch: bool = False,
+        watchdog=None,
+        journal=None,
+        drain=None,
+        preemption=None,
+        clock=None,
+    ) -> Iterator[Request]:
+        """Continuous-batching serve loop (generator of finished requests).
+
+        A fixed pool of ``slots`` device slots is fed from an admission
+        queue ordered longest-predicted-first (``SlotScheduler``). The
+        moment a row finishes, its slot is re-prefilled (coalesced
+        bucketed prefill + ``copy_cache_rows``) with the next pending
+        request, so the effective batch stays full through the long tail.
+
+        Rounds are double-buffered: after round *t* is dispatched, the
+        host (a) observes rollouts that finished in earlier rounds — the
+        drafter/length-policy updates help still-running stragglers
+        mid-serve — and repacks mutated trees (``bds.prewarm``), and (b)
+        pre-solves round *t+1* budgets from the stale emitted counts
+        (re-clamped against fresh limits before dispatch). The round's
+        result is downloaded only when the next dispatch needs it.
+
+        Greedy verification is lossless, so per-request outputs are
+        token-identical to ``generate`` at temperature 0. At T > 0 the
+        draws come from ``generator`` (a ``torch.Generator`` on the
+        engine's device; seed 0 when absent).
+
+        ``stats`` counters aggregate across the serve; the per-row arrays
+        are request-order views that ``generate_continuous`` fills.
+
+        ``preemption`` (a ``scheduler.PreemptionPolicy``) evicts residents
+        after a round is consumed and re-queues them with remaining-length
+        priority; they resume by prefix re-prefill of
+        ``prompt + resume_tokens[:-1]`` with the last salvaged token as the
+        head — token-identical at T=0. ``clock`` drives per-request
+        ``deadline_s`` expiry and the preemption deadline margin. Requests
+        whose ``cancel_requested`` is set, or whose deadline passed, end
+        CANCELLED / EXPIRED with their partial output and are yielded
+        without being observed into the drafter or length history.
+
+        ``watchdog``, ``journal`` and ``drain`` are not ported yet and
+        raise ``NotImplementedError`` when given.
+        """
+        for name, val in (("watchdog", watchdog), ("journal", journal),
+                          ("drain", drain)):
+            if val is not None:
+                raise NotImplementedError(
+                    f"serve(..., {name}=...) is not ported to repro_torch yet"
+                )
+        yield from self._serve(
+            list(requests), slots, generator, stats,
+            collect_effective_batch, preemption, clock,
+        )
+
+    # torch's context decorators re-enter on every resume of a generator,
+    # so the caller's code between two yields runs outside inference mode
+    @torch.inference_mode()
+    def _serve(self, reqs, slots, generator, stats, collect_effective_batch,
+               preemption, clock):
+        e = self.engine
+        if stats is None:
+            stats = RolloutStats()
+        if not reqs:
+            return
+        n_slots = max(1, min(int(slots) if slots else len(reqs), len(reqs)))
+        sched = SlotScheduler(n_slots, self.length_policy, clock=clock)
+        has_deadlines = any(r.deadline_s is not None for r in reqs)
+        for r in reqs:
+            sched.submit(r)
+        if generator is None and e.temperature > 0:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+
+        def _eff_prompt_len(r: Request) -> int:
+            # A resumed request prefills prompt + salvaged[:-1]; size the
+            # pool for that effective context.
+            rt = r.resume_tokens
+            return len(r.prompt) + (max(len(rt) - 1, 0) if rt else 0)
+
+        # One pool cache sized for the worst admitted request.
+        max_tp = max(_prompt_bucket(_eff_prompt_len(r)) for r in reqs)
+        pool_len = _cache_bucket(
+            max_tp + max(int(r.max_new_tokens) for r in reqs)
+            + e.max_draft + 2
+        )
+        cache = M.init_cache(self.cfg, n_slots, pool_len, e.cache_headroom,
+                             device=self.device)
+
+        head = np.zeros(n_slots, np.int32)
+        emitted = np.zeros(n_slots, np.int64)
+        max_new_arr = np.ones(n_slots, np.int64)
+        active = np.zeros(n_slots, bool)
+        pids: List[Any] = [None] * n_slots
+        bds = self._batched_sessions(n_slots)
+        fused = self._fuse_enabled(bds)
+
+        # Fused mode: per-slot session state (head / context tails /
+        # emitted / limits) lives on the device between rounds; the host
+        # mirrors above drive budget solving and bookkeeping only.
+        state = None
+        forest = None
+        roots_dev = None
+        last_ver = -1
+        if fused:
+            state = make_state(
+                head, np.full((n_slots, bds.tail_len), -1, np.int32),
+                active, emitted, max_new_arr, self.device,
+            )
+            stats.n_h2d += 5
+
+        pending = None  # in-flight round (see dispatch/consume)
+        finalize_q: collections.deque = collections.deque()
+        done_q: collections.deque = collections.deque()
+        round_no = 0
+        roots_dirty = True  # row→tree mapping changed since last upload
+        t_serve0 = time.perf_counter()
+
+        def finish(req: Request) -> None:
+            if req.output and req.output[-1] == e.eos_token:
+                req.output.pop()
+            req.emitted = len(req.output)
+            req.finish_round = round_no
+            req.session = None
+            stats.n_toks_emitted += req.emitted
+            sched.release(req)
+            finalize_q.append(req)
+
+        def open_row(req: Request, tok: int, fed, n_emitted: int) -> None:
+            s = req.slot
+            bds.open(s, req.problem_id, req.prompt)
+            bds.feed(s, fed)
+            pids[s] = req.problem_id
+            head[s] = tok
+            emitted[s] = n_emitted
+            max_new_arr[s] = req.max_new_tokens
+            active[s] = True
+
+        def _admit_chunk(Tp: int, sub, admitted: List[Request]) -> None:
+            """One coalesced admission chunk: batched prefill, one
+            indexed cache-row write, per-request bookkeeping."""
+            nonlocal cache
+            k = len(sub)
+            toks = np.zeros((k, Tp), np.int32)
+            mask = np.zeros((k, Tp), bool)
+            for j, (_req, ctx) in enumerate(sub):
+                n_p = len(ctx)
+                toks[j, Tp - n_p:] = ctx
+                mask[j, Tp - n_p:] = True
+            last_logits, rows_cache = M.prefill(
+                self.params, self.cfg, self._upload(toks, np.int32),
+                self._upload(mask, bool), max_len=pool_len,
+                headroom=e.cache_headroom,
+            )
+            stats.n_h2d += 2
+            cache = M.copy_cache_rows(self.cfg, cache, rows_cache,
+                                      [r.slot for r, _ in sub])
+            stats.n_h2d += 1
+            first_toks = sample_token_rows(
+                last_logits[:, : self.cfg.vocab_size],
+                temperature=e.temperature, generator=generator,
+            ).cpu().numpy()
+            stats.n_d2h += 1
+            stats.n_fwd += 1
+            stats.n_toks_proposed += int(sum(len(c) for _, c in sub))
+            for j, (req, _ctx) in enumerate(sub):
+                req.admit_round = round_no
+                rt = req.resume_tokens
+                if rt:
+                    # Prefix re-prefill resume: the head is the last
+                    # salvaged token (at T=0 it is what the prefill's
+                    # logits argmax to), not a fresh sample.
+                    rt = [int(t) for t in rt]
+                    req.resume_tokens = None
+                    req.output = list(rt)
+                    tok = rt[-1]
+                    req.head = tok
+                    if tok == e.eos_token or len(rt) >= req.max_new_tokens:
+                        finish(req)  # the salvaged tail was done
+                        continue
+                    open_row(req, tok, rt, len(rt))
+                    admitted.append(req)
+                    continue
+                tok = int(first_toks[j])
+                req.head = tok
+                if tok == e.eos_token or req.max_new_tokens <= 0:
+                    if req.max_new_tokens > 0:
+                        req.output.append(tok)
+                    finish(req)  # freed; the admission loop re-admits
+                    continue
+                req.output.append(tok)
+                if req.max_new_tokens <= 1:  # the head fills the limit
+                    finish(req)
+                    continue
+                open_row(req, tok, [tok], 1)
+                admitted.append(req)
+
+        def admit() -> None:
+            """Fill free slots from the queue with coalesced prefills:
+            admissions sharing a prompt bucket run as one batched prefill
+            (split into power-of-two chunks, as the reference bounds its
+            compiled variants) and their cache rows commit in one indexed
+            write. Immediate-EOS admissions release their slot and the
+            loop re-admits into it. In fused mode the new rows'
+            head/tail/limit are written into the device ``RoundState``."""
+            nonlocal roots_dirty
+            while True:
+                newly = sched.next_admissions()
+                if not newly:
+                    return
+                groups: Dict[int, List[Tuple[Request, List[int]]]] = {}
+                for req in newly:
+                    rt = req.resume_tokens
+                    ctx = (list(req.prompt) + [int(t) for t in rt[:-1]]
+                           if rt else req.prompt)
+                    groups.setdefault(_prompt_bucket(len(ctx)), []).append(
+                        (req, ctx))
+                admitted: List[Request] = []
+                for Tp in sorted(groups):
+                    greqs = groups[Tp]
+                    i0 = 0
+                    while i0 < len(greqs):
+                        k = 1 << ((len(greqs) - i0).bit_length() - 1)
+                        _admit_chunk(Tp, greqs[i0: i0 + k], admitted)
+                        i0 += k
+                if fused and admitted:
+                    sl = [r.slot for r in admitted]
+                    admit_state_rows(
+                        state, sl, [r.head for r in admitted],
+                        np.stack([bds.tail_row(s) for s in sl]),
+                        [r.max_new_tokens for r in admitted], emitted[sl],
+                    )
+                    stats.n_h2d += 5
+                    roots_dirty = True
+
+        def consume() -> None:
+            """Download the in-flight round (the device sync point) and
+            apply its bookkeeping. In fused mode the result arrives as one
+            packed download; emit scan, acceptance and next-round session
+            state were computed on the device."""
+            nonlocal pending
+            if pending is None:
+                return
+            if pending[0] == "fused":
+                _, outs_dev, K, mask = pending
+                pending = None
+                outs = outs_dev.cpu().numpy()
+                stats.n_d2h += 1
+                t_h = time.perf_counter()
+                cand, accepted, n_take, alive, budgets = unpack_round_out(
+                    outs, K)
+                alive = alive & mask
+            else:
+                _, res, block, budgets, mask = pending
+                pending = None
+                accepted = res.accepted.cpu().numpy().astype(np.int64)
+                next_tok = res.next_token.cpu().numpy().astype(np.int32)
+                stats.n_d2h += 2
+                t_h = time.perf_counter()
+                cand = np.zeros((n_slots, block.shape[1]), np.int32)
+                cand[:, :-1] = block[:, 1:]
+                cand[np.arange(n_slots), accepted] = next_tok
+                n_take, alive = _emit_scan(
+                    cand, accepted + 1, max_new_arr - emitted, e.eos_token
+                )
+                alive &= mask
+                head[:] = np.where(alive, next_tok, head)
+            stats.n_toks_proposed += int((1 + budgets[mask]).sum())
+            stats.n_drafted += int(budgets[mask].sum())
+            stats.n_accepted += int(accepted[mask].sum())
+            stats.round_accepts.append(
+                float(accepted[mask].mean()) if mask.any() else 0.0
+            )
+            emitted[mask] += n_take[mask]
+            active[mask & ~alive] = False
+            if not fused:  # device tails advance inside the fused round
+                bds.feed_rows(np.nonzero(alive)[0], cand, n_take)
+            tel = np.nonzero(mask & (budgets > 0))[0]
+            if tel.size:  # per-prompt acceptance telemetry, batched
+                self.drafter.note_draft_rows(
+                    [pids[s] for s in tel], budgets[tel], accepted[tel]
+                )
+            for s in np.nonzero(mask & (n_take > 0))[0]:
+                sched.slots[s].output.extend(cand[s, : n_take[s]].tolist())
+            for s in np.nonzero(mask & ~alive)[0]:
+                req = sched.slots[s]
+                bds.close(s)
+                pids[s] = None
+                finish(req)
+            stats.host_time_s += time.perf_counter() - t_h
+
+        def teardown_slot(req: Request) -> int:
+            """Host-side eviction of a resident row; the fused device
+            ``active`` bit clears in one write afterwards."""
+            s = req.slot
+            bds.close(s)
+            pids[s] = None
+            active[s] = False
+            req.session = None
+            return s
+
+        def finish_terminal(req: Request) -> None:
+            """CANCELLED/EXPIRED terminal: partial output kept, yielded
+            without being observed into the drafter/length history (a
+            truncated rollout must not poison the policy)."""
+            req.emitted = len(req.output)
+            req.finish_round = round_no
+            done_q.append(req)
+
+        def service_lifecycle() -> None:
+            """Post-consume lifecycle pass: cancellations, deadlines,
+            preemption-policy victims. Runs only while no round is in
+            flight, so an evicted slot never receives a stale result."""
+            evicted: List[int] = []
+            now = None
+            if has_deadlines or (
+                preemption is not None and preemption.deadline_margin_s > 0
+            ):
+                now = sched.clock.now()
+            for req in sched.running() + sched.queued_requests():
+                if req.cancel_requested:
+                    if req.slot >= 0:
+                        evicted.append(teardown_slot(req))
+                    sched.cancel(req)
+                    finish_terminal(req)
+            if has_deadlines:
+                for req in sched.due_requests(now):
+                    if req.slot >= 0:
+                        evicted.append(teardown_slot(req))
+                    sched.expire(req)
+                    finish_terminal(req)
+            if preemption is not None:
+                for req in sched.preemption_victims(preemption, round_no,
+                                                    now):
+                    evicted.append(teardown_slot(req))
+                    sched.preempt(req)
+                    req.resume_tokens = list(req.output)
+                    req.head = -1
+                    req.predicted_len = sched.remaining_len(req)
+                    sched.submit(req)
+            if fused and evicted:
+                evict_state_rows(state, evicted)
+                stats.n_h2d += 1
+
+        def precompute_budgets():
+            """Round t+1 budgets from stale emitted counts, in the overlap
+            window. The occupant snapshot guards against slot recycling: a
+            budget precomputed for a slot's previous request must not
+            apply to the request admitted into it afterwards."""
+            if not active.any():
+                return None
+            rem = max_new_arr - emitted
+            return (self._round_budgets(pids, emitted, active, rem),
+                    active.copy(), list(sched.slots))
+
+        def solve_budgets(pre) -> np.ndarray:
+            """Round budgets for the active rows (post-consume): reuse the
+            overlap-window precompute where the slot's occupant is
+            unchanged, solve fresh for the rest, clamp against fresh
+            limits."""
+            remaining = max_new_arr - emitted
+            budgets = np.zeros(n_slots, np.int64)
+            if pre is not None:
+                pb, pmask, pocc = pre
+                same = np.fromiter(
+                    (sched.slots[s] is pocc[s] for s in range(n_slots)),
+                    bool, n_slots,
+                )
+                use = pmask & active & same
+                budgets[use] = pb[use]
+                fresh_rows = active & ~use
+            else:
+                fresh_rows = active.copy()
+            if fresh_rows.any():  # rows recycled since the precompute
+                fb = self._round_budgets(pids, emitted, fresh_rows, remaining)
+                budgets[fresh_rows] = fb[fresh_rows]
+            return np.where(
+                active, np.minimum(budgets, np.maximum(remaining - 1, 0)), 0,
+            )
+
+        def sync_forest() -> None:
+            """Refresh the packed forest and the per-row root handles after
+            tree mutations (observations) or slot turnover (admissions)."""
+            nonlocal forest, roots_dev, last_ver, roots_dirty
+            bds.prewarm()
+            last_ver = bds.repack_version
+            roots_dirty = False
+            forest = bds.forest_arrays()
+            roots_dev = self._upload(bds.roots_array(), np.int32)
+            stats.n_h2d += 1
+
+        def dispatch(budgets, prop_handle, fresh_roots: bool = False) -> None:
+            nonlocal pending, cache, round_no
+            t_h = time.perf_counter()
+            K = self._bucket(int(budgets.max(initial=0)))
+            if fused:
+                # One fused round: propose → block → verify → commit →
+                # next-round state on the device. Rows admitted in this
+                # iteration carry budget 0 (they draft from their next
+                # round on), so a stale root for them is inert; only the
+                # startup branch, whose budgets were solved after
+                # admission, needs the roots synced here.
+                if roots_dev is None or (
+                    fresh_roots
+                    and (roots_dirty or bds.repack_version != last_ver)
+                ):
+                    sync_forest()
+                if K > 0:  # solve_budgets zeroes inactive rows
+                    self.drafter.stats["batched_proposes"] += 1
+                budgets_dev = self._upload(budgets, np.int32)
+                stats.host_time_s += time.perf_counter() - t_h
+                stats.n_h2d += 1  # the (B,) budget vector
+                outs_dev = fused_round(
+                    self.params, self.cfg, forest, cache, state, roots_dev,
+                    budgets_dev, K=K, temperature=e.temperature,
+                    eos_token=e.eos_token,
+                    min_match=self.drafter.cfg.min_match,
+                    generator=generator,
+                )
+                pending = ("fused", outs_dev, K, active.copy())
+            else:
+                block = np.zeros((n_slots, K + 1), np.int32)
+                block[:, 0] = head
+                props = bds.consume(prop_handle)
+                for s in np.nonzero(active)[0]:
+                    prop = props[s]
+                    budgets[s] = len(prop)
+                    if prop:
+                        block[s, 1: 1 + len(prop)] = prop
+                block_dev = self._upload(block, np.int32)
+                budgets_dev = self._upload(budgets, np.int32)
+                active_dev = self._upload(active, bool)
+                stats.host_time_s += time.perf_counter() - t_h
+                stats.n_h2d += 3  # block + budgets + active uploads
+                res, cache = verify_step(
+                    self.params, self.cfg, cache, block_dev, budgets_dev,
+                    active_dev, temperature=e.temperature,
+                    generator=generator,
+                )
+                pending = ("plain", res, block, budgets, active.copy())
+            round_no += 1
+            stats.n_rounds += 1
+            stats.n_fwd += 1
+            if collect_effective_batch:
+                stats.effective_batch.append(int(active.sum()))
+            for s in np.nonzero(active)[0]:
+                sched.slots[s].rounds += 1
+
+        while sched.has_work() or pending is not None:
+            # ---- overlap window: the device runs the in-flight round;
+            # the host observes finished rollouts (their drafts help the
+            # stragglers at once) and pre-solves the next budgets.
+            if finalize_q:
+                while finalize_q:
+                    req = finalize_q.popleft()
+                    self._finalize_request(req)
+                    done_q.append(req)
+                # repack mutated trees once, after all of the round's
+                # observations, so the next dispatch finds them packed
+                bds.prewarm()
+            if fused and (roots_dirty or bds.repack_version != last_ver):
+                sync_forest()
+            pre = precompute_budgets() if pending is not None else None
+            consume()  # device sync: bookkeeping needs the round result
+            service_lifecycle()
+            # Unfused: the batched draft propose for the surviving rows
+            # goes out before admissions. Fused: it runs inside the round
+            # dispatch below. Rows admitted below draft from their next
+            # round on.
+            budgets = prop_handle = None
+            if active.any():
+                t_h = time.perf_counter()
+                budgets = solve_budgets(pre)
+                if not fused:
+                    prop_handle = bds.dispatch(budgets)
+                stats.host_time_s += time.perf_counter() - t_h
+            admit()  # recycle freed slots before the next round
+            if active.any():
+                fresh_roots = False
+                if budgets is None:
+                    # The pool was empty before admissions (startup): solve
+                    # and propose for the admitted batch now, so warm
+                    # history drafts from round one.
+                    t_h = time.perf_counter()
+                    budgets = solve_budgets(None)
+                    if not fused:
+                        prop_handle = bds.dispatch(budgets)
+                    stats.host_time_s += time.perf_counter() - t_h
+                    fresh_roots = True
+                dispatch(budgets, prop_handle, fresh_roots)
+            while done_q:
+                yield done_q.popleft()
+        while done_q:  # lifecycle terminals from the final iteration
+            yield done_q.popleft()
+        while finalize_q:  # rows that finished in the last round
+            req = finalize_q.popleft()
+            self._finalize_request(req)
+            yield req
+        stats.n_h2d += bds.xfers.pop("h2d", 0)
+        stats.n_d2h += bds.xfers.pop("d2h", 0)
+        stats.wall_time_s = time.perf_counter() - t_serve0
+
+    def _finalize_request(self, req: Request) -> None:
+        """Observe a finished rollout (drafter window + length history)."""
+        self.drafter.observe_rollout(
+            req.problem_id, list(req.prompt) + req.output, self.epoch,
+            response_len=len(req.output),
+        )
+        self.length_policy.observe(req.problem_id, len(req.output))
+
+    def generate_continuous(
+        self,
+        prompts: Sequence[Sequence[int]],
+        problem_ids: Optional[Sequence] = None,
+        *,
+        slots: Optional[int] = None,
+        max_new_tokens=None,
+        generator: Optional[torch.Generator] = None,
+        collect_effective_batch: bool = False,
+        watchdog=None,
+        journal=None,
+        journal_keys: Optional[Sequence[str]] = None,
+        resume: Optional[Dict[str, Any]] = None,
+    ) -> Tuple[List[List[int]], RolloutStats]:
+        """Drop-in for ``generate`` backed by the continuous engine.
+
+        Streams the batch through a pool of ``slots`` device slots
+        (default: one per request; recycling needs ``slots <
+        len(prompts)``). Returns outputs in request order plus the usual
+        stats; ``n_rounds`` is the pool makespan in verify rounds.
+        ``watchdog``, ``journal``/``journal_keys`` and ``resume`` are not
+        ported yet and raise ``NotImplementedError`` when given."""
+        for name, val in (("watchdog", watchdog), ("journal", journal),
+                          ("journal_keys", journal_keys),
+                          ("resume", resume)):
+            if val is not None:
+                raise NotImplementedError(
+                    f"generate_continuous(..., {name}=...) is not ported to "
+                    "repro_torch yet"
+                )
+        t0 = time.perf_counter()
+        B = len(prompts)
+        if problem_ids is None:
+            problem_ids = list(range(B))
+        mn = (max_new_tokens if max_new_tokens is not None
+              else self.engine.max_new_tokens)
+        max_new_arr = _as_max_new_array(mn, B)
+        reqs = [
+            Request(rid=i, problem_id=problem_ids[i], prompt=list(prompts[i]),
+                    max_new_tokens=int(max_new_arr[i]))
+            for i in range(B)
+        ]
+        stats = RolloutStats()
+        for _ in self.serve(reqs, slots=slots, generator=generator,
+                            stats=stats,
+                            collect_effective_batch=collect_effective_batch):
+            pass
+        outputs = [r.output for r in reqs]
+        stats.n_toks_emitted = int(sum(len(o) for o in outputs))
+        stats.per_row_rounds = np.array([r.rounds for r in reqs], np.int64)
+        stats.per_row_emitted = np.array([len(o) for o in outputs])
+        stats.wall_time_s = time.perf_counter() - t0
+        return outputs, stats
 
     def begin_iteration(self, epoch: int, update_norm: float = 0.0) -> None:
         self.epoch = epoch

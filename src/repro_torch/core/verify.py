@@ -122,3 +122,22 @@ def sample_token(
     if gumbel is None:
         gumbel = gumbel_noise(logits.shape, generator, logits.device)
     return torch.argmax(logits / temperature + gumbel, dim=-1).to(torch.int32)
+
+
+def sample_token_rows(
+    logits: torch.Tensor,  # (B, V)
+    *,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    gumbel: Optional[torch.Tensor] = None,  # (B, V)
+) -> torch.Tensor:
+    """First-token sampling for a coalesced admission chunk: each row is
+    an independent categorical draw ``argmax(logits / T + gumbel)``. The
+    reference gives each row its own PRNG key so a request's draw does not
+    depend on how admissions were grouped; here the noise comes from the
+    serve's ``generator`` (or is passed in, as the tests do)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if gumbel is None:
+        gumbel = gumbel_noise(logits.shape, generator, logits.device)
+    return torch.argmax(logits / temperature + gumbel, dim=-1).to(torch.int32)

@@ -1,14 +1,24 @@
 // Batched longest-suffix-match drafting over a packed suffix-tree forest,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a). Two kernels share one row core:
 //
-// Replaces the TPU kernel src/repro/kernels/suffix_match/kernel.py:
-// suffix_match_propose_kernel (body _suffix_match_kernel, scalar core
-// match_propose_row), flat forest layout. Per row: Chang-Lawler matching
-// statistics of the context tail against the row's tree (suffix-link
-// descent, lower-bound binary search over the sorted (node, token) edge
-// table), then the greedy best_child continuation walk up to
-// min(budget, n_prop_max) tokens, falling back to shorter suffixes down
-// to max(min_match, 1).
+// * suffix_match_kernel replaces the TPU kernel
+//   src/repro/kernels/suffix_match/kernel.py: suffix_match_propose_kernel
+//   (body _suffix_match_kernel, scalar core match_propose_row), flat
+//   forest layout: every row walks the one concatenated forest.
+// * suffix_match_chunked_kernel replaces
+//   suffix_match_propose_kernel_chunked in the same file, per-tree
+//   (chunked) layout: row t of each forest array holds tree t with
+//   tree-local indices. The TPU kernel streams the row's tree into VMEM
+//   through a scalar-prefetched index map; here each thread loads its own
+//   tree ordinal, moves every forest pointer to that tree (64-bit
+//   offsets t*Es, t*Ns, t*Cs) and runs the same row core from root 0 with
+//   E = Es, C = Cs and the binary search sized for Es.
+//
+// Per row: Chang-Lawler matching statistics of the context tail against
+// the row's tree (suffix-link descent, lower-bound binary search over the
+// sorted (node, token) edge table), then the greedy best_child
+// continuation walk up to min(budget, n_prop_max) tokens, falling back to
+// shorter suffixes down to max(min_match, 1).
 //
 // What bounds it on this card: neither bytes nor flops (both are tiny)
 // but the latency of dependent loads — about
@@ -16,10 +26,13 @@
 // The design keeps that chain as short as it is: one thread per row runs
 // the reference's two flat loops (the FEED/DESC micro-step state machine)
 // over the forest in global memory, reading through the read-only path
-// (__ldg), so the forest stays resident in the 50 MB L2 across rows and
-// rounds. The state machine, every clamp and the inactive-row rule are
-// the reference's, statement for statement, so the output is
-// bit-identical to it and to the plain PyTorch version.
+// (__ldg), so the trees stay resident in the 50 MB L2 across rows and
+// rounds where they fit. The chunked layout shortens each binary search
+// to the row's own tree (log2 Es instead of log2 E steps). The state
+// machine, every clamp and the inactive-row rule are the reference's,
+// statement for statement, so the output is bit-identical to it and to
+// the plain PyTorch version, and the two kernels agree over the same
+// trees.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,22 +79,16 @@ __device__ int find_child(const Forest& f, int node, int tok) {
   return found ? ld(f.ec, lo_c) : -1;
 }
 
-__global__ void __launch_bounds__(THREADS)
-suffix_match_kernel(Forest f, const int* __restrict__ tails, int tail_stride,
-                    const int* __restrict__ roots, int root_stride,
-                    const int* __restrict__ budgets, int budget_stride,
-                    int B, int m, int n_prop_max, int min_match,
-                    int* __restrict__ match_len, int* __restrict__ n_prop,
-                    int* __restrict__ props) {
-  const int row = blockIdx.x * THREADS + threadIdx.x;
-  if (row >= B) return;
-  const int* tail = tails + (size_t)row * tail_stride;
-  const int root = roots[(size_t)row * root_stride];
+// The row core: one row's match and proposal over forest view `f`,
+// writing props[0..n_prop_max) and the row's match_len / n_prop.
+__device__ void match_propose_row(const Forest& f, const int* tail, int m,
+                                  int root, int budget_in, int n_prop_max,
+                                  int min_match, int* match_len_out,
+                                  int* n_prop_out, int* prow) {
   const bool active = root >= 0;
   const int root_s = max(root, 0);
-  const int budget = min(budgets[(size_t)row * budget_stride], n_prop_max);
+  const int budget = min(budget_in, n_prop_max);
   const int C = f.C;
-  int* prow = props + (size_t)row * n_prop_max;
   for (int k = 0; k < n_prop_max; ++k) prow[k] = -1;
 
   // ---- streaming longest-suffix match (matching statistics) ----------
@@ -210,8 +217,66 @@ suffix_match_kernel(Forest f, const int* __restrict__ tails, int tail_stride,
       done = succeed || give_up;
     }
   }
-  match_len[row] = active ? mlen : 0;
-  n_prop[row] = active ? k : 0;
+  *match_len_out = active ? mlen : 0;
+  *n_prop_out = active ? k : 0;
+}
+
+__global__ void __launch_bounds__(THREADS)
+suffix_match_kernel(Forest f, const int* __restrict__ tails, int tail_stride,
+                    const int* __restrict__ roots, int root_stride,
+                    const int* __restrict__ budgets, int budget_stride,
+                    int B, int m, int n_prop_max, int min_match,
+                    int* __restrict__ match_len, int* __restrict__ n_prop,
+                    int* __restrict__ props) {
+  const int row = blockIdx.x * THREADS + threadIdx.x;
+  if (row >= B) return;
+  match_propose_row(f, tails + (size_t)row * tail_stride, m,
+                    roots[(size_t)row * root_stride],
+                    budgets[(size_t)row * budget_stride], n_prop_max,
+                    min_match, match_len + row, n_prop + row,
+                    props + (size_t)row * n_prop_max);
+}
+
+// Per-tree arrays: row t of each starts at base + t * stride.
+struct ChunkedForest {
+  const int *en, *et, *ec;               // (T, Es)
+  const int *sl, *es, *el, *ft, *bc;     // (T, Ns)
+  const int* corpus;                     // (T, Cs)
+  int T, Es, Ns, Cs, n_steps;
+};
+
+__global__ void __launch_bounds__(THREADS)
+suffix_match_chunked_kernel(ChunkedForest cf,
+                            const int* __restrict__ tails, int tail_stride,
+                            const int* __restrict__ roots, int root_stride,
+                            const int* __restrict__ budgets,
+                            int budget_stride, int B, int m, int n_prop_max,
+                            int min_match, int* __restrict__ match_len,
+                            int* __restrict__ n_prop,
+                            int* __restrict__ props) {
+  const int row = blockIdx.x * THREADS + threadIdx.x;
+  if (row >= B) return;
+  // The row's tree ordinal (inactive rows clamp to tree 0 with root -1,
+  // as the reference does); offsets in 64 bits.
+  const int r = roots[(size_t)row * root_stride];
+  const size_t t = (size_t)min(max(r, 0), cf.T - 1);
+  Forest f;
+  f.en = cf.en + t * cf.Es;
+  f.et = cf.et + t * cf.Es;
+  f.ec = cf.ec + t * cf.Es;
+  f.sl = cf.sl + t * cf.Ns;
+  f.es = cf.es + t * cf.Ns;
+  f.el = cf.el + t * cf.Ns;
+  f.ft = cf.ft + t * cf.Ns;
+  f.bc = cf.bc + t * cf.Ns;
+  f.corpus = cf.corpus + t * cf.Cs;
+  f.E = cf.Es;
+  f.C = cf.Cs;
+  f.n_steps = cf.n_steps;
+  match_propose_row(f, tails + (size_t)row * tail_stride, m, r >= 0 ? 0 : -1,
+                    budgets[(size_t)row * budget_stride], n_prop_max,
+                    min_match, match_len + row, n_prop + row,
+                    props + (size_t)row * n_prop_max);
 }
 
 }  // namespace
@@ -240,6 +305,37 @@ extern "C" int suffix_match_propose_flat(
   const int blocks = (B + THREADS - 1) / THREADS;
   suffix_match_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       f, (const int*)tails, tail_stride, (const int*)roots, root_stride,
+      (const int*)budgets, budget_stride, B, m, n_prop_max, min_match,
+      (int*)match_len, (int*)n_prop, (int*)props);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int suffix_match_propose_chunked(
+    const void* tails, int tail_stride, const void* roots, int root_stride,
+    const void* budgets, int budget_stride, const void* edge_node,
+    const void* edge_tok, const void* edge_child, const void* suffix_link,
+    const void* edge_start, const void* edge_len, const void* first_tok,
+    const void* best_child, const void* corpus, int B, int m, int T, int Es,
+    int Ns, int Cs, int n_steps, int n_prop_max, int min_match,
+    void* match_len, void* n_prop, void* props, void* stream) {
+  ChunkedForest cf;
+  cf.en = (const int*)edge_node;
+  cf.et = (const int*)edge_tok;
+  cf.ec = (const int*)edge_child;
+  cf.sl = (const int*)suffix_link;
+  cf.es = (const int*)edge_start;
+  cf.el = (const int*)edge_len;
+  cf.ft = (const int*)first_tok;
+  cf.bc = (const int*)best_child;
+  cf.corpus = (const int*)corpus;
+  cf.T = T;
+  cf.Es = Es;
+  cf.Ns = Ns;
+  cf.Cs = Cs;
+  cf.n_steps = n_steps;
+  const int blocks = (B + THREADS - 1) / THREADS;
+  suffix_match_chunked_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      cf, (const int*)tails, tail_stride, (const int*)roots, root_stride,
       (const int*)budgets, budget_stride, B, m, n_prop_max, min_match,
       (int*)match_len, (int*)n_prop, (int*)props);
   return (int)cudaGetLastError();

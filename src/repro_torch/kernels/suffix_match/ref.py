@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the suffix-match drafting kernel (the port's
-twin of ``repro.kernels.suffix_match.ref``).
+"""Plain PyTorch version of the suffix-match drafting kernels (the port's
+twin of ``repro.kernels.suffix_match.ref`` and of the chunked-layout
+reference ``repro.kernels.suffix_match.ops._propose_chunked_ref``).
 
 The reference vmaps its scalar core (``match_propose_row``) over rows;
 this is the same core written batched: every row steps together through
@@ -9,8 +10,14 @@ a vmapped ``while_loop`` does. Same state machine, same clamps, so the
 results are bit-identical to the reference and to
 ``csrc/suffix_match.cu``.
 
+One core serves both forest layouts: it reads every forest array as
+``(T, X)`` through a per-row tree index. The flat layout is the case
+``T = 1`` (every row reads tree 0, roots are node ids); the chunked layout
+gives each row its own tree (tree-local indices, root 0), as the TPU's
+chunked kernel streams one tree per row.
+
 The CPU tests and the engine on the CPU run this; ``chip_smoke.py``
-holds the kernel against it. Nothing on the card path calls it.
+holds the kernels against it. Nothing on the card path calls it.
 """
 
 from __future__ import annotations
@@ -26,28 +33,29 @@ def n_search_steps(E: int) -> int:
     return max(int(E - 1).bit_length(), 1) + 1
 
 
-def _find_child(en, et, ec, node, tok):
+def _find_child(en, et, ec, tree, node, tok):
     """Child of ``node`` whose edge starts with ``tok`` (-1 if none):
-    lower-bound binary search on the sorted (node, token) edge table."""
-    E = en.shape[0]
+    lower-bound binary search on row ``tree`` of the sorted (node, token)
+    edge tables ``(T, E)``."""
+    E = en.shape[1]
     lo = torch.zeros_like(node)
     hi = torch.full_like(node, E)
     for _ in range(n_search_steps(E)):
         mid = (lo + hi) // 2
         mid_c = mid.clamp(max=E - 1).long()
-        e_n, e_t = en[mid_c], et[mid_c]
+        e_n, e_t = en[tree, mid_c], et[tree, mid_c]
         less = (e_n < node) | ((e_n == node) & (e_t < tok))
         upd = lo < hi
         lo, hi = (torch.where(upd & less, mid + 1, lo),
                   torch.where(upd & ~less, mid, hi))
     lo_c = lo.clamp(max=E - 1).long()
-    found = (lo < E) & (en[lo_c] == node) & (et[lo_c] == tok)
-    return torch.where(found, ec[lo_c], -1)
+    found = (lo < E) & (en[tree, lo_c] == node) & (et[tree, lo_c] == tok)
+    return torch.where(found, ec[tree, lo_c], -1)
 
 
 def suffix_match_propose_ref(
     tails: torch.Tensor,  # (B, m) int32, -1 = padding/reset
-    roots: torch.Tensor,  # (B,) int32, < 0 = inactive row
+    roots: torch.Tensor,  # (B,) int32 root node, < 0 = inactive row
     budgets: torch.Tensor,  # (B,) int32
     edge_node, edge_tok, edge_child,  # (E,) sorted (node, token) -> child
     suffix_link, edge_start, edge_len, first_tok, best_child,  # (N,)
@@ -56,12 +64,49 @@ def suffix_match_propose_ref(
     n_prop_max: int,
     min_match: int,
 ):
-    """Returns (match_len (B,), n_prop (B,), props (B, n_prop_max)),
-    all int32."""
-    en, et, ec = edge_node, edge_tok, edge_child
-    sl, es, el, ft, bc = suffix_link, edge_start, edge_len, first_tok, best_child
+    """Flat layout: every row walks the one concatenated forest.
+    Returns (match_len (B,), n_prop (B,), props (B, n_prop_max)), all
+    int32."""
+    forest = tuple(a[None] for a in (
+        edge_node, edge_tok, edge_child, suffix_link, edge_start, edge_len,
+        first_tok, best_child, corpus))
+    tree = torch.zeros(tails.shape[0], dtype=torch.long, device=tails.device)
+    return _propose_rows(tails, tree, roots, budgets, forest,
+                         n_prop_max=n_prop_max, min_match=min_match)
+
+
+def suffix_match_propose_chunked_ref(
+    tails: torch.Tensor,  # (B, m) int32, -1 = padding/reset
+    roots: torch.Tensor,  # (B,) int32 tree ordinal, < 0 = inactive row
+    budgets: torch.Tensor,  # (B,) int32
+    edge_node, edge_tok, edge_child,  # (T, Es) per-tree edge tables
+    suffix_link, edge_start, edge_len, first_tok, best_child,  # (T, Ns)
+    corpus,  # (T, Cs)
+    *,
+    n_prop_max: int,
+    min_match: int,
+):
+    """Chunked layout: row b walks tree ``roots[b]`` with tree-local
+    indices from root 0; inactive rows clamp to tree 0 with root -1 (as
+    ``_propose_chunked_ref`` does). The binary search runs
+    ``n_search_steps(Es)`` steps over the row's own edge table."""
+    T = edge_node.shape[0]
+    roots = roots.to(torch.int32)
+    tree = roots.clamp(0, T - 1).long()
+    root_local = torch.where(roots >= 0, 0, -1).to(torch.int32)
+    forest = (edge_node, edge_tok, edge_child, suffix_link, edge_start,
+              edge_len, first_tok, best_child, corpus)
+    return _propose_rows(tails, tree, root_local, budgets, forest,
+                         n_prop_max=n_prop_max, min_match=min_match)
+
+
+def _propose_rows(tails, tree, roots, budgets, forest, *, n_prop_max,
+                  min_match):
+    """The batched row core over ``(T, X)`` forest arrays; row b reads
+    row ``tree[b]`` of each array, from root node ``roots[b]``."""
+    en, et, ec, sl, es, el, ft, bc, corpus = forest
     B, m = tails.shape
-    C = corpus.shape[0]
+    C = corpus.shape[1]
     dev = tails.device
     i32 = torch.int32
     rows = torch.arange(B, device=dev)
@@ -71,7 +116,7 @@ def suffix_match_propose_ref(
     budget = budgets.to(i32).clamp(max=n_prop_max)
 
     def g(arr, idx):
-        return arr[idx.long()]
+        return arr[tree, idx.long()]
 
     def z():
         return torch.zeros(B, dtype=i32, device=dev)
@@ -88,7 +133,7 @@ def suffix_match_propose_ref(
         t = tails[rows, i.clamp(max=m - 1).long()].to(i32)
         q_node = torch.where(in_desc, dnode, node)
         q_tok = torch.where(in_desc, g(corpus, dpos.clamp(max=C - 1)), t)
-        c_found = _find_child(en, et, ec, q_node, q_tok)
+        c_found = _find_child(en, et, ec, tree, q_node, q_tok)
         c_s = c_found.clamp(min=0)
         # -- descent micro-step
         d_end = drem == 0
@@ -158,7 +203,7 @@ def suffix_match_propose_ref(
             break
         in_desc = mode == _DESC
         c_found = _find_child(
-            en, et, ec, torch.where(in_desc, dnode, 0),
+            en, et, ec, tree, torch.where(in_desc, dnode, 0),
             g(corpus, dpos.clamp(max=C - 1)),
         )
         c_s = c_found.clamp(min=0)

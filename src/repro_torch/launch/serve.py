@@ -1,15 +1,21 @@
-"""Serving entry point of the port (lock-step speculative generation).
+"""Serving entry point of the port (speculative generation, lock-step or
+continuous).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --smoke --continuous [--slots 4] [--requests 16]
 
 ``--smoke`` runs batched speculative generation of the reduced config
 (``smoke_variant``) with random weights from ``--seed``, ``--rounds``
 times over a stream of repeated problems, so later rounds draft from
-earlier rounds' rollouts. It runs on CUDA unless ``--device cpu`` is
-given. Flags of paths that are not ported yet are accepted and refused
-with a clear error.
+earlier rounds' rollouts. With ``--continuous`` the request stream flows
+through the slot-recycling pool (``--slots`` device rows,
+longest-predicted-first admission) and each request is reported as it
+finishes. It runs on CUDA unless ``--device cpu`` is given. Flags of
+paths that are not ported yet are accepted and refused with a clear
+error.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ log = logging.getLogger("repro_torch.launch.serve")
 
 # Flags of the reference launcher whose paths are not ported yet.
 _NOT_PORTED = (
-    ("continuous", "--continuous"), ("history_service", "--history-service"),
+    ("history_service", "--history-service"),
     ("journal_dir", "--journal-dir"), ("history_dir", "--history-dir"),
     ("save_history", "--save-history"), ("trace_out", "--trace-out"),
     ("dry_run", "--dry-run"), ("supervise", "--supervise"),
@@ -46,8 +52,14 @@ def main() -> None:
                     choices=["problem", "problem+request", "global"],
                     help="drafter scope (fused rounds need a tree-only "
                          "scope: problem or global)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching through a slot pool")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="device slots in the continuous pool")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="requests per round in continuous mode "
+                         "(default: 2 x --batch)")
     # accepted for command-line parity with repro.launch.serve; refused
-    ap.add_argument("--continuous", action="store_true")
     ap.add_argument("--history-service", action="store_true")
     ap.add_argument("--journal-dir", default="")
     ap.add_argument("--history-dir", default="")
@@ -93,6 +105,39 @@ def main() -> None:
         device=dev,
     )
     rng = np.random.default_rng(args.seed)
+    if args.continuous:
+        # Long-tailed request streams through the slot pool; each finished
+        # request is logged as it leaves.
+        from repro_torch.core.scheduler import Request
+        from repro_torch.core.spec_engine import RolloutStats
+
+        n_req = args.requests or 2 * args.batch
+        for rnd in range(args.rounds):
+            reqs = []
+            for i in range(n_req):
+                seed = i % 4
+                reqs.append(Request(
+                    rid=i, problem_id=f"q{seed}",
+                    prompt=[2] + list(rng.integers(4, 20, size=4 + seed)),
+                    max_new_tokens=8 * (1 + seed),
+                ))
+            st = RolloutStats()
+            t0 = time.perf_counter()
+            for fin in eng.serve(reqs, slots=args.slots, stats=st):
+                log.info("  req %3d (%s) done: %3d toks, rounds %d->%d",
+                         fin.rid, fin.problem_id, len(fin.output),
+                         fin.admit_round, fin.finish_round)
+            dt = time.perf_counter() - t0
+            print(
+                f"round {rnd}: {dt * 1e3:8.1f} ms {n_req} reqs / "
+                f"{args.slots} slots makespan={st.n_rounds} rounds "
+                f"fwd={st.n_fwd:4d} "
+                f"tok/s={st.n_toks_emitted / max(dt, 1e-9):7.1f} "
+                f"accept/round={st.acceptance_per_round:6.2f} device={dev}",
+                flush=True,
+            )
+            eng.begin_iteration(rnd + 1)
+        return
     for rnd in range(args.rounds):
         prompts, pids = [], []
         for b in range(args.batch):
@@ -109,6 +154,7 @@ def main() -> None:
             flush=True,
         )
         eng.begin_iteration(rnd + 1)
+
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -195,6 +196,30 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, pad_mask,
         cv[bidx, slots] = v[:, Tp - n_keep:].to(cv.dtype)
         cpos[bidx, slots] = torch.where(msl, psl, -1).to(torch.int32)
     return last_logits, Cache(cache.layers, plen)
+
+
+def copy_cache_rows(cfg: ModelConfig, dst: Cache, src: Cache, slots) -> Cache:
+    """Write batch rows ``0..k-1`` of ``src`` into rows ``slots`` of
+    ``dst``, in place — the slot-recycling admission primitive: finished
+    rows' slots in the continuous-batching pool take the freshly
+    (batch-)prefilled caches of the next pending requests, one indexed
+    write per cache tensor for the whole admission chunk. Both caches
+    share one geometry (``max_len``/``headroom``).
+
+    ``slots`` is a host (k,) index array. Entries ``>= n_slots`` (the
+    reference's padding) are dropped, as XLA's scatter drops them: the
+    rows they would write are left out here, never clamped onto the last
+    slot."""
+    slots = np.asarray(slots, np.int64)
+    keep = np.nonzero(slots < dst.lengths.shape[0])[0]
+    dev = dst.lengths.device
+    rows = torch.as_tensor(keep, device=dev)
+    idx = torch.as_tensor(slots[keep], device=dev)
+    for dl, sl in zip(dst.layers, src.layers):
+        for d, s in zip(dl, sl):
+            d[idx] = s[rows].to(d.dtype)
+    dst.lengths[idx] = src.lengths[rows]
+    return dst
 
 
 def param_count(params: Transformer) -> int:

@@ -1,13 +1,15 @@
 """Suffix-match drafting: the port against the JAX package.
 
-Same seeded trees through both packages' ``SuffixTree.pack()`` and
-``pack_forest`` (arrays must be equal), then the port's plain propose
-against JAX ``suffix_match_propose`` with ``impl="ref"`` and with the
-Pallas kernel in interpret mode: bit-identical (integers only, no
-tolerance). The CUDA kernel is held against the plain version in the
-``gpu`` test (and in ``chip_smoke.py``).
+Same seeded trees through both packages' ``SuffixTree.pack()``,
+``pack_forest`` and ``pack_forest_chunked`` (arrays must be equal), then
+the port's plain propose against JAX ``suffix_match_propose`` with
+``impl="ref"`` and with the Pallas kernels in interpret mode, for the flat
+and the chunked layouts: bit-identical (integers only, no tolerance). The
+CUDA kernels are held against the plain versions in the ``gpu`` tests
+(and in ``chip_smoke.py``).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,10 +18,16 @@ from repro.core.drafter import DrafterConfig as JDrafterConfig
 from repro.core.drafter import SuffixDrafter as JSuffixDrafter
 from repro.core.suffix_tree import SuffixTree as JSuffixTree
 from repro.kernels.suffix_match import ops as jops
+from repro.kernels.suffix_match.kernel import (
+    suffix_match_propose_kernel_chunked,
+)
 from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
 from repro_torch.core.suffix_tree import SuffixTree
 from repro_torch.kernels.suffix_match import ops as tops
-from repro_torch.kernels.suffix_match.ref import suffix_match_propose_ref
+from repro_torch.kernels.suffix_match.ref import (
+    suffix_match_propose_chunked_ref,
+    suffix_match_propose_ref,
+)
 
 TAIL = 16
 KMAX = 8
@@ -151,9 +159,78 @@ def test_plain_propose_bit_identical_to_pallas_interpret():
         np.testing.assert_array_equal(w, g)
 
 
-def _drafters(cls_cfg, cls_drafter, docs):
+def _chunked_pair():
+    pairs = [_pair(n) for n in sorted(TREES)]
+    jf, jr = jops.pack_forest_chunked([j.pack() for j, _ in pairs])
+    tf, tr = tops.pack_forest_chunked([t.pack() for _, t in pairs],
+                                      device="cpu")
+    return pairs, jf, jr, tf, tr
+
+
+def test_pack_forest_chunked_equals_jax():
+    _, jf, jr, tf, tr = _chunked_pair()
+    np.testing.assert_array_equal(jr, tr)
+    for name, a, b in zip(tops.ChunkedForest._fields, jf, tf):
+        assert b.dtype == torch.int32 and b.dim() == 2
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+    # tree count and strides are bucketed: padded rows exist and self-link
+    assert tf.corpus.shape[0] == 4 and len(tr) == len(TREES)
+
+
+def _chunked_batch(seed, troots):
+    tails, roots, budgets = _batch(seed, 12, 8, troots)
+    budgets[1] = 0  # a zero budget on a (possibly) active row
+    roots[2] = -1  # and an inactive one
+    return tails, roots, budgets
+
+
+@pytest.mark.parametrize("min_match", [1, 2, 3])
+@pytest.mark.parametrize("seed", [0, 1, 4])
+def test_chunked_plain_propose_bit_identical(seed, min_match):
+    """The port's chunked plain version against JAX ``_propose_chunked_ref``
+    and against the port's flat plain version over the same trees."""
+    pairs, jf, troots, tf, _ = _chunked_pair()
+    tails, roots, budgets = _chunked_batch(seed, troots)
+    kw = dict(n_prop_max=KMAX, min_match=min_match)
+    want = [np.asarray(x) for x in jops._propose_chunked_ref(
+        jf, jnp.asarray(tails), jnp.asarray(roots), jnp.asarray(budgets),
+        **kw)]
+    args = [torch.from_numpy(a) for a in (tails, roots, budgets)]
+    got = [x.numpy() for x in suffix_match_propose_chunked_ref(
+        *args, *tf, **kw)]
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+    assert (got[1] > 0).any(), "the case must actually propose something"
+    assert (got[0][roots < 0] == 0).all() and (got[2][roots < 0] == -1).all()
+    # the flat layout over the same trees proposes the same
+    ff, froots = tops.pack_forest([t.pack() for _, t in pairs], device="cpu")
+    flat_roots = np.where(roots >= 0, froots[np.maximum(roots, 0)], -1)
+    flat = tops.suffix_match_propose(ff, tails, flat_roots.astype(np.int32),
+                                     budgets, **kw)
+    for f, g in zip(flat, got):
+        np.testing.assert_array_equal(f.numpy(), g)
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_chunked_plain_propose_bit_identical_to_pallas_interpret(seed):
+    _, jf, troots, tf, _ = _chunked_pair()
+    tails, roots, budgets = _chunked_batch(seed, troots)
+    tails, roots, budgets = tails[:6], roots[:6], budgets[:6]
+    want = [np.asarray(x) for x in suffix_match_propose_kernel_chunked(
+        jnp.asarray(tails), jnp.asarray(roots), jnp.asarray(budgets), *jf,
+        n_prop_max=KMAX, min_match=1, interpret=True,
+    )]
+    got = [x.numpy() for x in tops.suffix_match_propose(
+        tf, tails, roots, budgets, n_prop_max=KMAX, min_match=1,
+    )]
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+
+
+def _drafters(cls_cfg, cls_drafter, docs, layout="auto"):
     d = cls_drafter(cls_cfg(scope="problem", min_match=1, window_size=3,
-                            device_tail=TAIL, max_draft=KMAX))
+                            device_tail=TAIL, max_draft=KMAX,
+                            forest_layout=layout))
     for e, (pid, toks) in enumerate(docs):
         d.observe_rollout(pid, toks, epoch=e)  # evicts beyond the window
         if e % 3 == 2:
@@ -161,12 +238,13 @@ def _drafters(cls_cfg, cls_drafter, docs):
     return d
 
 
-def test_batched_sessions_equal_jax():
+@pytest.mark.parametrize("layout", ["flat", "chunked"])
+def test_batched_sessions_equal_jax(layout):
     rng = np.random.default_rng(7)
     docs = [(f"p{i % 3}", [int(t) for t in rng.integers(0, 6, size=20)])
             for i in range(9)]
-    jd = _drafters(JDrafterConfig, JSuffixDrafter, docs)
-    td = _drafters(DrafterConfig, SuffixDrafter, docs)
+    jd = _drafters(JDrafterConfig, JSuffixDrafter, docs, layout)
+    td = _drafters(DrafterConfig, SuffixDrafter, docs, layout)
     ctxs = [(f"p{b % 4}", [int(t) for t in rng.integers(0, 6, size=b + 2)])
             for b in range(6)]
     jb = jd.batched_sessions(len(ctxs))
@@ -184,6 +262,9 @@ def test_batched_sessions_equal_jax():
     jb.close(1)
     tb.close(1)
     assert tb.propose_batch(budgets) == jb.propose_batch(budgets)
+    np.testing.assert_array_equal(tb.roots_array(), jb.roots_array())
+    want_type = tops.ChunkedForest if layout == "chunked" else tops.PackedForest
+    assert isinstance(tb.forest_arrays(), want_type)
 
 
 def test_batched_sessions_default_to_the_card(monkeypatch):
@@ -196,15 +277,8 @@ def test_batched_sessions_default_to_the_card(monkeypatch):
         d.batched_sessions(2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tops.pack_forest([d.pack_for("p")])
-
-
-def test_chunked_layout_is_refused():
-    d = SuffixDrafter(DrafterConfig(forest_layout="chunked"))
-    d.observe_rollout("p", [1, 2, 3, 4], 0)
-    bds = d.batched_sessions(1, tensor_device="cpu")
-    bds.open(0, "p", [1, 2])
-    with pytest.raises(NotImplementedError):
-        bds.propose_batch([4])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tops.pack_forest_chunked([d.pack_for("p")])
 
 
 @pytest.mark.gpu
@@ -221,3 +295,27 @@ def test_cuda_kernel_bit_identical_to_plain():
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_cuda_chunked_kernel_bit_identical_to_plain_and_flat():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    pairs = [_pair(n) for n in sorted(TREES)]
+    packs = [t.pack() for _, t in pairs]
+    cf, troots = tops.pack_forest_chunked(packs, device="cuda")
+    ff, froots = tops.pack_forest(packs, device="cuda")
+    tails, roots, budgets = _batch(3, 64, 8, troots)
+    up = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    args = (up(tails), up(roots), up(budgets))
+    got = tops.suffix_match_propose_chunked_cuda(cf, *args, n_prop_max=KMAX,
+                                                 min_match=1)
+    want = suffix_match_propose_chunked_ref(*args, *cf, n_prop_max=KMAX,
+                                            min_match=1)
+    flat_roots = np.where(roots >= 0, froots[np.maximum(roots, 0)], -1)
+    flat = tops.suffix_match_propose_cuda(
+        ff, args[0], up(flat_roots.astype(np.int32)), args[2],
+        n_prop_max=KMAX, min_match=1)
+    torch.cuda.synchronize()
+    for g, w, f in zip(got, want, flat):
+        assert torch.equal(g, w) and torch.equal(g, f)
