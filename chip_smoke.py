@@ -15,7 +15,8 @@ non-zero; no phase's error is caught):
    flat and chunked bit-identical; the chunked kernel also against the
    flat one over the same trees, at a forest larger than L2), with kernel
    / plain / library times (CUDA events, L2 flushed before every launch)
-   and each kernel's bound;
+   and each kernel's bound (for suffix-match, the forest entries a
+   per-row walk of the row core reads, ``walk_needed_reads``);
 4. lock-step path: Qwen3-8B at full width (random weights from a seed,
    bf16), DAS ``generate`` of 8 requests over 4 problems, two epochs over
    the same prompts; epoch 2 must be token-identical to epoch 1 and
@@ -25,9 +26,13 @@ non-zero; no phase's error is caught):
    requests over 12 problems in 8 slots, two epochs, with the chunked
    forest and then, on a fresh engine and drafter, the flat one; the two
    layouts must agree on every token, round and acceptance, and each run
-   must have launched its own suffix-match kernel and not the other;
-   then a small float32 model: lock-step and continuous (chunked) output
-   against plain greedy decoding without cache or kernels;
+   must have launched its own suffix-match kernel and not the other; the
+   chunked kernel's launches on this path (each epoch's first and every
+   16th) must equal its plain version bit for bit; every token of both
+   epochs and of lock-step ``generate`` on the same prompts must be plain
+   greedy's choice on its own prefix within the bf16 tolerance; then a
+   small float32 model: lock-step and continuous (chunked) output against
+   plain greedy decoding without cache or kernels;
 6. the serving CLI as subprocesses (lock-step and ``--continuous``).
 
 The last lines are the card line, the per-kernel JSON line and the
@@ -259,43 +264,165 @@ def synthetic_rollouts(np, seed, n_problems=4, per_problem=8, doc_len=None):
     return out
 
 
-class ReadCounter:
-    """Stands in for one forest array in the plain version and marks each
-    entry the walk reads, so the bound counts the distinct entries these
-    inputs need (the plain version only indexes its arrays and reads their
-    shapes)."""
-
-    def __init__(self, torch, t):
-        self.t = t
-        self.shape = t.shape
-        self.seen = torch.zeros(t.shape, dtype=torch.bool, device=t.device)
-
-    def __getitem__(self, idx):
-        self.seen[idx] = True
-        return self.t[idx]
+_EN, _ET, _EC, _SL, _ES, _EL, _FT, _BC, _CO = range(9)  # forest arrays
+_FEED, _DESC = 0, 1
 
 
-def suffix_match_bound_ms(torch, tails, roots, budgets, forest, *, chunked,
-                          n_prop_max, min_match):
-    """Least time for the same work: the distinct forest entries the plain
-    walk reads for these inputs, the query (tails, roots, budgets) and the
-    outputs (match_len, n_prop, props), each int32 moved once at the HBM
-    rate. Returns (ms, forest entries read)."""
-    from repro_torch.kernels.suffix_match import ref
-
-    kw = dict(n_prop_max=n_prop_max, min_match=min_match)
-    if chunked:
-        counters = [ReadCounter(torch, a) for a in forest]
-        ref.suffix_match_propose_chunked_ref(tails, roots, budgets,
-                                             *counters, **kw)
-    else:  # the flat layout is the one-tree case of the same core
-        counters = [ReadCounter(torch, a[None]) for a in forest]
-        tree = torch.zeros(tails.shape[0], dtype=torch.long,
-                           device=tails.device)
-        ref._propose_rows(tails, tree, roots, budgets, counters, **kw)
-    entries = sum(int(c.seen.sum()) for c in counters)
+def walk_needed_reads(np, tails, roots, budgets, forest, *, chunked,
+                      n_prop_max, min_match):
+    """Every row's match and proposal computed on the host as the kernels'
+    row core (``match_propose_row`` in ``csrc/suffix_match.cu``) computes
+    them, reading a forest entry only where the row's result depends on
+    its value: nothing for an inactive row or a row whose loop has ended,
+    only the branch a micro-step takes (no child search while on an edge
+    or at the end of a descent, no suffix link unless the step hops), and
+    no search step after the search has converged. Returns the outputs
+    (match_len, n_prop, props as numpy, to be held against the kernel's),
+    the distinct forest entries read and the query entries read."""
+    arrs = [a.cpu().numpy() for a in forest]
+    if not chunked:  # the flat layout is the one-tree case
+        arrs = [a[None] for a in arrs]
+    tails, roots, budgets = (a.cpu().numpy() for a in (tails, roots, budgets))
     B, m = tails.shape
-    nbytes = 4 * (entries + B * m + 2 * B + 2 * B + B * n_prop_max)
+    T, E = arrs[_EN].shape
+    C = arrs[_CO].shape[1]
+    n_steps = max(int(E - 1).bit_length(), 1) + 1
+    seen = set()
+    n_query = B  # every row's root
+    match_len = np.zeros(B, np.int32)
+    n_prop = np.zeros(B, np.int32)
+    props = np.full((B, n_prop_max), -1, np.int32)
+    for b in range(B):
+        r = int(roots[b])
+        tree, root = (min(max(r, 0), T - 1), 0 if r >= 0 else -1) \
+            if chunked else (0, r)
+        if root < 0:
+            continue
+        n_query += m + 1  # the row's tail and budget
+        budget = min(int(budgets[b]), n_prop_max)
+
+        def rd(a, i, tree=tree):
+            seen.add((a, tree, i))
+            return int(arrs[a][tree, i])
+
+        def find_child(node, tok):
+            lo, hi = 0, E
+            for _ in range(n_steps):
+                if lo >= hi:  # converged: later steps change nothing
+                    break
+                mid = (lo + hi) // 2
+                mc = min(mid, E - 1)
+                en = rd(_EN, mc)
+                if en < node or (en == node and rd(_ET, mc) < tok):
+                    lo = mid + 1
+                else:
+                    hi = mid
+            if lo >= E or rd(_EN, lo) != node or rd(_ET, lo) != tok:
+                return -1
+            return rd(_EC, lo)
+
+        def descend(dnode, dpos, drem):
+            """One descent micro-step: (node, child, epos, mode, dnode,
+            dpos, drem) after it, ``node`` None where it stays."""
+            if drem == 0:
+                return dnode, -1, 0, _FEED, dnode, dpos, drem
+            c_s = max(find_child(dnode, rd(_CO, min(dpos, C - 1))), 0)
+            ell = rd(_EL, c_s)
+            if drem >= ell:
+                return None, -1, 0, _DESC, c_s, dpos + ell, drem - ell
+            return dnode, c_s, drem, _FEED, dnode, dpos, drem
+
+        # streaming longest-suffix match
+        i, node, child, epos, mlen = 0, root, -1, 0, 0
+        mode, dnode, dpos, drem = _FEED, root, 0, 0
+        while i < m or mode == _DESC:
+            if mode == _DESC:
+                n2, child, epos, mode, dnode, dpos, drem = descend(
+                    dnode, dpos, drem)
+                node = node if n2 is None else n2
+                continue
+            t = int(tails[b, i])
+            if t < 0:
+                node, child, epos, mlen, i = root, -1, 0, 0, i + 1
+                continue
+            on_edge = child >= 0
+            if on_edge:
+                es_ch = rd(_ES, child)
+                ok = rd(_CO, min(es_ch + epos, C - 1)) == t
+                new_child, new_epos = child, epos + 1
+            else:
+                new_child = find_child(node, t)
+                ok, new_epos = new_child >= 0, 1
+            if ok:
+                if new_epos == rd(_EL, new_child):
+                    node, child, epos = new_child, -1, 0
+                else:
+                    child, epos = new_child, new_epos
+                mlen, i = mlen + 1, i + 1
+            elif mlen == 0:
+                i += 1
+            else:  # suffix-link hop, then retry the same token
+                shift = int(on_edge and node == root)
+                dnode = rd(_SL, node)
+                dpos = es_ch + shift if on_edge else 0
+                drem = epos - shift if on_edge else 0
+                mlen, mode = mlen - 1, _DESC
+
+        # greedy continuation walk with shorter-suffix fallback
+        minm = max(int(min_match), 1)
+        wn, wc, we, k, pmlen = node, child, epos, 0, mlen
+        mode, dnode, dpos, drem = _FEED, root, 0, 0
+        done = budget <= 0 or mlen < minm
+        while not done:
+            if mode == _DESC:
+                n2, wc, we, mode, dnode, dpos, drem = descend(dnode, dpos, drem)
+                wn = wn if n2 is None else n2
+                continue
+            if k >= budget:
+                break
+            on_edge = wc >= 0
+            if on_edge:
+                if we == rd(_EL, wc):  # end of the edge: step onto its node
+                    wn, wc, we = wc, -1, 0
+                    continue
+                es_wc = rd(_ES, wc)
+                tok = rd(_CO, min(es_wc + we, C - 1))
+                brk = tok < 0
+            else:
+                bcx = rd(_BC, wn)
+                brk = bcx < 0
+                tok = -1 if brk else rd(_FT, bcx)
+            if not brk:
+                props[b, min(k, n_prop_max - 1)] = tok
+                k += 1
+                wc, we = (wc, we + 1) if on_edge else (bcx, 1)
+            elif k > 0 or pmlen - 1 < minm:  # done, or give up
+                done = True
+            else:
+                shift = int(on_edge and wn == root)
+                dnode = rd(_SL, wn)
+                dpos = es_wc + shift if on_edge else 0
+                drem = we - shift if on_edge else 0
+                pmlen, mode = pmlen - 1, _DESC
+        match_len[b], n_prop[b] = mlen, k
+    return (match_len, n_prop, props), len(seen), n_query
+
+
+def suffix_match_bound_ms(np, got, tails, roots, budgets, forest, *, chunked,
+                          n_prop_max, min_match):
+    """Least time for the same work: the distinct forest entries the rows'
+    results depend on (``walk_needed_reads``), the query entries they
+    need and the outputs, each int32 moved once at the HBM rate. The
+    walk's outputs must equal the kernel's (``got``), so the count is of
+    the kernel's own work. Returns (ms, forest entries read)."""
+    outs, entries, n_query = walk_needed_reads(
+        np, tails, roots, budgets, forest, chunked=chunked,
+        n_prop_max=n_prop_max, min_match=min_match)
+    for name, w, g in zip(("match_len", "n_prop", "props"), outs, got):
+        check(np.array_equal(w, g.cpu().numpy()),
+              f"the read walk's {name} differs from the kernel's")
+    B = tails.shape[0]
+    nbytes = 4 * (entries + n_query + 2 * B + B * n_prop_max)
     return nbytes / HBM_BYTES_PER_S * 1e3, entries
 
 
@@ -342,7 +469,7 @@ def phase_suffix_match(torch, np, timer, card):
     plain_ms = timer.ms(lambda: suffix_match_propose_ref(
         *args, *forest, n_prop_max=K, min_match=1), 5, warmup=1)
     bound_ms, entries = suffix_match_bound_ms(
-        torch, *args, forest, chunked=False, n_prop_max=K, min_match=1)
+        np, got, *args, forest, chunked=False, n_prop_max=K, min_match=1)
     log(f"suffix_match timing: kernel {ms * 1e3:.1f} us, plain "
         f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.4f} us (bytes: "
         f"{entries} forest entries read + query + outputs)  [{card}]")
@@ -439,10 +566,10 @@ def phase_suffix_match_chunked(torch, np, timer, card):
         ff, *fargs, **kw), 50)
     plain_ms = timer.ms(lambda: suffix_match_propose_chunked_ref(
         *args, *cf, **kw), 5, warmup=1)
-    bound_ms, entries = suffix_match_bound_ms(torch, *args, cf, chunked=True,
-                                              **kw)
+    bound_ms, entries = suffix_match_bound_ms(np, got, *args, cf,
+                                              chunked=True, **kw)
     flat_bound_ms, flat_entries = suffix_match_bound_ms(
-        torch, *fargs, ff, chunked=False, **kw)
+        np, flat, *fargs, ff, chunked=False, **kw)
     log(f"suffix_match chunked timing: kernel {ms * 1e3:.1f} us, flat kernel "
         f"{flat_ms * 1e3:.1f} us (same trees, same call), plain "
         f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.4f} us (bytes: "
@@ -584,16 +711,19 @@ def continuous_requests(np, vocab, n_problems=12, n_requests=24,
             [limits[i % len(limits)] for i in range(n_requests)])
 
 
-def serve_epochs(torch, eng, prompts, pids, max_new, slots, dev, card, tag):
+def serve_epochs(torch, eng, prompts, pids, max_new, slots, dev, card, tag,
+                 on_epoch=None):
     """Two epochs of ``SpecEngine.serve`` over the same requests; returns
     per epoch the outputs, per-request rounds and admission rounds, and
-    the stats."""
+    the stats. ``on_epoch()`` is called as each epoch begins."""
     from repro_torch.core.scheduler import Request
     from repro_torch.core.spec_engine import RolloutStats
 
     runs = []
     for ep in range(2):
         eng.begin_iteration(ep)
+        if on_epoch is not None:
+            on_epoch()
         reqs = [Request(rid=i, problem_id=pids[i], prompt=list(prompts[i]),
                         max_new_tokens=max_new[i])
                 for i in range(len(prompts))]
@@ -622,8 +752,8 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
                        n_problems, n_requests, limits, prompt_len):
     """The continuous path with the chunked forest, then with the flat one
     on a fresh engine and drafter; gated as ``phase_continuous`` says.
-    Returns the chunked run's launches, its runs and the lock-step
-    outputs of the same prompts."""
+    Returns the chunked run's launches, its runs, the prompts and the
+    lock-step outputs of the same prompts."""
     from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
     from repro_torch.core.spec_engine import EngineConfig, SpecEngine
     from repro_torch.kernels.suffix_match import ops as sm_ops
@@ -631,11 +761,22 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
     prompts, pids, max_new = continuous_requests(
         np, cfg.vocab_size, n_problems, n_requests, limits, prompt_len)
     trees_seen = []
+    stash = []  # chunked launches held against the plain version below
+    seen = {"n": 0, "first": True}
     chunked_cuda = sm_ops.suffix_match_propose_chunked_cuda
 
-    def spy(forest, *a, **k):  # records the forest each launch walks
+    def spy(forest, tails, roots, budgets, **k):
+        """Records the forest each chunked launch walks; keeps the inputs
+        and outputs of each epoch's first launch and of every 16th for
+        the check after the run (outside its timing)."""
         trees_seen.append(int(forest.edge_node.shape[0]))
-        return chunked_cuda(forest, *a, **k)
+        out = chunked_cuda(forest, tails, roots, budgets, **k)
+        if seen["first"] or seen["n"] % 16 == 0:
+            stash.append((forest, tails.clone(), roots.clone(),
+                          budgets.clone(), k, tuple(o.clone() for o in out)))
+        seen["n"] += 1
+        seen["first"] = False
+        return out
 
     result = {}
     for layout in ("chunked", "flat"):
@@ -653,7 +794,8 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
         try:
             reset_launches()
             runs = serve_epochs(torch, eng, prompts, pids, max_new, slots,
-                                dev, card, f"continuous ({layout})")
+                                dev, card, f"continuous ({layout})",
+                                on_epoch=lambda: seen.update(first=True))
             launches = read_launches()
         finally:
             sm_ops.suffix_match_propose_chunked_cuda = chunked_cuda
@@ -684,10 +826,39 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
               "spec_verify never launched on the continuous path")
         check(max(trees_seen, default=0) >= n_problems,
               f"the chunked forest held {max(trees_seen, default=0)} trees")
+        check_stashed_launches(torch, stash, card)
     del c_eng
     lock, _ = f_eng.generate(prompts, pids, max_new_tokens=max_new)
     del f_eng
-    return c_launch, c_runs, lock
+    return c_launch, c_runs, prompts, lock
+
+
+def check_stashed_launches(torch, stash, card):
+    """The chunked kernel's launches kept by the spy, at the shapes of the
+    continuous path, against the plain version on the same forest and
+    query: bit-identical. At least one of them must have proposed."""
+    from repro_torch.kernels.suffix_match.ref import (
+        suffix_match_propose_chunked_ref,
+    )
+
+    check(len(stash) >= 2, f"only {len(stash)} chunked launches were kept")
+    rows = toks = 0
+    shapes = set()
+    for forest, tails, roots, budgets, kw, got in stash:
+        want = suffix_match_propose_chunked_ref(tails, roots, budgets,
+                                                *forest, **kw)
+        for name, g, w in zip(("match_len", "n_prop", "props"), got, want):
+            check(torch.equal(g, w), f"continuous path: chunked kernel "
+                  f"{name} differs from its plain version")
+        rows += int((got[1] > 0).sum())
+        toks += int(got[1].sum())
+        shapes.add((tuple(tails.shape), tuple(forest.edge_node.shape),
+                    int(forest.suffix_link.shape[1]),
+                    int(forest.corpus.shape[1])))
+    check(toks > 0, "no kept chunked launch proposed a token")
+    log(f"continuous path: {len(stash)} chunked launches bit-identical to "
+        f"the plain version ({rows} rows proposed {toks} tokens; (B, m), "
+        f"(T, Es), Ns, Cs seen: {sorted(shapes)})  [{card}]")
 
 
 def phase_continuous(torch, np, card, cfg, params):
@@ -695,20 +866,102 @@ def phase_continuous(torch, np, card, cfg, params):
     8 slots, two epochs, chunked then flat. Gated: identical outputs,
     per-request rounds, makespan and acceptances between the layouts;
     each run launched its own suffix-match kernel and not the other; the
-    chunked forest held every problem's tree; slots were recycled; epoch 2
-    accepted drafts. Reported: how many outputs equal lock-step
-    ``generate`` on the same prompts (bf16 admissions prefill in chunks of
-    other sizes than the lock-step batch, so cuBLAS may round
-    differently)."""
-    launches, runs, lock = continuous_layouts(
+    chunked kernel's kept launches equal its plain version; the chunked
+    forest held every problem's tree; slots were recycled; epoch 2
+    accepted drafts; every token of both epochs and of lock-step
+    ``generate`` on the same prompts is plain greedy's choice within the
+    bf16 tolerance (``plain_greedy_full_width``). Reported: how many
+    outputs equal lock-step ``generate`` exactly (bf16 admissions prefill
+    in chunks of other sizes than the lock-step batch, so cuBLAS may round
+    differently), and where those that differ diverge."""
+    launches, runs, prompts, lock = continuous_layouts(
         torch, np, cfg, params, "cuda", card, slots=8, n_problems=12,
         n_requests=24, limits=(32, 64, 128, 256), prompt_len=(128, 256))
     same = [sum(a == b for a, b in zip(r["outputs"], lock)) for r in runs]
     log(f"continuous vs lock-step generate (bf16, reported): {same[0]} / "
         f"{len(lock)} outputs equal in epoch 1, {same[1]} / {len(lock)} in "
         f"epoch 2  [{card}]")
+    plain_greedy_full_width(
+        torch, np, cfg, params, prompts,
+        {"lock-step": lock, "continuous epoch 1": runs[0]["outputs"],
+         "continuous epoch 2": runs[1]["outputs"]}, card)
     torch.cuda.empty_cache()
     return launches
+
+
+# The most a bf16 engine's token may fall short of plain greedy's top
+# logit on the same prefix: 8 bfloat16 ulps at the top logits' magnitude
+# here (4 to 8, one ulp 2^-5). Two bf16 computations of the same logits
+# whose every logit differs by at most e pick tokens at most 2e apart;
+# a token picked on a wrong context falls short by about the top logit.
+TOL_LOGIT_BF16 = 0.25
+
+
+def plain_greedy_full_width(torch, np, cfg, params, prompts, outputs, card):
+    """Every token of every output set (name -> one output per prompt)
+    against plain greedy decoding: one full-sequence forward (no cache, no
+    kernels) over prompt + output gives the logits at each position on the
+    output's own prefix, and the output's token must be the top or within
+    ``TOL_LOGIT_BF16`` of it. An output that is a prefix of one already
+    checked for the same prompt reuses its forward. Logs, per set, the
+    tokens checked, how many are the top, the largest shortfall, and,
+    for outputs that differ from the first set's, the first position they
+    differ at with both tokens' shortfalls there."""
+    from repro_torch.models import model as M
+
+    dev = params.embed.device
+    done = {}  # prompt -> list of (tokens, shortfalls, top-2 gaps)
+
+    def measure(p, out):
+        for toks, sf, gap in done.get(tuple(p), []):
+            if toks[:len(out)] == out:
+                return sf[:len(out)], gap[:len(out)]
+        x = torch.tensor([list(p) + list(out)], dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            logits, _ = M.forward(params, cfg, x)
+            lg = logits[0, len(p) - 1:len(p) - 1 + len(out), :cfg.vocab_size]
+            top2 = torch.topk(lg, 2, dim=-1).values
+            chosen = lg.gather(1, torch.tensor(out, device=dev)[:, None])
+            sf = (top2[:, 0] - chosen[:, 0]).cpu().numpy()
+            gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        done.setdefault(tuple(p), []).append((list(out), sf, gap))
+        return sf, gap
+
+    res = {name: {} for name in outputs}
+    for name, i in sorted(  # longest first, so prefixes reuse a forward
+            ((n, i) for n in outputs for i in range(len(prompts))),
+            key=lambda ni: -len(outputs[ni[0]][ni[1]])):
+        out = list(outputs[name][i])
+        res[name][i] = (measure(prompts[i], out) if out
+                        else (np.zeros(0), np.zeros(0)))
+    ref_name = next(iter(outputs))
+    worst = 0.0
+    for name, outs in outputs.items():
+        sfs = np.concatenate([res[name][i][0] for i in range(len(outs))])
+        n_top = int((sfs == 0).sum())
+        mx = float(sfs.max(initial=0.0))
+        worst = max(worst, mx)
+        div = []
+        for i, o in enumerate(outs):
+            r = outputs[ref_name][i]
+            if name == ref_name or o == r:
+                continue
+            j = next((j for j, (a, b) in enumerate(zip(o, r)) if a != b),
+                     min(len(o), len(r)))
+            if j < min(len(o), len(r)):
+                div.append(f"r{i}@{j}: {float(res[name][i][0][j]):.4f}/"
+                           f"{float(res[ref_name][i][0][j]):.4f} (top-2 gap "
+                           f"{float(res[ref_name][i][1][j]):.4f})")
+            else:
+                div.append(f"r{i}: length {len(o)} vs {len(r)}")
+        log(f"plain greedy ({cfg.dtype}) vs {name}: {sfs.size} tokens, "
+            f"{n_top} the top logit, largest shortfall {mx:.4f} (tolerance "
+            f"{TOL_LOGIT_BF16})" + (f"; first divergence from {ref_name}, "
+                                    f"shortfall this/that: {'; '.join(div)}"
+                                    if div else "") + f"  [{card}]")
+    check(worst <= TOL_LOGIT_BF16,
+          f"a full-width engine token falls {worst:.4f} short of plain "
+          f"greedy's top logit (tolerance {TOL_LOGIT_BF16})")
 
 
 def phase_small_reference(torch, np):

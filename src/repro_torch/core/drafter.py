@@ -57,11 +57,10 @@ class DrafterConfig:
     device_tail: int = 64
     # Packed-forest device layout. "flat" shares one concatenated forest
     # with every row; "chunked" packs one row per tree and each row reads
-    # only its own tree. "auto" takes chunked only on a TPU once the flat
-    # forest passes ``vmem_budget_bytes`` (the reference's rule), so in
-    # the port "auto" is flat and the budget is kept for config parity.
+    # only its own tree. "auto" takes chunked only on a TPU whose VMEM
+    # the flat forest outgrows (the reference's rule), so in the port
+    # "auto" is flat.
     forest_layout: str = "auto"  # auto | flat | chunked
-    vmem_budget_bytes: int = 6 << 20
 
     def __post_init__(self) -> None:
         if self.scope not in ("problem", "problem+request", "global"):

@@ -156,15 +156,6 @@ def pack_forest(
     return forest, roots
 
 
-def forest_nbytes(packs: Sequence) -> int:
-    """Approximate device bytes of a flat forest over ``packs`` (before
-    bucketing): 3 int32 edge arrays, 5 node arrays, 1 corpus array."""
-    n = sum(p.n_nodes for p in packs)
-    e = sum(p.n_edges for p in packs)
-    c = sum(len(p.corpus) for p in packs)
-    return 4 * (3 * e + 5 * n + c)
-
-
 def pack_forest_chunked(
     packs: Sequence, *, min_stride_nodes: int = _MIN_STRIDE,
     min_stride_edges: int = _MIN_STRIDE, min_stride_corpus: int = _MIN_STRIDE,

@@ -142,12 +142,3 @@ def _cancel_expire(mod, clock_cls):
 def test_scheduler_equals_jax(case):
     assert case(T, VirtualClock) == case(J, JVirtualClock)
 
-
-def test_trace_ids_are_minted_on_submit():
-    sched = T.SlotScheduler(1)
-    r = T.Request(rid=0)
-    sched.submit(r)
-    assert r.trace and r.trace.startswith("w?-")
-    r2 = T.Request(rid=1)
-    sched.submit(r2)
-    assert r2.trace != r.trace
