@@ -8,15 +8,19 @@ imports only ``repro_torch``, torch and numpy. Phases (any failure exits
 non-zero; no phase's error is caught):
 
 1. device: the card's name and power limit (nvidia-smi), torch's view;
-2. build: both CUDA sources from ``src/repro_torch/csrc`` with nvcc for
-   sm_90a, in parallel, with the ptxas register/shared-memory report;
+2. build: the three CUDA sources from ``src/repro_torch/csrc`` with nvcc
+   for sm_90a, in parallel, with the ptxas register/shared-memory report;
 3. kernels against their plain PyTorch versions at main-path shapes
-   (spec-verify attention within the bfloat16 tolerance, suffix-match
-   flat and chunked bit-identical; the chunked kernel also against the
-   flat one over the same trees, at a forest larger than L2), with kernel
-   / plain / library times (CUDA events, L2 flushed before every launch)
-   and each kernel's bound (for suffix-match, the forest entries a
-   per-row walk of the row core reads, ``walk_needed_reads``);
+   (spec-verify attention within the bfloat16 tolerance at Qwen3-8B's
+   head shape and at RecurrentGemma-9B's (head_dim 256, MQA, window
+   2048), float32 at head_dim 64 and 256; suffix-match flat and chunked
+   bit-identical, the chunked kernel also against the flat one over the
+   same trees, at a forest larger than L2; 3d: the RG-LRU scan within
+   1e-5 at RecurrentGemma-9B's prefill and verify shapes, with pads and
+   frozen rows masked, and at a ragged width), with kernel / plain /
+   library times (CUDA events, L2 flushed before every launch) and each
+   kernel's bound (for suffix-match, the forest entries a per-row walk of
+   the row core reads, ``walk_needed_reads``);
 4. lock-step path: Qwen3-8B at full width (random weights from a seed,
    bf16), DAS ``generate`` of 8 requests over 4 problems, two epochs over
    the same prompts; epoch 2 must be token-identical to epoch 1 and
@@ -30,10 +34,16 @@ non-zero; no phase's error is caught):
    chunked kernel's launches on this path (each epoch's first and every
    16th) must equal its plain version bit for bit; every token of both
    epochs and of lock-step ``generate`` on the same prompts must be plain
-   greedy's choice on its own prefix within the bf16 tolerance; then a
-   small float32 model: lock-step and continuous (chunked) output against
-   plain greedy decoding without cache or kernels;
-6. the serving CLI as subprocesses (lock-step and ``--continuous``).
+   greedy's choice on its own prefix within the bf16 tolerance;
+6. the serving CLI as subprocesses (lock-step, ``--continuous``, and the
+   hybrid model), last of all;
+7. RecurrentGemma-9B at full width (the Qwen3-8B weights freed first):
+   phase 4's lock-step traffic and phase 5's continuous traffic (chunked
+   forest only), gated as there, with one RG-LRU launch per recurrent
+   layer per forward and plain greedy's forwards run on the plain scan;
+   then the small float32 variants of Qwen3-8B and RecurrentGemma-9B:
+   lock-step and continuous (chunked) output against plain greedy
+   decoding without cache or kernels.
 
 The last lines are the card line, the per-kernel JSON line and the
 result line ``{"ok": true, "device": {...}}``.
@@ -41,11 +51,13 @@ result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -157,8 +169,6 @@ def sv_bound_ms(np, args, window, dtype):
 
 
 def phase_spec_verify(torch, np, timer, card):
-    import torch.nn.functional as F
-
     from repro_torch.kernels.spec_verify import ops as sv_ops
     from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
 
@@ -172,36 +182,71 @@ def phase_spec_verify(torch, np, timer, card):
           f"spec_verify f32 window/softcap: max |err| {err_small}")
     log(f"spec_verify f32 (B=2 T=5 Hq=8 Hkv=2 hd=64 S+1=130 window=48 "
         f"softcap=30): max |err| {err_small:.3e}  ok")
+    # float32 at hd 256 (MQA 16/1, a window): each thread owns two columns
+    small = sv_inputs(torch, np, 2, 5, 16, 1, 256, 300, "float32", 2, 100)
+    got = sv_ops.spec_verify_attention_cuda(*small, window=160)
+    want = spec_verify_attention_ref(*small, window=160)
+    torch.cuda.synchronize()
+    err_small = float((got - want).abs().max())
+    check(torch.allclose(got, want, **SV_TOL["float32"]),
+          f"spec_verify f32 hd=256: max |err| {err_small}")
+    log(f"spec_verify f32 (B=2 T=5 Hq=16 Hkv=1 hd=256 S+1=300 window=160): "
+        f"max |err| {err_small:.3e}  ok")
 
-    # main-path shape: B=8, T=17, Hq=32, Hkv=8, hd=128, S+1=577, bf16
-    B, T, Hq, Hkv, hd, S1 = 8, 17, 32, 8, 128, 577
+    # main-path shapes, bf16: Qwen3-8B's (hd 128, GQA 32/8, S+1 = 577)
+    # and RecurrentGemma-9B's local attention (hd 256, MQA 16/1, the full
+    # window-2048 ring: S+1 = 2113)
+    entries = []
+    for name, (Hq, Hkv, hd, S1, window, min_len) in (
+            ("spec_verify_attention", (32, 8, 128, 577, 0, 128)),
+            ("spec_verify_attention_hd256", (16, 1, 256, 2113, 2048, 1024))):
+        entries.append(dict(name=name, **sv_main_shape(
+            torch, np, timer, card, 8, 17, Hq, Hkv, hd, S1, window,
+            min_len)))
+    return entries
+
+
+def sv_main_shape(torch, np, timer, card, B, T, Hq, Hkv, hd, S1, window,
+                  min_len):
+    """One bf16 main-path shape: the kernel against the plain version,
+    then kernel, plain, SDPA and bound times."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
+
     copies = [sv_inputs(torch, np, B, T, Hq, Hkv, hd, S1, "bfloat16",
-                        10 + i, 128) for i in range(4)]
+                        10 + i, min_len) for i in range(4)]
     args = copies[0]
-    got = sv_ops.spec_verify_attention_cuda(*args)
-    want = spec_verify_attention_ref(*args)
+    got = sv_ops.spec_verify_attention_cuda(*args, window=window)
+    want = spec_verify_attention_ref(*args, window=window)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), "spec_verify bf16: non-finite output")
     err = float((got.float() - want.float()).abs().max())
     check(torch.allclose(got.float(), want.float(), **SV_TOL["bfloat16"]),
-          f"spec_verify bf16: max |err| {err}")
+          f"spec_verify bf16 hd={hd}: max |err| {err}")
     log(f"spec_verify bf16 (B={B} T={T} Hq={Hq} Hkv={Hkv} hd={hd} "
-        f"S+1={S1}, ragged): max |err| {err:.3e}  ok")
+        f"S+1={S1} window={window}, ragged): max |err| {err:.3e}  ok")
 
-    # timing: cycle 4 input sets (4 x 19 MB of K/V) so nothing stays warm
+    # timing: cycle 4 input sets so nothing stays warm
     it = {"i": 0}
 
     def nxt():
         it["i"] += 1
         return copies[it["i"] % len(copies)]
 
-    ms = timer.ms(lambda: sv_ops.spec_verify_attention_cuda(*nxt()), 50)
-    plain_ms = timer.ms(lambda: spec_verify_attention_ref(*nxt()), 10)
+    ms = timer.ms(lambda: sv_ops.spec_verify_attention_cuda(
+        *nxt(), window=window), 50)
+    plain_ms = timer.ms(lambda: spec_verify_attention_ref(
+        *nxt(), window=window), 10)
     # library yardstick: one SDPA call with the same boolean mask (never
     # called by the port)
     lib_in = []
     for q, k, v, cpos, pos in copies:
-        mask = (cpos[:, None, :] >= 0) & (cpos[:, None, :] <= pos[:, :, None])
+        cp, qp = cpos[:, None, :], pos[:, :, None]
+        mask = (cp >= 0) & (cp <= qp)
+        if window > 0:
+            mask &= cp > qp - window
         lib_in.append((q.transpose(1, 2).contiguous(),
                        k.transpose(1, 2).contiguous(),
                        v.transpose(1, 2).contiguous(), mask[:, None]))
@@ -222,12 +267,11 @@ def phase_spec_verify(torch, np, timer, card):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=m, **sdpa_kw)
 
     library_ms = timer.ms(lib_call, 50)
-    bound_ms, bound_by = sv_bound_ms(np, args, 0, "bfloat16")
-    log(f"spec_verify bf16 timing: kernel {ms * 1e3:.1f} us, plain "
+    bound_ms, bound_by = sv_bound_ms(np, args, window, "bfloat16")
+    log(f"spec_verify bf16 hd={hd} timing: kernel {ms * 1e3:.1f} us, plain "
         f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} us, bound "
         f"{bound_ms * 1e3:.2f} us ({bound_by})  [{card}]")
-    return dict(name="spec_verify_attention", route="cuda",
-                source="src/repro_torch/csrc/spec_verify.cu",
+    return dict(route="cuda", source="src/repro_torch/csrc/spec_verify.cu",
                 replaces="src/repro/kernels/spec_verify/kernel.py:103",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
@@ -583,38 +627,165 @@ def phase_suffix_match_chunked(torch, np, timer, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the RG-LRU scan
+# ---------------------------------------------------------------------------
+
+RGLRU_TOL = dict(atol=1e-5, rtol=1e-5)  # tests/test_kernels.py's
+
+
+def rglru_inputs(torch, np, B, T, W, seed):
+    """x ~ N(0, 1), gates r, i ~ U(0, 1), Λ ~ N(0, 1), h0 ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    arrs = (rng.normal(size=(B, T, W)), rng.uniform(size=(B, T, W)),
+            rng.uniform(size=(B, T, W)), rng.normal(size=(W,)),
+            rng.normal(size=(B, W)))
+    return [torch.tensor(a, dtype=torch.float32, device="cuda")
+            for a in arrs]
+
+
+# float32 operations a (b, t, w) step of the scan does: log_a (2 products),
+# a and exp(2 log_a) (2 exp, 1 product), 1 - e, clip (2), sqrt, i·x,
+# mult·gx, a·h, + gx
+RGLRU_OPS_PER_STEP = 13
+
+
+def rglru_bound_ms(x, mask):
+    """Least time for the same work, the larger of: x, r, i read and hs
+    written once, h0, Λ, h_final and the mask once, at the HBM rate; the
+    scan's float32 operations at the card's float32 rate. Returns (ms,
+    which bounds it)."""
+    B, T, W = x.shape
+    nbytes = 4 * (4 * B * T * W + 2 * B * W + W)
+    if mask is not None:
+        nbytes += mask.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = RGLRU_OPS_PER_STEP * B * T * W / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_rglru(torch, np, timer, card):
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+
+    def masks(kind, B, T):
+        if kind == "left pads":  # prompts of 64..T tokens, right-aligned
+            lens = np.linspace(64, T, B).astype(int)
+            m = np.arange(T)[None] >= (T - lens)[:, None]
+        elif kind == "rows masked out":  # frozen rows of a verify block
+            m = np.ones((B, T), bool)
+            m[1::3] = False
+        else:
+            return None
+        return torch.tensor(m, device="cuda")
+
+    # (B, T, W, mask): the prefill and verify shapes of RecurrentGemma-9B
+    # at the main path's batch, and a ragged width without a mask
+    cases = [(8, 256, 4096, "left pads"), (8, 17, 4096, "rows masked out"),
+             (3, 40, 4000, None)]
+    res = {}
+    for ci, (B, T, W, mk) in enumerate(cases):
+        copies = [rglru_inputs(torch, np, B, T, W, 40 + 4 * ci + j)
+                  for j in range(4)]
+        mask = masks(mk, B, T)
+        got = rg_ops.rglru_scan_cuda(*copies[0], mask)
+        want = rglru_scan_ref(*copies[0], mask)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, g, w in zip(("hs", "h_final"), got, want):
+            check(bool(torch.isfinite(g).all()), f"rglru {name}: non-finite")
+            err = max(err, float((g - w).abs().max()))
+            check(torch.allclose(g, w, **RGLRU_TOL),
+                  f"rglru (B={B} T={T} W={W}, {mk}) {name}: max |err| "
+                  f"{float((g - w).abs().max())}")
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] += 1
+            return copies[it["i"] % len(copies)]
+
+        ms = timer.ms(lambda: rg_ops.rglru_scan_cuda(*nxt(), mask), 50)
+        plain_ms = timer.ms(lambda: rglru_scan_ref(*nxt(), mask), 5,
+                            warmup=1)
+        bound_ms, bound_by = rglru_bound_ms(copies[0][0], mask)
+        log(f"rglru_scan (B={B} T={T} W={W}, mask: {mk}): max |err| "
+            f"{err:.3e} (tolerance 1e-5 abs/rel); kernel {ms * 1e3:.1f} us, "
+            f"plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by})  [{card}]")
+        res[ci] = (err, ms, plain_ms, bound_ms, bound_by)
+    _, ms, plain_ms, bound_ms, bound_by = res[0]  # the prefill shape
+    # library_ms is null: no single PyTorch call computes a gated linear
+    # recurrence (torch has no associative scan over a custom operator)
+    return dict(name="rglru_scan", route="cuda",
+                source="src/repro_torch/csrc/rglru.cu",
+                replaces="src/repro/kernels/rglru/kernel.py:64",
+                max_abs_err=max(r[0] for r in res.values()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the lock-step path at full width
 # ---------------------------------------------------------------------------
 
 def reset_launches():
+    from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.spec_verify import ops as sv_ops
     from repro_torch.kernels.suffix_match import ops as sm_ops
 
     sv_ops.LAUNCHES = 0
     sm_ops.LAUNCHES = 0
     sm_ops.LAUNCHES_CHUNKED = 0
+    rg_ops.LAUNCHES = 0
 
 
 def read_launches():
+    from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.spec_verify import ops as sv_ops
     from repro_torch.kernels.suffix_match import ops as sm_ops
 
     return {"spec_verify_attention": sv_ops.LAUNCHES,
             "suffix_match_propose": sm_ops.LAUNCHES,
-            "suffix_match_propose_chunked": sm_ops.LAUNCHES_CHUNKED}
+            "suffix_match_propose_chunked": sm_ops.LAUNCHES_CHUNKED,
+            "rglru_scan": rg_ops.LAUNCHES}
 
 
-def full_width_model(torch):
+def check_rglru_launches(cfg, launches, n_fwd, where):
+    """One RG-LRU launch per recurrent layer per forward (prefills and
+    verify rounds alike), none for a model without recurrent layers."""
+    n_rec = sum(k == "rglru" for k in cfg.layer_kinds)
+    check(launches["rglru_scan"] == n_rec * n_fwd,
+          f"{where}: {launches['rglru_scan']} RG-LRU launches, expected "
+          f"{n_rec} layers x {n_fwd} forwards")
+
+
+@contextlib.contextmanager
+def plain_rglru_scan():
+    """Swaps the plain scan into ``kernels.rglru.ops`` for a reference
+    forward, the way the continuous phase's spy swaps the chunked kernel:
+    the plain greedy check must not run the kernel under test."""
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+
+    saved = rg_ops.rglru_scan
+    rg_ops.rglru_scan = rglru_scan_ref
+    try:
+        yield
+    finally:
+        rg_ops.rglru_scan = saved
+
+
+def full_width_model(torch, arch):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = get_config("qwen3-8b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    log(f"qwen3-8b: {M.param_count(params) / 1e9:.3f} B params ({cfg.dtype}, "
+    log(f"{arch}: {M.param_count(params) / 1e9:.3f} B params ({cfg.dtype}, "
         f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"kinds {dict(Counter(cfg.layer_kinds))}, vocab "
         f"{cfg.padded_vocab}) initialised on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     return cfg, params
@@ -668,13 +839,14 @@ def phase_main_path(torch, np, card, cfg, params):
         wall = time.perf_counter() - t0
         epochs.append((outs, st))
         toks_n = st.n_toks_emitted
-        log(f"epoch {ep + 1}: wall {wall * 1e3:.1f} ms, rounds {st.n_rounds}, "
+        log(f"{cfg.name} epoch {ep + 1}: wall {wall * 1e3:.1f} ms, rounds "
+            f"{st.n_rounds}, "
             f"tokens {toks_n}, {toks_n / wall:.1f} tok/s, drafted "
             f"{st.n_drafted}, accepted {st.n_accepted} "
             f"({st.acceptance_per_round:.2f}/round), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
     launches = read_launches()
-    log(f"lock-step path launches: {launches}")
+    log(f"{cfg.name} lock-step path launches: {launches}")
     (o1, s1), (o2, s2) = epochs
     for b, o in enumerate(o1):
         check(len(o) <= max_new[b], f"row {b} emitted {len(o)} > {max_new[b]}")
@@ -687,6 +859,8 @@ def phase_main_path(torch, np, card, cfg, params):
               "path")
     check(launches["suffix_match_propose_chunked"] == 0,
           "the chunked kernel launched on the flat lock-step path")
+    check_rglru_launches(cfg, launches, s1.n_fwd + s2.n_fwd,
+                         f"{cfg.name} lock-step")
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -749,11 +923,13 @@ def serve_epochs(torch, eng, prompts, pids, max_new, slots, dev, card, tag,
 
 
 def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
-                       n_problems, n_requests, limits, prompt_len):
-    """The continuous path with the chunked forest, then with the flat one
-    on a fresh engine and drafter; gated as ``phase_continuous`` says.
-    Returns the chunked run's launches, its runs, the prompts and the
-    lock-step outputs of the same prompts."""
+                       n_problems, n_requests, limits, prompt_len,
+                       layouts=("chunked", "flat")):
+    """The continuous path with the chunked forest, then (unless
+    ``layouts`` leaves it out) with the flat one on a fresh engine and
+    drafter; gated as ``phase_continuous`` says. Returns the chunked
+    run's launches, its runs, the prompts and the lock-step outputs of the
+    same prompts."""
     from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
     from repro_torch.core.spec_engine import EngineConfig, SpecEngine
     from repro_torch.kernels.suffix_match import ops as sm_ops
@@ -779,7 +955,7 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
         return out
 
     result = {}
-    for layout in ("chunked", "flat"):
+    for layout in layouts:
         # one K bucket (16): every verify round runs one (slots, 17) block
         eng = SpecEngine(
             params, cfg,
@@ -799,10 +975,10 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
             launches = read_launches()
         finally:
             sm_ops.suffix_match_propose_chunked_cuda = chunked_cuda
-        log(f"continuous ({layout}) launches: {launches}")
+        log(f"{cfg.name} continuous ({layout}) launches: {launches}")
         result[layout] = (runs, launches, eng)
-    (c_runs, c_launch, c_eng), (f_runs, f_launch, f_eng) = (
-        result["chunked"], result["flat"])
+    c_runs, c_launch, c_eng = result["chunked"]
+    f_runs, f_launch, f_eng = result.get("flat", (c_runs, None, c_eng))
     for ep, (c, f) in enumerate(zip(c_runs, f_runs)):
         for key in ("outputs", "rounds", "makespan", "accepted"):
             check(c[key] == f[key], f"continuous epoch {ep + 1}: {key} "
@@ -818,18 +994,21 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
               "the chunked kernel never launched on the chunked run")
         check(c_launch["suffix_match_propose"] == 0,
               "the flat kernel launched on the chunked run")
-        check(f_launch["suffix_match_propose"] > 0,
-              "the flat kernel never launched on the flat run")
-        check(f_launch["suffix_match_propose_chunked"] == 0,
-              "the chunked kernel launched on the flat run")
+        if f_launch is not None:
+            check(f_launch["suffix_match_propose"] > 0,
+                  "the flat kernel never launched on the flat run")
+            check(f_launch["suffix_match_propose_chunked"] == 0,
+                  "the chunked kernel launched on the flat run")
         check(c_launch["spec_verify_attention"] > 0,
               "spec_verify never launched on the continuous path")
+        check_rglru_launches(cfg, c_launch,
+                             sum(r["stats"].n_fwd for r in c_runs),
+                             f"{cfg.name} continuous (chunked)")
         check(max(trees_seen, default=0) >= n_problems,
               f"the chunked forest held {max(trees_seen, default=0)} trees")
         check_stashed_launches(torch, stash, card)
-    del c_eng
     lock, _ = f_eng.generate(prompts, pids, max_new_tokens=max_new)
-    del f_eng
+    del c_eng, f_eng, result
     return c_launch, c_runs, prompts, lock
 
 
@@ -861,7 +1040,8 @@ def check_stashed_launches(torch, stash, card):
         f"(T, Es), Ns, Cs seen: {sorted(shapes)})  [{card}]")
 
 
-def phase_continuous(torch, np, card, cfg, params):
+def phase_continuous(torch, np, card, cfg, params,
+                     layouts=("chunked", "flat")):
     """``SpecEngine.serve`` at full width: 24 requests over 12 problems in
     8 slots, two epochs, chunked then flat. Gated: identical outputs,
     per-request rounds, makespan and acceptances between the layouts;
@@ -876,9 +1056,11 @@ def phase_continuous(torch, np, card, cfg, params):
     differently), and where those that differ diverge."""
     launches, runs, prompts, lock = continuous_layouts(
         torch, np, cfg, params, "cuda", card, slots=8, n_problems=12,
-        n_requests=24, limits=(32, 64, 128, 256), prompt_len=(128, 256))
+        n_requests=24, limits=(32, 64, 128, 256), prompt_len=(128, 256),
+        layouts=layouts)
     same = [sum(a == b for a, b in zip(r["outputs"], lock)) for r in runs]
-    log(f"continuous vs lock-step generate (bf16, reported): {same[0]} / "
+    log(f"{cfg.name} continuous vs lock-step generate (bf16, reported): "
+        f"{same[0]} / "
         f"{len(lock)} outputs equal in epoch 1, {same[1]} / {len(lock)} in "
         f"epoch 2  [{card}]")
     plain_greedy_full_width(
@@ -900,7 +1082,8 @@ TOL_LOGIT_BF16 = 0.25
 def plain_greedy_full_width(torch, np, cfg, params, prompts, outputs, card):
     """Every token of every output set (name -> one output per prompt)
     against plain greedy decoding: one full-sequence forward (no cache, no
-    kernels) over prompt + output gives the logits at each position on the
+    kernels: the RG-LRU scan swapped for its plain version) over prompt +
+    output gives the logits at each position on the
     output's own prefix, and the output's token must be the top or within
     ``TOL_LOGIT_BF16`` of it. An output that is a prefix of one already
     checked for the same prompt reuses its forward. Logs, per set, the
@@ -917,7 +1100,7 @@ def plain_greedy_full_width(torch, np, cfg, params, prompts, outputs, card):
             if toks[:len(out)] == out:
                 return sf[:len(out)], gap[:len(out)]
         x = torch.tensor([list(p) + list(out)], dtype=torch.int32, device=dev)
-        with torch.inference_mode():
+        with torch.inference_mode(), plain_rglru_scan():
             logits, _ = M.forward(params, cfg, x)
             lg = logits[0, len(p) - 1:len(p) - 1 + len(out), :cfg.vocab_size]
             top2 = torch.topk(lg, 2, dim=-1).values
@@ -964,19 +1147,19 @@ def plain_greedy_full_width(torch, np, cfg, params, prompts, outputs, card):
           f"greedy's top logit (tolerance {TOL_LOGIT_BF16})")
 
 
-def phase_small_reference(torch, np):
+def phase_small_reference(torch, np, arch, dev="cuda"):
     """The engine (kernels, ring cache, drafts) against plain greedy
-    decoding (full-sequence forward, no cache, no kernels) on a small
-    float32 model, compared up to the first near-tie (top-2 gap < 1e-3);
-    the continuous engine (fewer slots than requests, chunked forest) must
-    give the lock-step engine's tokens in both epochs."""
+    decoding (full-sequence forward, no cache, no kernels) on the small
+    float32 variant of ``arch``, compared up to the first near-tie (top-2
+    gap < 1e-3); the continuous engine (fewer slots than requests, chunked
+    forest) must give the lock-step engine's tokens in both epochs."""
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
     from repro_torch.core.spec_engine import EngineConfig, SpecEngine
     from repro_torch.models import model as M
 
-    cfg = smoke_variant(get_config("qwen3-8b"))
-    params = M.init_params(cfg, seed=3, device="cuda")
+    cfg = smoke_variant(get_config(arch))
+    params = M.init_params(cfg, seed=3, device=dev)
 
     def engine(layout):
         return SpecEngine(
@@ -984,7 +1167,7 @@ def phase_small_reference(torch, np):
             EngineConfig(max_new_tokens=24, max_draft=8, eos_token=1),
             drafter=SuffixDrafter(DrafterConfig(scope="problem",
                                                 forest_layout=layout)),
-            device="cuda")
+            device=dev)
 
     eng, cont = engine("auto"), engine("chunked")
     rng = np.random.default_rng(2)
@@ -1002,11 +1185,11 @@ def phase_small_reference(torch, np):
         accepted += cst.n_accepted
     check(accepted > 0, "the continuous engine accepted no drafts")
     compared = 0
-    with torch.inference_mode():
+    with torch.inference_mode(), plain_rglru_scan():
         for p, o in zip(prompts, outs):
             seq = list(p)
             for tok in o:
-                x = torch.tensor([seq], dtype=torch.int32, device="cuda")
+                x = torch.tensor([seq], dtype=torch.int32, device=dev)
                 logits, _ = M.forward(params, cfg, x)
                 lg = logits[0, -1, : cfg.vocab_size]
                 top2 = torch.topk(lg, 2).values
@@ -1017,7 +1200,7 @@ def phase_small_reference(torch, np):
                 compared += 1
                 seq.append(tok)
     check(compared >= 40, f"only {compared} tokens compared")
-    log(f"small float32 reference: {compared} tokens equal to plain greedy "
+    log(f"small float32 reference ({cfg.name}): {compared} tokens equal to plain greedy "
         f"decoding; generate_continuous (2 slots, chunked) equal to "
         f"lock-step generate in both epochs (epoch 2 accepted "
         f"{st.n_accepted} lock-step, {cst.n_accepted} continuous)")
@@ -1028,7 +1211,8 @@ def phase_cli(card):
     base = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke"]
     for args in (["--arch", "qwen3-8b", "--scope", "problem", "--rounds",
                   "2"],
-                 ["--arch", "qwen2-1.5b", "--continuous"]):
+                 ["--arch", "qwen2-1.5b", "--continuous"],
+                 ["--arch", "recurrentgemma-9b", "--rounds", "2"]):
         t0 = time.perf_counter()
         proc = subprocess.run(base + args, cwd=str(ROOT), env=env,
                               capture_output=True, text=True, timeout=600)
@@ -1062,26 +1246,40 @@ def main() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build_all(["spec_verify", "suffix_match"])
+    sources = ["spec_verify", "suffix_match", "rglru"]
+    _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc sm_90a, parallel)  "
         f"[{card}]")
-    for name in ("spec_verify", "suffix_match"):
+    for name in sources:
         for ln in _build.ptxas_lines(name):
             log(f"  [{name}] {ln}")
 
     timer = Timer(torch)
-    kernels = [phase_spec_verify(torch, np, timer, card),
+    kernels = [*phase_spec_verify(torch, np, timer, card),
                phase_suffix_match(torch, np, timer, card),
-               phase_suffix_match_chunked(torch, np, timer, card)]
+               phase_suffix_match_chunked(torch, np, timer, card),
+               phase_rglru(torch, np, timer, card)]
     del timer
-    cfg, params = full_width_model(torch)
+    cfg, params = full_width_model(torch, "qwen3-8b")
     launches = phase_main_path(torch, np, card, cfg, params)
     # the chunked kernel's main path is the continuous one
     launches["suffix_match_propose_chunked"] = phase_continuous(
         torch, np, card, cfg, params)["suffix_match_propose_chunked"]
     del params
     torch.cuda.empty_cache()
-    phase_small_reference(torch, np)
+    # phase 7: RecurrentGemma-9B, whose main path runs the RG-LRU kernel
+    # and spec-verify at head_dim 256 (lock-step and continuous runs)
+    cfg, params = full_width_model(torch, "recurrentgemma-9b")
+    hybrid = phase_main_path(torch, np, card, cfg, params)
+    cont = phase_continuous(torch, np, card, cfg, params,
+                            layouts=("chunked",))
+    launches["spec_verify_attention_hd256"] = (
+        hybrid["spec_verify_attention"] + cont["spec_verify_attention"])
+    launches["rglru_scan"] = hybrid["rglru_scan"] + cont["rglru_scan"]
+    del params
+    torch.cuda.empty_cache()
+    for arch in ("qwen3-8b", "recurrentgemma-9b"):
+        phase_small_reference(torch, np, arch)
     phase_cli(card)
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -1,15 +1,15 @@
-"""Architecture registry of the port: the dense configs the lock-step
-engine serves (the paper's own Qwen3-8B and Qwen2-1.5B), and reduced
-smoke variants for CPU tests."""
+"""Architecture registry of the port: the configs the engine serves (the
+paper's own Qwen3-8B, Qwen2-1.5B and the hybrid RecurrentGemma-9B), and
+reduced smoke variants for CPU tests."""
 
 from __future__ import annotations
 
 from typing import Dict
 
-from . import qwen2_1_5b, qwen3_8b
+from . import qwen2_1_5b, qwen3_8b, recurrentgemma_9b
 from .base import ModelConfig, active_params, count_params
 
-_MODULES = (qwen2_1_5b, qwen3_8b)
+_MODULES = (recurrentgemma_9b, qwen2_1_5b, qwen3_8b)
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

@@ -8,7 +8,8 @@ One round:
     propose (a suffix_match kernel over the packed forest, flat or chunked)
       → build the (B, K+1) verify block on the device
       → model forward (spec_verify kernel per layer) + ``verify_block``
-      → cache commit (ring-slot overwrite, in place)
+      → cache commit (ring-slot overwrite; staged recurrent gather; in
+        place)
       → EOS/limit emit scan
       → next-round session state (head, context tails, emitted, active)
 
@@ -62,16 +63,24 @@ def verify_step(
 ) -> Tuple[VerifyResult, M.Cache]:
     """One verify forward + acceptance + cache commit, shared by the
     unfused loop and the fused round. The attention caches commit by the
-    ring-slot overwrite inside the forward; ``cache.lengths`` advances in
-    place by ``1 + accepted`` on active rows."""
+    ring-slot overwrite inside the forward; recurrent layers (a model
+    with RG-LRU blocks) emit staged per-step states in the same single
+    pass, gathered at ``n_commit`` into ``cache`` afterwards.
+    ``cache.lengths`` advances in place by ``1 + accepted`` on active
+    rows. Every update lands in the tensors of ``cache``, which is
+    returned."""
+    recurrent = M.has_recurrent(cfg)
     valid = active[:, None].expand(block.shape)
-    logits, cache = M.forward(params, cfg, block, cache=cache, valid=valid)
+    logits, staged = M.forward(params, cfg, block, cache=cache, valid=valid,
+                               collect_states=recurrent)
     logits = logits[:, :, : cfg.vocab_size]
     res = verify_block(
         logits, block, budgets, temperature=temperature, active=active,
         generator=generator,
     )
     n_commit = torch.where(active, 1 + res.accepted, 0)
+    if recurrent:
+        M.commit_staged_cache(cfg, cache, staged, n_commit)
     cache.lengths += n_commit.to(torch.int32)
     return res, cache
 

@@ -31,7 +31,12 @@
 //
 // Unlike the TPU kernel there is no 8-row padding and no 512-key chunk:
 // the kernel reads q in the model's (B, T, Hq, hd) layout and masks the
-// ragged cache end itself. hd must be 32, 64 or 128 (the wrapper checks).
+// ragged cache end itself. hd must be 32, 64, 128 or 256 (the wrapper
+// checks). Each kernel is compiled twice, for hd <= 128 and for hd = 256
+// (RecurrentGemma's MQA heads): the bf16 kernel's query fragments and
+// accumulator tiles are register arrays sized by the larger hd (16
+// k-steps of query fragments, 8 n8 output tiles a warp at 256), and the
+// f32 kernel's threads own two output columns each at 256 (one below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -163,6 +168,8 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// KMAX: the most k-steps (hd / 16) this instantiation takes.
+template <int KMAX>
 __global__ void __launch_bounds__(THREADS)
 spec_verify_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -206,9 +213,9 @@ spec_verify_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   int qmin, qmax;
   init_rows(pos, b, r0, TG, G, sh, qp_s, m_s, l_s, qmin, qmax);
   const int KSTEPS = hd / 16;
-  uint32_t qa[8][4];
+  uint32_t qa[KMAX][4];
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < KMAX; ++kk) {
     if (kk < KSTEPS) {
       const __nv_bfloat16* base = qs + 16 * kk + 2 * t;
       qa[kk][0] = ld32(base + g * ST);
@@ -219,11 +226,12 @@ spec_verify_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // P·V: warp w owns output columns [w*hd/4, (w+1)*hd/4), NT n8-tiles.
+  constexpr int NTMAX = KMAX / 2;
   const int NT = hd / 32;
   const int col0 = warp * (hd / 4);
-  float acc[4][4];
+  float acc[NTMAX][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < NTMAX; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
@@ -253,7 +261,7 @@ spec_verify_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
       const __nv_bfloat16* kb = ks + (warp * 16 + nt * 8 + g) * ST + 2 * t;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < KMAX; ++kk)
         if (kk < KSTEPS) mma_bf16(sc[nt], qa[kk], ld32(kb + 16 * kk),
                                   ld32(kb + 16 * kk + 8));
     }
@@ -272,7 +280,7 @@ spec_verify_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     // ---- acc = alpha * acc + P V ----
     const float al0 = a_s[g], al1 = a_s[g + 8];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int nt = 0; nt < NTMAX; ++nt) {
       acc[nt][0] *= al0;
       acc[nt][1] *= al0;
       acc[nt][2] *= al1;
@@ -285,7 +293,7 @@ spec_verify_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const uint32_t pa[4] = {pack_f32(p0[0], p0[1]), pack_f32(p1[0], p1[1]),
                               pack_f32(p0[8], p0[9]), pack_f32(p1[8], p1[9])};
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+      for (int nt = 0; nt < NTMAX; ++nt) {
         if (nt < NT) {
           const __nv_bfloat16* vb =
               vs + (16 * kk + 2 * t) * ST + col0 + nt * 8 + g;
@@ -308,7 +316,7 @@ spec_verify_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* orow =
         out + (((size_t)b * sh.Tq + tq) * sh.Hq + h * G + gq) * hd;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int nt = 0; nt < NTMAX; ++nt) {
       if (nt < NT) {
         const int c = col0 + nt * 8 + 2 * t;
         *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
@@ -320,6 +328,9 @@ spec_verify_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 // ---- float32: CUDA cores ---------------------------------------------------
 
+// CPT: output columns a thread owns in P·V (hd / THREADS at hd = 256,
+// else 1).
+template <int CPT>
 __global__ void __launch_bounds__(THREADS)
 spec_verify_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
@@ -359,14 +370,17 @@ spec_verify_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int qmin, qmax;
   init_rows(pos, b, r0, TG, G, sh, qp_s, m_s, l_s, qmin, qmax);
 
-  // P·V ownership: column d_own of rows rg0, rg0 + RG, ...
-  const int RG = THREADS / hd;
+  // P·V ownership: columns d_own + c * THREADS (c < CPT) of rows rg0,
+  // rg0 + RG, ...
+  const int RG = hd >= THREADS ? 1 : THREADS / hd;
   const int nr = ROWS / RG;
   const int d_own = tid % hd;
   const int rg0 = tid / hd;
-  float acc[ROWS];
+  float acc[CPT][ROWS];
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) acc[i] = 0.f;
+  for (int c = 0; c < CPT; ++c)
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) acc[c][i] = 0.f;
   // score ownership: rows srow, srow+1 x slots skey + 16*jj
   const int srow = (tid / 16) * 2;
   const int skey = tid % 16;
@@ -428,23 +442,32 @@ spec_verify_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < ROWS; ++i)
-      if (i < nr) acc[i] *= a_s[rg0 + i * RG];
+      if (i < nr) {
+        const float al = a_s[rg0 + i * RG];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[c][i] *= al;
+      }
     for (int j = 0; j < TILE; j += 4) {
-      const float v0 = vs[(j + 0) * hd + d_own];
-      const float v1 = vs[(j + 1) * hd + d_own];
-      const float v2 = vs[(j + 2) * hd + d_own];
-      const float v3 = vs[(j + 3) * hd + d_own];
+      float4 vv[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const float* vc = vs + j * hd + d_own + c * THREADS;
+        vv[c] = make_float4(vc[0], vc[hd], vc[2 * hd], vc[3 * hd]);
+      }
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
         if (i < nr) {
           const float4 p4 =
               *reinterpret_cast<const float4*>(ps + (rg0 + i * RG) * PST + j);
-          float a = acc[i];
-          a = fmaf(p4.x, v0, a);
-          a = fmaf(p4.y, v1, a);
-          a = fmaf(p4.z, v2, a);
-          a = fmaf(p4.w, v3, a);
-          acc[i] = a;
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) {
+            float a = acc[c][i];
+            a = fmaf(p4.x, vv[c].x, a);
+            a = fmaf(p4.y, vv[c].y, a);
+            a = fmaf(p4.z, vv[c].z, a);
+            a = fmaf(p4.w, vv[c].w, a);
+            acc[c][i] = a;
+          }
         }
       }
     }
@@ -458,8 +481,10 @@ spec_verify_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = r0 + r;
     if (row >= TG) continue;
     const int tq = row / G, gq = row % G;
-    out[(((size_t)b * sh.Tq + tq) * sh.Hq + h * G + gq) * hd + d_own] =
-        acc[i] / fmaxf(l_s[r], 1e-20f);
+    const float l = fmaxf(l_s[r], 1e-20f);
+    float* orow = out + (((size_t)b * sh.Tq + tq) * sh.Hq + h * G + gq) * hd;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) orow[d_own + c * THREADS] = acc[c][i] / l;
   }
 }
 
@@ -491,8 +516,12 @@ extern "C" int spec_verify_attention_f32(
   const Shape sh{Tq, Hq, Hkv, S1, hd, window, softcap, scale};
   const size_t smem = 4 * ((size_t)ROWS * (hd + 4) + (size_t)TILE * (hd + 4) +
                            (size_t)TILE * hd) + tail_bytes();
-  return launch<decltype(&spec_verify_f32_kernel), float>(
-      spec_verify_f32_kernel, smem, q, k, v, cpos, pos, out, B, sh, stream);
+  if (hd > THREADS)
+    return launch<decltype(&spec_verify_f32_kernel<2>), float>(
+        spec_verify_f32_kernel<2>, smem, q, k, v, cpos, pos, out, B, sh,
+        stream);
+  return launch<decltype(&spec_verify_f32_kernel<1>), float>(
+      spec_verify_f32_kernel<1>, smem, q, k, v, cpos, pos, out, B, sh, stream);
 }
 
 extern "C" int spec_verify_attention_bf16(
@@ -502,6 +531,11 @@ extern "C" int spec_verify_attention_bf16(
   const Shape sh{Tq, Hq, Hkv, S1, hd, window, softcap, scale};
   const size_t smem =
       2 * (size_t)(ROWS + 2 * TILE) * (hd + KPAD) + tail_bytes();
-  return launch<decltype(&spec_verify_bf16_kernel), __nv_bfloat16>(
-      spec_verify_bf16_kernel, smem, q, k, v, cpos, pos, out, B, sh, stream);
+  if (hd > 128)
+    return launch<decltype(&spec_verify_bf16_kernel<16>), __nv_bfloat16>(
+        spec_verify_bf16_kernel<16>, smem, q, k, v, cpos, pos, out, B, sh,
+        stream);
+  return launch<decltype(&spec_verify_bf16_kernel<8>), __nv_bfloat16>(
+      spec_verify_bf16_kernel<8>, smem, q, k, v, cpos, pos, out, B, sh,
+      stream);
 }

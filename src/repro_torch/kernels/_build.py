@@ -112,9 +112,12 @@ def check(err: int, what: str) -> None:
 
 
 def ptxas_lines(name: str) -> List[str]:
-    """The register/shared-memory report of this process's build."""
+    """The register/shared-memory report of this process's build: per
+    kernel, its entry name, its spill line (printed without the
+    ``ptxas`` prefix) and its register line."""
     return [ln.strip() for ln in BUILD_LOG.get(name, "").splitlines()
-            if "ptxas" in ln and ("Used" in ln or "spill" in ln)]
+            if "spill" in ln or ("ptxas" in ln and (
+                "Used" in ln or "Compiling entry" in ln))]
 
 
 def cuda_stream_ptr(device) -> ctypes.c_void_p:

@@ -43,8 +43,9 @@ def _check(q, k, v, cache_pos, positions) -> None:
     Bk, S, Hkv, hdk = k.shape
     if Bk != B or hdk != hd or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"spec_verify: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if hd not in (32, 64, 128):
-        raise ValueError(f"spec_verify: head_dim {hd} not in (32, 64, 128)")
+    if hd not in (32, 64, 128, 256):
+        raise ValueError(f"spec_verify: head_dim {hd} not in (32, 64, 128, "
+                         "256)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("spec_verify: q, k and v must share one dtype")
     if tuple(cache_pos.shape) != (B, S) or tuple(positions.shape) != (B, T):

@@ -4,8 +4,12 @@ port's ``Transformer``.
 The input is ``split_tree(init_params(cfg, key))[0]`` of the JAX package
 after ``np.asarray`` on every leaf: ``{"embed", "final_norm",
 ["lm_head"], "stages"}``, where a scanned stage holds each leaf stacked
-along a leading layer axis. The stages are unstacked into per-layer
-tensors in the order the reference's forward runs them.
+along a leading layer axis. The stages (a scanned stage of whole
+block-pattern units, then one un-scanned stage per remainder layer, as
+``cfg.scan_stages`` lays them out) are unstacked into per-layer tensors
+in the order the reference's forward runs them. An attention block's
+mixer is its ``attn`` subtree; an RG-LRU block's is ``rglru`` (``wx``,
+``wy``, ``wo``, ``conv``, ``w_a``, ``w_i``, ``lam``).
 
 bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` refuses; they cross as their raw 16-bit patterns
@@ -24,7 +28,12 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.model import Block, Transformer, check_supported
+from repro_torch.models.model import (
+    RECURRENT,
+    Block,
+    Transformer,
+    check_supported,
+)
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
@@ -52,11 +61,13 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         stage = tree["stages"][si]
         for r in range(repeats):
             idx = r if repeats > 1 else None
-            for ui in range(len(unit)):
+            for ui, kind in enumerate(unit):
                 p = stage[ui]
+                mixer = p["rglru" if kind in RECURRENT else "attn"]
                 blocks.append(Block(
-                    _pdict(p["norm"], dev, idx), _pdict(p["attn"], dev, idx),
-                    _pdict(p["mlp_norm"], dev, idx), _pdict(p["mlp"], dev, idx),
+                    kind, _pdict(p["norm"], dev, idx),
+                    _pdict(mixer, dev, idx), _pdict(p["mlp_norm"], dev, idx),
+                    _pdict(p["mlp"], dev, idx),
                 ))
     lm_head = tree.get("lm_head")
     return Transformer(

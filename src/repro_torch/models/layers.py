@@ -1,5 +1,5 @@
-"""Dense decoder layers of the port (PyTorch counterpart of
-``repro.models.layers``).
+"""Decoder layers of the port (PyTorch counterpart of
+``repro.models.layers``): attention, MLP and the RG-LRU recurrent block.
 
 Parameters are plain mappings of tensors (``nn.ParameterDict`` inside the
 model) in the JAX package's layouts — ``wq`` is ``(d, Hq, hd)``, ``wo``
@@ -15,6 +15,10 @@ Attention has two modes, as in the reference:
     by the next block and rollback is free. The read always goes through
     ``kernels.spec_verify.ops.spec_verify_attention`` — the CUDA kernel
     for CUDA tensors, its plain version for CPU tensors.
+
+The RG-LRU block's recurrence always goes through
+``kernels.rglru.ops.rglru_scan`` in the same way, prefill and verify
+alike.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.spec_verify.ops import spec_verify_attention
 
 
@@ -247,3 +252,85 @@ def apply_mlp(p: Mapping, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
     return torch.einsum("btf,fd->btd", h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma, arXiv:2402.19427)
+# ---------------------------------------------------------------------------
+
+def init_rglru(cfg: ModelConfig, gen: torch.Generator,
+               device) -> nn.ParameterDict:
+    dt = torch_dtype(cfg.dtype)
+    d, w, f32 = cfg.d_model, cfg.rnn_width, torch.float32
+    # Λ so that a = sigmoid(Λ)^(c·r) starts near 0.9..0.999
+    lam = torch.log(torch.expm1(
+        torch.linspace(0.9, 0.999, w, dtype=f32, device=device) ** (1 / 8)))
+    p = {
+        "wx": _dense_init((d, w), dt, gen, device),  # branch in
+        "wy": _dense_init((d, w), dt, gen, device),  # gate branch
+        "wo": _dense_init((w, d), dt, gen, device),
+        "conv": _dense_init((cfg.conv_width, w), dt, gen, device, scale=0.5),
+        "w_a": _dense_init((w,), f32, gen, device, scale=1.0),
+        "w_i": _dense_init((w,), f32, gen, device, scale=1.0),
+        "lam": lam,
+    }
+    return nn.ParameterDict({k: _param(v) for k, v in p.items()})
+
+
+def apply_rglru(
+    p: Mapping,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    state: Optional[torch.Tensor] = None,  # (B, W) float32
+    conv_state: Optional[torch.Tensor] = None,  # (B, cw-1, W)
+    update_mask: Optional[torch.Tensor] = None,  # (B, T) bool
+    commit_upto: Optional[torch.Tensor] = None,
+    collect: bool = False,
+):
+    """RecurrentGemma recurrent block. Returns (y, new_state,
+    new_conv_state), the state after every updated step (pads and frozen
+    rows, ``update_mask`` False, change nothing).
+
+    ``collect=True`` (single-pass speculative verify) returns STAGED
+    per-step candidates instead: new_state (B, T+1, W) and new_conv_state
+    (B, T+1, cw-1, W), index t = the state after t steps; the engine
+    gathers them at the acceptance count (``model.commit_staged_cache``).
+    The reference's dual-carry ``commit_upto`` branch is not ported:
+    nothing on the serving path reaches it for recurrent models."""
+    if commit_upto is not None:
+        raise NotImplementedError(
+            "apply_rglru's commit_upto (dual-carry) branch is not ported; "
+            "verify with collect=True and commit_staged_cache"
+        )
+    B, T, _ = x.shape
+    W, cw = cfg.rnn_width, cfg.conv_width
+    gate_in = torch.einsum("btd,dw->btw", x, p["wy"])
+    xr = torch.einsum("btd,dw->btw", x, p["wx"])
+    if update_mask is not None:
+        update_mask = update_mask.contiguous()
+        # pads / frozen rows contribute nothing to conv or recurrence
+        xr = torch.where(update_mask[:, :, None], xr, 0.0)
+    # temporal conv with cached left context
+    if conv_state is None:
+        conv_state = torch.zeros((B, cw - 1, W), dtype=xr.dtype,
+                                 device=x.device)
+    xr_pad = torch.cat([conv_state, xr], dim=1)  # (B, T+cw-1, W)
+    if collect:
+        # staged conv contexts: candidate t = xr_pad[:, t : t+cw-1]
+        new_conv_state = xr_pad.unfold(1, cw - 1, 1).transpose(2, 3)
+    else:
+        new_conv_state = xr_pad[:, T:]
+    # the reference's order and dtype: sum over taps in the model dtype
+    xc = sum(xr_pad[:, k:k + T] * p["conv"][k][None, None, :]
+             for k in range(cw))
+    xf = xc.float()
+    r = torch.sigmoid(xf * p["w_a"])  # recurrence gate r_t
+    i = torch.sigmoid(xf * p["w_i"])  # input gate i_t
+    if state is None:
+        state = torch.zeros((B, W), dtype=torch.float32, device=x.device)
+    hs, h_fin = rglru_ops.rglru_scan(xf, r, i, p["lam"], state, update_mask)
+    y = hs.to(x.dtype) * F.gelu(gate_in, approximate="tanh")
+    y = torch.einsum("btw,wd->btd", y, p["wo"])
+    if collect:
+        h_fin = torch.cat([state[:, None], hs], dim=1)
+    return y, h_fin, new_conv_state

@@ -1,4 +1,7 @@
-"""The port's lock-step ``SpecEngine.generate`` against the JAX engine.
+"""The port's lock-step ``SpecEngine.generate`` against the JAX engine,
+for a tiny dense decoder and for RecurrentGemma's smoke variant (hybrid:
+RG-LRU + local attention, so verify rounds collect staged recurrent
+states and gather them at the acceptance count).
 
 Same weights (JAX ``init_params`` through numpy), same prompts and
 problem ids, T = 0. Two ``generate`` calls over the same problems, so the
@@ -22,6 +25,8 @@ import numpy as np
 import pytest
 
 from conftest import make_params
+from repro.configs import get_config as jax_get_config
+from repro.configs import smoke_variant as jax_smoke_variant
 from repro.configs.base import ModelConfig as JModelConfig
 from repro.core.drafter import DrafterConfig as JDrafterConfig
 from repro.core.drafter import SuffixDrafter as JSuffixDrafter
@@ -40,26 +45,33 @@ CFG = JModelConfig(
 )
 WEIGHT_SEED = 0
 PROMPT_SEED = 1
+# RecurrentGemma-9B's smoke variant (3 layers: rglru, rglru, local_attn;
+# vocab 1024); weight seed 4 keeps the top-2 gap above MIN_GAP. One K
+# bucket: each bucket is one more JAX compilation of the hybrid round.
+HYBRID = jax_smoke_variant(jax_get_config("recurrentgemma-9b"))
+FAMILIES = {"dense": (CFG, WEIGHT_SEED, (0, 2, 4)),
+            "hybrid": (HYBRID, 4, (4,))}
 MAX_NEW = [24, 12, 30, 18]
 PIDS = ["a", "b", "a", "c"]
 MIN_GAP = 1e-3  # 5x the cross-framework logits tolerance
 
 
-def _prompts():
+def _prompts(jcfg=CFG):
     rng = np.random.default_rng(PROMPT_SEED)
-    base = {pid: [int(t) for t in rng.integers(2, CFG.vocab_size, size=n)]
+    base = {pid: [int(t) for t in rng.integers(2, jcfg.vocab_size, size=n)]
             for pid, n in (("a", 7), ("b", 4), ("c", 11))}
     return [base[p] for p in PIDS]
 
 
-def _engines(fuse, scope):
-    eng_kw = dict(max_new_tokens=24, max_draft=4, block_buckets=(0, 2, 4),
+def _engines(fuse, scope, family="dense"):
+    jcfg, seed, buckets = FAMILIES[family]
+    eng_kw = dict(max_new_tokens=24, max_draft=4, block_buckets=buckets,
                   eos_token=1, fuse_rounds=fuse)
     dr_kw = dict(scope=scope, min_match=1, device_tail=16)
-    jparams = make_params(CFG, seed=WEIGHT_SEED)
-    jeng = JSpecEngine(jparams, CFG, JEngineConfig(**eng_kw),
+    jparams = make_params(jcfg, seed=seed)
+    jeng = JSpecEngine(jparams, jcfg, JEngineConfig(**eng_kw),
                        drafter=JSuffixDrafter(JDrafterConfig(**dr_kw)))
-    cfg = ModelConfig(**dataclasses.asdict(CFG))
+    cfg = ModelConfig(**dataclasses.asdict(jcfg))
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
     teng = SpecEngine(params, cfg, EngineConfig(**eng_kw),
                       drafter=SuffixDrafter(DrafterConfig(**dr_kw)),
@@ -67,26 +79,35 @@ def _engines(fuse, scope):
     return jparams, jeng, teng
 
 
-def _min_top2_gap(jparams, prompts, outs):
-    """Smallest JAX top-2 logit gap over the positions that emitted."""
+_forward = jax.jit(JM.forward, static_argnums=1)
+
+
+def _min_top2_gap(jparams, prompts, outs, jcfg=CFG):
+    """Smallest JAX top-2 logit gap over the positions that emitted. One
+    jitted forward over every row right-padded to one length: the model
+    is causal, so a position's logits see only the tokens up to it."""
+    seqs = [list(p) + list(o) for p, o in zip(prompts, outs)]
+    toks = np.zeros((len(seqs), max(map(len, seqs))), np.int32)
+    for b, seq in enumerate(seqs):
+        toks[b, :len(seq)] = seq
+    logits = np.asarray(_forward(jparams, jcfg, jnp.asarray(toks))[0])
     gap = np.inf
-    for p, o in zip(prompts, outs):
+    for b, (p, o) in enumerate(zip(prompts, outs)):
         if not o:
             continue
-        seq = jnp.asarray([list(p) + list(o)], jnp.int32)
-        logits, _, _ = JM.forward(jparams, CFG, seq)
-        lg = np.asarray(logits[0, len(p) - 1: len(p) - 1 + len(o),
-                               : CFG.vocab_size])
+        lg = logits[b, len(p) - 1: len(p) - 1 + len(o), : jcfg.vocab_size]
         top2 = np.sort(lg, axis=-1)[:, -2:]
         gap = min(gap, float((top2[:, 1] - top2[:, 0]).min()))
     return gap
 
 
+@pytest.mark.parametrize("family", ["dense", "hybrid"])
 @pytest.mark.parametrize("fuse,scope", [("auto", "problem"),
                                         ("off", "problem+request")])
-def test_generate_token_identical_to_jax(fuse, scope):
-    jparams, jeng, teng = _engines(fuse, scope)
-    prompts = _prompts()
+def test_generate_token_identical_to_jax(fuse, scope, family):
+    jparams, jeng, teng = _engines(fuse, scope, family)
+    jcfg = FAMILIES[family][0]
+    prompts = _prompts(jcfg)
     total_accepted = 0
     for it in range(2):  # the second pass drafts from the first's trees
         jeng.begin_iteration(it)
@@ -94,7 +115,7 @@ def test_generate_token_identical_to_jax(fuse, scope):
         jouts, jst = jeng.generate(prompts, PIDS, max_new_tokens=MAX_NEW,
                                    key=jax.random.key(0))
         touts, tst = teng.generate(prompts, PIDS, max_new_tokens=MAX_NEW)
-        assert _min_top2_gap(jparams, prompts, jouts) > MIN_GAP
+        assert _min_top2_gap(jparams, prompts, jouts, jcfg) > MIN_GAP
         assert touts == jouts
         assert (tst.n_rounds, tst.n_drafted, tst.n_accepted) == (
             jst.n_rounds, jst.n_drafted, jst.n_accepted)

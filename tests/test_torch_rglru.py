@@ -1,0 +1,166 @@
+"""The RG-LRU scan and block of the port against the JAX package.
+
+* The port's plain scan against ``rglru_scan_ref`` and the Pallas kernel
+  (``rglru_scan``, interpret mode on the CPU) at the cases of
+  tests/test_kernels.py, atol/rtol 1e-5 as there (float32; XLA and
+  PyTorch round the transcendentals differently).
+* The masked scan (left pads, frozen rows) against the model's
+  ``_rglru_scan`` with committed = updated, as the serving path uses it.
+* ``apply_rglru`` against the JAX block on the same weights, for prefill
+  (update mask over left pads) and verify (``collect=True``: staged
+  per-step h and conv contexts from a cached state, a frozen row).
+* The CUDA kernel against the plain version (``gpu``: skips without a
+  card; ``chip_smoke.py`` runs it at the main path's shapes).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import smoke_variant as jax_smoke_variant
+from repro.kernels.rglru import rglru_scan as jax_kernel
+from repro.kernels.rglru import rglru_scan_ref as jax_ref
+from repro.models import layers as JL
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rglru import ops as rg_ops
+from repro_torch.kernels.rglru.ref import rglru_scan_ref
+from repro_torch.models import layers as TL
+from repro_torch.models.convert import tensor_from_numpy
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+CASES = [(2, 16, 128), (1, 7, 130), (3, 128, 256)]
+
+
+def _inputs(B, T, W, seed=1):
+    """As tests/test_kernels.py draws them."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, T, W)).astype(np.float32)
+    r = rng.uniform(size=(B, T, W)).astype(np.float32)
+    i = rng.uniform(size=(B, T, W)).astype(np.float32)
+    lam = rng.normal(size=(W,)).astype(np.float32)
+    h0 = rng.normal(size=(B, W)).astype(np.float32)
+    return x, r, i, lam, h0
+
+
+def _update_mask(B, T, seed=2):
+    """Left pads of random length on every row, and row 0 frozen."""
+    rng = np.random.default_rng(seed)
+    mask = np.arange(T)[None] >= rng.integers(0, T, size=B)[:, None]
+    mask[0] = False
+    return mask
+
+
+@pytest.mark.parametrize("B,T,W", CASES)
+def test_plain_scan_matches_jax_kernel_and_ref(B, T, W):
+    arrs = _inputs(B, T, W)
+    jargs = [jnp.asarray(a) for a in arrs]
+    hs, hf = rg_ops.rglru_scan(*map(torch.from_numpy, arrs))
+    assert hs.shape == (B, T, W) and hf.shape == (B, W)
+    for want_hs, want_hf in (jax_kernel(*jargs), jax_ref(*jargs)):
+        np.testing.assert_allclose(hs.numpy(), np.asarray(want_hs), **TOL)
+        np.testing.assert_allclose(hf.numpy(), np.asarray(want_hf), **TOL)
+
+
+@pytest.mark.parametrize("B,T,W", CASES)
+def test_masked_scan_matches_jax_model_scan(B, T, W):
+    x, r, i, lam, h0 = _inputs(B, T, W)
+    mask = _update_mask(B, T)
+    upd = jnp.asarray(mask.T)
+    want_hs, want_hf = JL._rglru_scan(*map(jnp.asarray, (x, r, i, lam, h0)),
+                                      upd, upd)
+    hs, hf = rg_ops.rglru_scan(*map(torch.from_numpy, (x, r, i, lam, h0)),
+                               mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(hs.numpy(), np.asarray(want_hs), **TOL)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(want_hf), **TOL)
+    np.testing.assert_array_equal(hf[0].numpy(), h0[0])  # frozen row
+
+
+def test_cpu_wrapper_runs_the_plain_version_without_launching():
+    before = rg_ops.LAUNCHES
+    hs, _ = rg_ops.rglru_scan(*map(torch.from_numpy, _inputs(1, 3, 8)))
+    assert rg_ops.LAUNCHES == before and torch.isfinite(hs).all()
+
+
+# ---------------------------------------------------------------------------
+# apply_rglru
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def block():
+    jcfg = jax_smoke_variant(jax_get_config("recurrentgemma-9b"))
+    assert jcfg.dtype == "float32"
+    jp = JL.split_tree(JL.init_rglru(jax.random.key(5), jcfg))[0]
+    tp = {k: tensor_from_numpy(np.asarray(v), "cpu") for k, v in jp.items()}
+    return jcfg, ModelConfig(**dataclasses.asdict(jcfg)), jp, tp
+
+
+def _x(cfg, B, T, seed):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(B, T, cfg.d_model)).astype(np.float32)
+
+
+def test_apply_rglru_prefill_matches_jax(block):
+    jcfg, cfg, jp, tp = block
+    B, T = 3, 12
+    x = _x(cfg, B, T, 6)
+    mask = _update_mask(B, T, seed=7)
+    mask[0, -4:] = True  # row 0: a short prompt, not frozen
+    jy, jh, jconv = JL.apply_rglru(jp, jnp.asarray(x), jcfg,
+                                   update_mask=jnp.asarray(mask))
+    ty, th, tconv = TL.apply_rglru(tp, torch.from_numpy(x), cfg,
+                                   update_mask=torch.from_numpy(mask))
+    for got, want in ((ty, jy), (th, jh), (tconv, jconv)):
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_apply_rglru_verify_collect_matches_jax(block):
+    jcfg, cfg, jp, tp = block
+    B, T, W, cw = 3, 5, cfg.rnn_width, cfg.conv_width
+    rng = np.random.default_rng(8)
+    x = _x(cfg, B, T, 9)
+    h0 = rng.normal(size=(B, W)).astype(np.float32)
+    conv0 = rng.normal(size=(B, cw - 1, W)).astype(np.float32)
+    valid = np.ones((B, T), bool)
+    valid[1] = False  # a frozen row
+    jy, jh, jconv = JL.apply_rglru(
+        jp, jnp.asarray(x), jcfg, jnp.asarray(h0), jnp.asarray(conv0),
+        update_mask=jnp.asarray(valid), collect=True)
+    ty, th, tconv = TL.apply_rglru(
+        tp, torch.from_numpy(x), cfg, torch.from_numpy(h0),
+        torch.from_numpy(conv0), update_mask=torch.from_numpy(valid),
+        collect=True)
+    assert tuple(th.shape) == (B, T + 1, W)
+    assert tuple(tconv.shape) == (B, T + 1, cw - 1, W)
+    for got, want in ((ty, jy), (th, jh), (tconv, jconv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the frozen row's staged states are all the state before the block
+    np.testing.assert_array_equal(th[1].numpy(), np.broadcast_to(h0[1],
+                                                                 (T + 1, W)))
+
+
+def test_apply_rglru_commit_upto_is_not_ported(block):
+    _, cfg, _, tp = block
+    x = torch.from_numpy(_x(cfg, 1, 2, 1))
+    with pytest.raises(NotImplementedError, match="commit_upto"):
+        TL.apply_rglru(tp, x, cfg, commit_upto=torch.zeros(1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,W", CASES)
+def test_cuda_kernel_matches_plain(B, T, W):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    args = [torch.from_numpy(a).cuda() for a in _inputs(B, T, W)]
+    for mask in (None, torch.from_numpy(_update_mask(B, T)).cuda()):
+        got = rg_ops.rglru_scan_cuda(*args, mask)
+        want = rglru_scan_ref(*args, mask)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       **TOL)

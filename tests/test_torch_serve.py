@@ -16,6 +16,11 @@ the port against the JAX package.
 
 Weights and prompts are those of ``tests/test_torch_engine.py``, whose
 seeds keep JAX's top-2 logit gap above 1e-3 on every emitted position.
+The hybrid cases (RecurrentGemma's smoke variant: RG-LRU + local
+attention) run ``copy_cache_rows`` over its ``{"h", "conv"}`` layer
+caches, ``generate_continuous`` (chunked, fused, one K bucket) against
+JAX, and a preempted request's resume by re-prefill, whose recurrent
+state comes out of the prefill.
 """
 
 import dataclasses
@@ -44,19 +49,41 @@ from repro_torch.core.scheduler import (
 from repro_torch.core.spec_engine import EngineConfig, RolloutStats, SpecEngine
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_numpy
-from test_torch_engine import CFG, MAX_NEW, MIN_GAP, PIDS, _min_top2_gap, _prompts
+from test_torch_engine import (
+    CFG,
+    FAMILIES,
+    MAX_NEW,
+    MIN_GAP,
+    PIDS,
+    _min_top2_gap,
+    _prompts,
+)
 
 SLOTS = 2
 ENG_KW = dict(max_new_tokens=24, max_draft=4, block_buckets=(0, 2, 4),
               eos_token=1)
 
 
-@pytest.fixture(scope="module")
-def weights():
-    jparams = make_params(CFG, seed=0)
-    cfg = ModelConfig(**dataclasses.asdict(CFG))
+def _weights(family):
+    jcfg, seed, _ = FAMILIES[family]
+    jparams = make_params(jcfg, seed=seed)
+    cfg = ModelConfig(**dataclasses.asdict(jcfg))
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
     return jparams, cfg, params
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return _weights("dense")
+
+
+@pytest.fixture(scope="module")
+def hybrid_weights():
+    return _weights("hybrid")
+
+
+def _eng_kw(family):
+    return dict(ENG_KW, block_buckets=FAMILIES[family][2])
 
 
 def _port_engine(weights, fuse="auto", layout="auto", eng_kw=ENG_KW):
@@ -75,50 +102,61 @@ def _port_engine(weights, fuse="auto", layout="auto", eng_kw=ENG_KW):
 # ---------------------------------------------------------------------------
 
 def _jax_layer_caches(jcache, cfg):
+    """Per-layer numpy entries: (k, v, cpos) or {"h", "conv"}."""
     out = []
     for si, (unit, repeats) in enumerate(cfg.scan_stages):
         for r in range(repeats):
             for ui in range(len(unit)):
-                trip = jcache.stages[si][ui]
-                out.append(tuple(np.asarray(a[r] if repeats > 1 else a)
-                                 for a in trip))
+                out.append(jax.tree.map(
+                    lambda a: np.array(a[r] if repeats > 1 else a),
+                    jcache.stages[si][ui]))
     return out
 
 
 def _port_cache(jcache, cfg):
-    layers = [tuple(torch.from_numpy(np.array(a)) for a in trip)
-              for trip in _jax_layer_caches(jcache, cfg)]
+    layers = [jax.tree.map(torch.from_numpy, entry)
+              for entry in _jax_layer_caches(jcache, cfg)]
     return TM.Cache(layers, torch.from_numpy(np.array(jcache.lengths)))
 
 
-def _jax_prefill(jparams, prompts, Tp=16, max_len=64):
+def _jax_prefill(jparams, prompts, jcfg=CFG, Tp=16, max_len=64):
     toks = np.zeros((len(prompts), Tp), np.int32)
     mask = np.zeros((len(prompts), Tp), bool)
     for b, p in enumerate(prompts):
         toks[b, Tp - len(p):] = p
         mask[b, Tp - len(p):] = True
-    _, cache = JM.prefill(jparams, CFG, jnp.asarray(toks), jnp.asarray(mask),
+    _, cache = JM.prefill(jparams, jcfg, jnp.asarray(toks), jnp.asarray(mask),
                           max_len=max_len)
     return cache
 
 
-@pytest.mark.parametrize("slots", [[2, 0, 4, 4], [3, 1, 0, 2], [1, 4, 4, 4]])
-def test_copy_cache_rows_equals_jax(weights, slots):
-    """Padded entries (``n_slots`` = 4) are dropped by both packages."""
-    jparams = weights[0]
+@pytest.mark.parametrize("family,slots", [
+    pytest.param("dense", [2, 0, 4, 4], id="slots0"),
+    pytest.param("dense", [3, 1, 0, 2], id="slots1"),
+    pytest.param("dense", [1, 4, 4, 4], id="slots2"),
+    pytest.param("hybrid", [2, 0, 4, 4], id="hybrid-slots0"),
+    pytest.param("hybrid", [1, 4, 4, 4], id="hybrid-slots2"),
+])
+def test_copy_cache_rows_equals_jax(weights, hybrid_weights, family, slots):
+    """Padded entries (``n_slots`` = 4) are dropped by both packages; a
+    hybrid model's RG-LRU layers copy both their ``h`` and ``conv``."""
+    jparams = (weights if family == "dense" else hybrid_weights)[0]
+    jcfg = FAMILIES[family][0]
     rng = np.random.default_rng(3)
     prompts = [[int(t) for t in rng.integers(2, 60, size=n)]
                for n in (3, 9, 14, 6, 11, 5, 8, 12)]
-    jdst = _jax_prefill(jparams, prompts[:4])
-    jsrc = _jax_prefill(jparams, prompts[4:])
-    tdst = _port_cache(jdst, CFG)
-    want = JM.copy_cache_rows(CFG, jdst, jsrc, jnp.asarray(slots, jnp.int32))
-    got = TM.copy_cache_rows(CFG, tdst, _port_cache(jsrc, CFG),
+    jdst = _jax_prefill(jparams, prompts[:4], jcfg)
+    jsrc = _jax_prefill(jparams, prompts[4:], jcfg)
+    tdst = _port_cache(jdst, jcfg)
+    want = JM.copy_cache_rows(jcfg, jdst, jsrc, jnp.asarray(slots, jnp.int32))
+    got = TM.copy_cache_rows(jcfg, tdst, _port_cache(jsrc, jcfg),
                              np.asarray(slots, np.int32))
     assert got is tdst  # in place
-    for wl, gl in zip(_jax_layer_caches(want, CFG), got.layers):
-        for w, g in zip(wl, gl):
-            np.testing.assert_array_equal(w, g.numpy())
+    wl, gl = _jax_layer_caches(want, jcfg), got.layers
+    assert len(wl) == len(gl) == jcfg.num_layers
+    assert any(isinstance(g, dict) for g in gl) == (family == "hybrid")
+    for w, g in zip(jax.tree.leaves(wl), jax.tree.leaves(gl)):
+        np.testing.assert_array_equal(w, g.numpy())
     np.testing.assert_array_equal(np.asarray(want.lengths),
                                   got.lengths.numpy())
 
@@ -174,19 +212,28 @@ def test_sample_token_rows_matches_jax(temperature):
 # generate_continuous against JAX and against lock-step generate
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("layout", ["flat", "chunked"])
-@pytest.mark.parametrize("fuse", ["auto", "off"])
-def test_generate_continuous_token_identical_to_jax(weights, fuse, layout):
-    jparams = weights[0]
+@pytest.mark.parametrize("fuse,layout,family", [
+    pytest.param("auto", "flat", "dense", id="auto-flat"),
+    pytest.param("auto", "chunked", "dense", id="auto-chunked"),
+    pytest.param("off", "flat", "dense", id="off-flat"),
+    pytest.param("off", "chunked", "dense", id="off-chunked"),
+    pytest.param("auto", "chunked", "hybrid", id="auto-chunked-hybrid"),
+])
+def test_generate_continuous_token_identical_to_jax(weights, hybrid_weights,
+                                                    fuse, layout, family):
+    w = weights if family == "dense" else hybrid_weights
+    jparams = w[0]
+    jcfg = FAMILIES[family][0]
+    eng_kw = _eng_kw(family)
     jeng = JSpecEngine(
-        jparams, CFG, JEngineConfig(fuse_rounds=fuse, **ENG_KW),
+        jparams, jcfg, JEngineConfig(fuse_rounds=fuse, **eng_kw),
         drafter=JSuffixDrafter(JDrafterConfig(
             scope="problem", min_match=1, device_tail=16,
             forest_layout=layout)),
     )
-    teng = _port_engine(weights, fuse, layout)
-    lock = _port_engine(weights, fuse, layout)
-    prompts = _prompts()
+    teng = _port_engine(w, fuse, layout, eng_kw)
+    lock = _port_engine(w, fuse, layout, eng_kw)
+    prompts = _prompts(jcfg)
     total_accepted = 0
     for it in range(2):  # the second epoch drafts from the first's trees
         for e in (jeng, teng, lock):
@@ -197,7 +244,7 @@ def test_generate_continuous_token_identical_to_jax(weights, fuse, layout):
         touts, tst = teng.generate_continuous(
             prompts, PIDS, slots=SLOTS, max_new_tokens=MAX_NEW)
         louts, _ = lock.generate(prompts, PIDS, max_new_tokens=MAX_NEW)
-        assert _min_top2_gap(jparams, prompts, jouts) > MIN_GAP
+        assert _min_top2_gap(jparams, prompts, jouts, jcfg) > MIN_GAP
         assert touts == jouts
         assert louts == touts
         assert (tst.n_rounds, tst.n_fwd, tst.n_drafted, tst.n_accepted) == (
@@ -209,8 +256,8 @@ def test_generate_continuous_token_identical_to_jax(weights, fuse, layout):
     assert teng.drafter.stats["batched_proposes"] > 0
 
 
-def _requests(limits):
-    prompts = _prompts()
+def _requests(limits, jcfg=CFG):
+    prompts = _prompts(jcfg)
     return [Request(rid=i, problem_id=PIDS[i], prompt=list(prompts[i]),
                     max_new_tokens=limits[i]) for i in range(len(prompts))]
 
@@ -239,12 +286,19 @@ def test_serve_recycles_on_eos_and_token_limit(weights, fuse):
     assert any(len(o) == lim for o, lim in zip(outs, limits))
 
 
-@pytest.mark.parametrize("fuse", ["auto", "off"])
-def test_preempted_request_resumes_token_identically(weights, fuse):
-    base = _requests(MAX_NEW)
-    list(_port_engine(weights, fuse).serve(base, slots=SLOTS))
-    reqs = _requests(MAX_NEW)
-    list(_port_engine(weights, fuse).serve(
+@pytest.mark.parametrize("fuse,family", [
+    pytest.param("auto", "dense", id="auto"),
+    pytest.param("off", "dense", id="off"),
+    pytest.param("auto", "hybrid", id="auto-hybrid"),
+])
+def test_preempted_request_resumes_token_identically(weights, hybrid_weights,
+                                                     fuse, family):
+    w = weights if family == "dense" else hybrid_weights
+    jcfg = FAMILIES[family][0]
+    base = _requests(MAX_NEW, jcfg)
+    list(_port_engine(w, fuse).serve(base, slots=SLOTS))
+    reqs = _requests(MAX_NEW, jcfg)
+    list(_port_engine(w, fuse).serve(
         reqs, slots=SLOTS, preemption=PreemptionPolicy(max_resident_rounds=2)))
     assert sum(r.n_preempted for r in reqs) > 0
     assert [r.output for r in reqs] == [r.output for r in base]

@@ -1,7 +1,8 @@
 """Spec-verify attention: the port's plain version against the JAX
 package's Pallas kernel (interpret mode) and its jnp reference, on the
 parametrised cases of tests/test_kernels.py (GQA, MQA, window, softcap,
-float32 and bfloat16). Tolerances as there: atol 3e-5 (float32) / 3e-2
+float32 and bfloat16), and at RecurrentGemma's head_dim 256 with 16-way
+MQA and a window. Tolerances as there: atol 3e-5 (float32) / 3e-2
 (bfloat16), rtol 1e-2 — the summation order and the bfloat16 rounding
 points differ between the frameworks. The CUDA kernel is held against
 the plain version in the ``gpu`` test (and in ``chip_smoke.py``).
@@ -26,6 +27,9 @@ CASES = [
     (2, 17, 8, 4, 128, 513, 0, 30.0, "bfloat16"),
     (2, 4, 12, 2, 64, 300, 100, 0.0, "bfloat16"),
     (1, 2, 16, 1, 32, 70, 0, 0.0, "float32"),  # MQA
+    # RecurrentGemma's attention: head_dim 256, MQA with 16 query heads
+    (2, 17, 16, 1, 256, 300, 100, 0.0, "bfloat16"),
+    (1, 3, 16, 1, 256, 130, 48, 0.0, "float32"),
 ]
 
 
