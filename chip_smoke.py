@@ -13,19 +13,28 @@ non-zero; no phase's error is caught):
 3. kernels against their plain PyTorch versions at main-path shapes
    (spec-verify attention within the bfloat16 tolerance at Qwen3-8B's
    head shape and at RecurrentGemma-9B's (head_dim 256, MQA, window
-   2048), float32 at head_dim 64 and 256; suffix-match flat and chunked
+   2048), each at the main path's cache fill and with the full ring,
+   with its split plan and ptxas report, one call under the sync-debug
+   mode "error", and bf16 edge cases (T = 1, rows that see nothing, one
+   live split, hd 64 and 32, softcap, G = 6); float32 at head_dim 64
+   and 256; suffix-match flat and chunked
    bit-identical, the chunked kernel also against the flat one over the
    same trees, at a forest larger than L2; 3d: the RG-LRU scan within
    1e-5 at RecurrentGemma-9B's prefill and verify shapes, with pads and
    frozen rows masked, and at a ragged width), with kernel / plain /
-   library times (CUDA events, L2 flushed before every launch) and each
-   kernel's bound (for suffix-match, the forest entries a per-row walk of
-   the row core reads, ``walk_needed_reads``);
+   library times (CUDA events, L2 flushed before every launch, and a
+   device-side wait before each start event so that the wrappers' host
+   work stays out of the window) and each kernel's bound (for
+   suffix-match, the forest entries a per-row walk of the row core
+   reads, ``walk_needed_reads``);
 4. lock-step path: Qwen3-8B at full width (random weights from a seed,
    bf16), DAS ``generate`` of 8 requests over 4 problems, two epochs over
    the same prompts; epoch 2 must be token-identical to epoch 1 and
-   accept drafts, and the flat suffix-match and spec-verify kernels must
-   have launched during the run;
+   accept drafts; the flat suffix-match kernel must have launched, and
+   spec-verify exactly once per attention layer per verify round; the
+   spec-verify launches a spy keeps (each epoch's first and every 64th)
+   must match its plain version within the bf16 tolerance after the run
+   (the same holds in phases 5 and 7);
 5. continuous path: the same model through ``SpecEngine.serve`` — 24
    requests over 12 problems in 8 slots, two epochs, with the chunked
    forest and then, on a fresh engine and drafter, the flat one; the two
@@ -97,14 +106,34 @@ def card_line() -> str:
 class Timer:
     """Per-launch CUDA-event timing with the L2 flushed before each
     launch (the main path finds K/V and the forest cold: 36 layers of
-    weights stream through L2 between two launches of a kernel)."""
+    weights stream through L2 between two launches of a kernel).
 
-    def __init__(self, torch):
+    After the flush and before the start event, a device-side wait
+    (``torch.cuda._sleep``, ``lead_us`` long, calibrated once) is
+    enqueued, so that the host has enqueued the launch under test
+    (the wrapper's checks, allocation and ctypes call) before the start
+    event fires: the window holds device time, not host time."""
+
+    def __init__(self, torch, lead_us: float = 300.0):
         self.torch = torch
         self.flush_buf = torch.empty(96 << 20, dtype=torch.uint8,
                                      device="cuda")
+        cycles = 2_000_000
+        torch.cuda._sleep(cycles // 10)  # warm-up
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        torch.cuda._sleep(cycles)
+        e.record()
+        torch.cuda.synchronize()
+        self.cycles_per_us = cycles / (s.elapsed_time(e) * 1e3)
+        self.lead_us = lead_us
+        self.lead_cycles = int(lead_us * self.cycles_per_us)
+        log(f"timer: torch.cuda._sleep runs {self.cycles_per_us:.1f} cycles "
+            f"a microsecond; {self.lead_cycles} cycles ({lead_us:.0f} us) "
+            "are enqueued after each L2 flush, before the start event")
 
-    def ms(self, fn, reps: int, warmup: int = 2) -> float:
+    def ms(self, fn, reps: int, warmup: int = 2, lead: bool = True) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
@@ -112,6 +141,8 @@ class Timer:
         pairs = []
         for _ in range(reps):
             self.flush_buf.zero_()
+            if lead:
+                torch.cuda._sleep(self.lead_cycles)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -126,17 +157,21 @@ class Timer:
 # phase 3a: spec-verify attention
 # ---------------------------------------------------------------------------
 
-def sv_inputs(torch, np, B, T, Hq, Hkv, hd, S1, dtype, seed, min_len):
+def sv_inputs(torch, np, B, T, Hq, Hkv, hd, S1, dtype, seed, min_len,
+              max_len=None):
     """Ragged ring caches: row b holds positions [0, len_b + T) (the
     block's own K/V already written, as the model writes them before the
-    read); the block's queries sit at len_b .. len_b + T - 1."""
+    read); the block's queries sit at len_b .. len_b + T - 1. len_b is
+    drawn from [min_len, max_len), by default up to S - T (a full
+    ring)."""
     rng = np.random.default_rng(seed)
     S = S1 - 1
     dt = getattr(torch, dtype)
     q = torch.from_numpy(rng.normal(size=(B, T, Hq, hd)).astype(np.float32))
     k = torch.from_numpy(rng.normal(size=(B, S1, Hkv, hd)).astype(np.float32))
     v = torch.from_numpy(rng.normal(size=(B, S1, Hkv, hd)).astype(np.float32))
-    lengths = rng.integers(min_len, S - T, size=B)
+    lengths = rng.integers(min_len, S - T if max_len is None else max_len,
+                           size=B)
     cpos = np.full((B, S1), -1, np.int32)
     for b in range(B):
         for p in range(lengths[b] + T):
@@ -168,6 +203,80 @@ def sv_bound_ms(np, args, window, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sv_plan_line(torch, B, T, Hq, Hkv, hd, S1):
+    """The bf16 kernel's split plan for a shape, and the ptxas report of
+    the instantiation it launches (registers, shared memory, spills)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = sv_ops.split_plan(B, T, Hq, Hkv, S1, hd, n_sm)
+    TG = T * (Hq // Hkv)
+    part_mb = plan.partial_floats(B, Hkv, TG, hd) * 4 / 1e6
+    kv_mb = 2 * B * S1 * Hkv * hd * 2 / 1e6
+    inst = f"spec_verify_tc_kernelILi{max(hd, 64)}ELi{plan.tile}E"
+    lines = _build.ptxas_lines("spec_verify")
+    at = next((i for i, ln in enumerate(lines) if inst in ln), None)
+    rep = ("; ".join(ln.split("ptxas info    : ")[-1] for ln in
+                     lines[at + 1:at + 3]) if at is not None
+           else "not in this process's build log")
+    return (f"plan: {plan.n_split} split(s) of {plan.tiles_per_split} tiles "
+            f"x {plan.tile} slots, {plan.row_blocks} row block(s) of <= "
+            f"{plan.cta_rows} rows: {B * Hkv * plan.row_blocks * plan.n_split}"
+            f" CTAs on {n_sm} SMs; partials {part_mb:.2f} MB against K/V "
+            f"{kv_mb:.2f} MB; ptxas ({inst}): {rep}")
+
+
+# bf16 edge cases held against the plain version: (label, B, T, Hq, Hkv,
+# hd, S+1, window, softcap, cache lengths [lo, hi), seed)
+SV_EDGE_CASES = [
+    ("T=1", 8, 1, 32, 8, 128, 577, 0, 0.0, (128, 560), 31),
+    ("rows that see nothing", 4, 5, 8, 2, 128, 300, 0, 0.0, (20, 290), 32),
+    ("every split but one empty", 8, 17, 16, 1, 256, 2113, 2048, 0.0,
+     (1, 16), 33),
+    ("hd 64", 2, 9, 8, 2, 64, 257, 0, 0.0, (1, 240), 34),
+    ("hd 32", 1, 2, 16, 1, 32, 70, 0, 0.0, (1, 60), 35),
+    ("softcap 30", 2, 17, 8, 4, 128, 513, 0, 30.0, (1, 490), 36),
+    ("G=6, window 100", 2, 4, 12, 2, 64, 300, 100, 0.0, (1, 290), 37),
+]
+
+
+def phase_sv_edge_cases(torch, np, card):
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
+
+    worst = 0.0
+    for (label, B, T, Hq, Hkv, hd, S1, window, softcap, (lo, hi),
+         seed) in SV_EDGE_CASES:
+        args = sv_inputs(torch, np, B, T, Hq, Hkv, hd, S1, "bfloat16", seed,
+                         lo, hi)
+        blind = []  # (b, t) query rows that see no slot
+        if label == "rows that see nothing":
+            args[4][1, 0] = -1  # one query of row 1
+            args[4][2, :] = -1  # every query of row 2: all splits empty
+            blind = [(1, 0)] + [(2, t) for t in range(T)]
+        got = sv_ops.spec_verify_attention_cuda(*args, window=window,
+                                                softcap=softcap)
+        want = spec_verify_attention_ref(*args, window=window,
+                                         softcap=softcap)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f"spec_verify bf16 {label}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), **SV_TOL["bfloat16"]),
+              f"spec_verify bf16 {label}: max |err| {err}")
+        for b, t in blind:
+            check(bool((got[b, t] == 0).all()),
+                  f"spec_verify bf16 {label}: a row that sees nothing is "
+                  "not 0")
+        worst = max(worst, err)
+        log(f"spec_verify bf16 edge case {label} (B={B} T={T} Hq={Hq} "
+            f"Hkv={Hkv} hd={hd} S+1={S1} window={window} softcap={softcap}, "
+            f"lengths [{lo}, {hi})): max |err| {err:.3e}  ok; "
+            f"{sv_plan_line(torch, B, T, Hq, Hkv, hd, S1)}  [{card}]")
+    return worst
+
+
 def phase_spec_verify(torch, np, timer, card):
     from repro_torch.kernels.spec_verify import ops as sv_ops
     from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
@@ -192,89 +301,137 @@ def phase_spec_verify(torch, np, timer, card):
           f"spec_verify f32 hd=256: max |err| {err_small}")
     log(f"spec_verify f32 (B=2 T=5 Hq=16 Hkv=1 hd=256 S+1=300 window=160): "
         f"max |err| {err_small:.3e}  ok")
+    edge_err = phase_sv_edge_cases(torch, np, card)
 
-    # main-path shapes, bf16: Qwen3-8B's (hd 128, GQA 32/8, S+1 = 577)
-    # and RecurrentGemma-9B's local attention (hd 256, MQA 16/1, the full
-    # window-2048 ring: S+1 = 2113)
+    # main-path shapes, bf16: Qwen3-8B's (hd 128, GQA 32/8) and
+    # RecurrentGemma-9B's local attention (hd 256, MQA 16/1, window 2048),
+    # each at the ring and fill phases 4, 5 and 7 give it (S+1 = 577: the
+    # paths' max_len of 576 is below window + headroom) and with a full
+    # ring (for RecurrentGemma the window's own: S+1 = 2113)
     entries = []
-    for name, (Hq, Hkv, hd, S1, window, min_len) in (
-            ("spec_verify_attention", (32, 8, 128, 577, 0, 128)),
-            ("spec_verify_attention_hd256", (16, 1, 256, 2113, 2048, 1024))):
-        entries.append(dict(name=name, **sv_main_shape(
-            torch, np, timer, card, 8, 17, Hq, Hkv, hd, S1, window,
-            min_len)))
+    for name, (Hq, Hkv, hd, S1_path, S1_full, window, min_len) in (
+            ("spec_verify_attention", (32, 8, 128, 577, 577, 0, 128)),
+            ("spec_verify_attention_hd256",
+             (16, 1, 256, 577, 2113, 2048, 1024))):
+        e = sv_main_shape(torch, np, timer, card, 8, 17, Hq, Hkv, hd,
+                          S1_path, S1_full, window, min_len)
+        e["max_abs_err"] = max(e["max_abs_err"], edge_err)
+        entries.append(dict(name=name, **e))
     return entries
 
 
-def sv_main_shape(torch, np, timer, card, B, T, Hq, Hkv, hd, S1, window,
-                  min_len):
-    """One bf16 main-path shape: the kernel against the plain version,
-    then kernel, plain, SDPA and bound times."""
+# The path's fill: prompts of 128-256 tokens and up to 256 generated
+# (phases 4, 5 and 7), so a block's first position lies in [128, 512].
+SV_PATH_FILL = (128, 513)
+
+
+def sv_main_shape(torch, np, timer, card, B, T, Hq, Hkv, hd, S1_path,
+                  S1_full, window, min_len):
+    """One bf16 main-path shape at the path's ring (S+1 = ``S1_path``) and
+    fill and with a full ring of ``S1_full`` slots (lengths from
+    ``min_len``): the kernel against the plain version,
+    then kernel, plain, SDPA and bound times (the full ring's kernel
+    time also without the timer's lead, once). The path fill's numbers
+    are returned; the full ring's are logged."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.spec_verify import ops as sv_ops
     from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
 
-    copies = [sv_inputs(torch, np, B, T, Hq, Hkv, hd, S1, "bfloat16",
-                        10 + i, min_len) for i in range(4)]
-    args = copies[0]
-    got = sv_ops.spec_verify_attention_cuda(*args, window=window)
-    want = spec_verify_attention_ref(*args, window=window)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), "spec_verify bf16: non-finite output")
-    err = float((got.float() - want.float()).abs().max())
-    check(torch.allclose(got.float(), want.float(), **SV_TOL["bfloat16"]),
-          f"spec_verify bf16 hd={hd}: max |err| {err}")
-    log(f"spec_verify bf16 (B={B} T={T} Hq={Hq} Hkv={Hkv} hd={hd} "
-        f"S+1={S1} window={window}, ragged): max |err| {err:.3e}  ok")
+    res = {}
+    for fill, S1, (lo, hi), seed in (
+            ("path fill", S1_path, SV_PATH_FILL, 20),
+            ("full ring", S1_full, (min_len, None), 10)):
+        log(f"spec_verify bf16 hd={hd} S+1={S1} "
+            f"{sv_plan_line(torch, B, T, Hq, Hkv, hd, S1)}  [{card}]")
+        copies = [sv_inputs(torch, np, B, T, Hq, Hkv, hd, S1, "bfloat16",
+                            seed + i, lo, hi) for i in range(4)]
+        args = copies[0]
+        got = sv_ops.spec_verify_attention_cuda(*args, window=window)
+        want = spec_verify_attention_ref(*args, window=window)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              "spec_verify bf16: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), **SV_TOL["bfloat16"]),
+              f"spec_verify bf16 hd={hd} {fill}: max |err| {err}")
+        cp = args[3].cpu().numpy()
+        log(f"spec_verify bf16 (B={B} T={T} Hq={Hq} Hkv={Hkv} hd={hd} "
+            f"S+1={S1} window={window}, {fill}: lengths [{lo}, "
+            f"{S1 - 1 - T if hi is None else hi}), {int((cp >= 0).sum())} of "
+            f"{cp.size} slots filled): max |err| {err:.3e}  ok")
+        if fill == "path fill":  # the wrapper never waits on the device
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                sv_ops.spec_verify_attention_cuda(*copies[1], window=window)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            log(f"spec_verify bf16 hd={hd}: one call under "
+                "torch.cuda.set_sync_debug_mode('error') raised nothing")
 
-    # timing: cycle 4 input sets so nothing stays warm
-    it = {"i": 0}
+        # timing: cycle 4 input sets so nothing stays warm
+        it = {"i": 0}
 
-    def nxt():
-        it["i"] += 1
-        return copies[it["i"] % len(copies)]
+        def nxt():
+            it["i"] += 1
+            return copies[it["i"] % len(copies)]
 
-    ms = timer.ms(lambda: sv_ops.spec_verify_attention_cuda(
-        *nxt(), window=window), 50)
-    plain_ms = timer.ms(lambda: spec_verify_attention_ref(
-        *nxt(), window=window), 10)
-    # library yardstick: one SDPA call with the same boolean mask (never
-    # called by the port)
-    lib_in = []
-    for q, k, v, cpos, pos in copies:
-        cp, qp = cpos[:, None, :], pos[:, :, None]
-        mask = (cp >= 0) & (cp <= qp)
-        if window > 0:
-            mask &= cp > qp - window
-        lib_in.append((q.transpose(1, 2).contiguous(),
-                       k.transpose(1, 2).contiguous(),
-                       v.transpose(1, 2).contiguous(), mask[:, None]))
-    try:
-        F.scaled_dot_product_attention(*lib_in[0][:3], attn_mask=lib_in[0][3],
-                                       enable_gqa=True)
-        sdpa_kw = {"enable_gqa": True}
-    except TypeError:  # older torch: expand the kv heads outside the timing
-        sdpa_kw = {}
-        G = Hq // Hkv
-        lib_in = [(q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1), m)
-                  for q, k, v, m in lib_in]
-    li = {"i": 0}
+        def kern():
+            return sv_ops.spec_verify_attention_cuda(*nxt(), window=window)
 
-    def lib_call():
-        li["i"] += 1
-        q, k, v, m = lib_in[li["i"] % len(lib_in)]
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=m, **sdpa_kw)
+        ms = timer.ms(kern, 50)
+        plain_ms = timer.ms(lambda: spec_verify_attention_ref(
+            *nxt(), window=window), 10)
+        # library yardstick: one SDPA call with the same boolean mask
+        # (never called by the port)
+        lib_in = []
+        for q, k, v, cpos, pos in copies:
+            cpm, qp = cpos[:, None, :], pos[:, :, None]
+            mask = (cpm >= 0) & (cpm <= qp)
+            if window > 0:
+                mask &= cpm > qp - window
+            lib_in.append((q.transpose(1, 2).contiguous(),
+                           k.transpose(1, 2).contiguous(),
+                           v.transpose(1, 2).contiguous(), mask[:, None]))
+        try:
+            F.scaled_dot_product_attention(*lib_in[0][:3],
+                                           attn_mask=lib_in[0][3],
+                                           enable_gqa=True)
+            sdpa_kw = {"enable_gqa": True}
+        except TypeError:  # older torch: expand the kv heads outside timing
+            sdpa_kw = {}
+            G = Hq // Hkv
+            lib_in = [(q, k.repeat_interleave(G, 1),
+                       v.repeat_interleave(G, 1), m)
+                      for q, k, v, m in lib_in]
+        li = {"i": 0}
 
-    library_ms = timer.ms(lib_call, 50)
-    bound_ms, bound_by = sv_bound_ms(np, args, window, "bfloat16")
-    log(f"spec_verify bf16 hd={hd} timing: kernel {ms * 1e3:.1f} us, plain "
-        f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} us, bound "
-        f"{bound_ms * 1e3:.2f} us ({bound_by})  [{card}]")
-    return dict(route="cuda", source="src/repro_torch/csrc/spec_verify.cu",
-                replaces="src/repro/kernels/spec_verify/kernel.py:103",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        def lib_call():
+            li["i"] += 1
+            q, k, v, m = lib_in[li["i"] % len(lib_in)]
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                                  **sdpa_kw)
+
+        library_ms = timer.ms(lib_call, 50)
+        bound_ms, bound_by = sv_bound_ms(np, args, window, "bfloat16")
+        extra = ""
+        if fill == "full ring":  # the timer's lead, on and off, once
+            extra = (f"; without the timer's lead: kernel "
+                     f"{timer.ms(kern, 50, lead=False) * 1e3:.1f} us, SDPA "
+                     f"{timer.ms(lib_call, 50, lead=False) * 1e3:.1f} us")
+        log(f"spec_verify bf16 hd={hd} {fill} timing: kernel {ms * 1e3:.1f} "
+            f"us, plain {plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} "
+            f"us, bound {bound_ms * 1e3:.2f} us ({bound_by}){extra}  [{card}]")
+        res[fill] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms)
+    out = dict(route="cuda", source="src/repro_torch/csrc/spec_verify.cu",
+               replaces="src/repro/kernels/spec_verify/kernel.py:103",
+               **res["path fill"])
+    out["max_abs_err"] = max(r["max_abs_err"] for r in res.values())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -758,6 +915,77 @@ def check_rglru_launches(cfg, launches, n_fwd, where):
           f"{n_rec} layers x {n_fwd} forwards")
 
 
+def check_sv_launches(cfg, launches, n_rounds, where):
+    """One spec-verify launch per attention layer per verify round: the
+    prefills run without the cache and never launch it."""
+    n_attn = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds)
+    check(launches["spec_verify_attention"] == n_attn * n_rounds,
+          f"{where}: {launches['spec_verify_attention']} spec-verify "
+          f"launches, expected {n_attn} attention layers x {n_rounds} "
+          "verify rounds")
+
+
+class SvSpy:
+    """Wraps ``spec_verify_attention_cuda`` on the main path: keeps the
+    inputs (the cache tensors copied) and the output of each epoch's
+    first launch and of every ``EVERY``-th, to be held against the plain
+    version after the run, outside its timing. Adds no launch."""
+
+    EVERY = 64
+
+    def __init__(self):
+        from repro_torch.kernels.spec_verify import ops as sv_ops
+
+        self.ops = sv_ops
+        self.real = sv_ops.spec_verify_attention_cuda
+        self.kept = []
+        self.n = 0
+        self.first = True
+
+    def new_epoch(self):
+        self.first = True
+
+    def __call__(self, q, k, v, cache_pos, positions, **kw):
+        out = self.real(q, k, v, cache_pos, positions, **kw)
+        if self.first or self.n % self.EVERY == 0:
+            self.kept.append(tuple(t.clone() for t in (
+                q, k, v, cache_pos, positions, out)) + (kw,))
+        self.n += 1
+        self.first = False
+        return out
+
+    def __enter__(self):
+        self.ops.spec_verify_attention_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.spec_verify_attention_cuda = self.real
+
+    def check(self, torch, card, where):
+        from repro_torch.kernels.spec_verify.ref import (
+            spec_verify_attention_ref,
+        )
+
+        check(len(self.kept) >= 2,
+              f"{where}: only {len(self.kept)} spec-verify launches kept")
+        worst = 0.0
+        shapes = set()
+        for q, k, v, cpos, pos, got, kw in self.kept:
+            want = spec_verify_attention_ref(q, k, v, cpos, pos, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            check(bool(torch.isfinite(got).all()) and torch.allclose(
+                got.float(), want.float(), **SV_TOL["bfloat16"]),
+                f"{where}: a kept spec-verify launch differs from the plain "
+                f"version, max |err| {err}")
+            worst = max(worst, err)
+            shapes.add((tuple(q.shape), tuple(k.shape), kw.get("window", 0)))
+        log(f"{where}: {len(self.kept)} of {self.n} spec-verify launches kept "
+            f"(each epoch's first, every {self.EVERY}th), within the bf16 "
+            f"tolerance of the plain version: max |err| {worst:.3e}; (q, "
+            f"cache, window) {sorted(shapes)}  [{card}]")
+        self.kept.clear()
+
+
 @contextlib.contextmanager
 def plain_rglru_scan():
     """Swaps the plain scan into ``kernels.rglru.ops`` for a reference
@@ -829,12 +1057,15 @@ def phase_main_path(torch, np, card, cfg, params):
 
     reset_launches()
     epochs = []
+    spy = SvSpy()
     for ep in range(2):
         eng.begin_iteration(ep)
+        spy.new_epoch()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        outs, st = eng.generate(prompts, pids, max_new_tokens=max_new)
+        with spy:
+            outs, st = eng.generate(prompts, pids, max_new_tokens=max_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         epochs.append((outs, st))
@@ -854,9 +1085,11 @@ def phase_main_path(torch, np, card, cfg, params):
     check(o2 == o1, "epoch 2 outputs differ from epoch 1 (T=0 is lossless)")
     check(s2.n_accepted > 0, "epoch 2 accepted no drafts")
     check(s2.n_rounds < s1.n_rounds, "epoch 2 did not cut verify rounds")
-    for name in ("spec_verify_attention", "suffix_match_propose"):
-        check(launches[name] > 0, f"{name} never launched on the lock-step "
-              "path")
+    check(launches["suffix_match_propose"] > 0,
+          "suffix_match_propose never launched on the lock-step path")
+    check_sv_launches(cfg, launches, s1.n_rounds + s2.n_rounds,
+                      f"{cfg.name} lock-step")
+    spy.check(torch, card, f"{cfg.name} lock-step")
     check(launches["suffix_match_propose_chunked"] == 0,
           "the chunked kernel launched on the flat lock-step path")
     check_rglru_launches(cfg, launches, s1.n_fwd + s2.n_fwd,
@@ -967,15 +1200,28 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
             device=dev,
         )
         sm_ops.suffix_match_propose_chunked_cuda = spy
+        sv_spy = SvSpy()
+
+        def on_epoch():
+            seen.update(first=True)
+            sv_spy.new_epoch()
+
         try:
             reset_launches()
-            runs = serve_epochs(torch, eng, prompts, pids, max_new, slots,
-                                dev, card, f"continuous ({layout})",
-                                on_epoch=lambda: seen.update(first=True))
+            with sv_spy:
+                runs = serve_epochs(torch, eng, prompts, pids, max_new,
+                                    slots, dev, card,
+                                    f"continuous ({layout})",
+                                    on_epoch=on_epoch)
             launches = read_launches()
         finally:
             sm_ops.suffix_match_propose_chunked_cuda = chunked_cuda
         log(f"{cfg.name} continuous ({layout}) launches: {launches}")
+        if dev == "cuda":
+            where = f"{cfg.name} continuous ({layout})"
+            check_sv_launches(cfg, launches,
+                              sum(r["stats"].n_rounds for r in runs), where)
+            sv_spy.check(torch, card, where)
         result[layout] = (runs, launches, eng)
     c_runs, c_launch, c_eng = result["chunked"]
     f_runs, f_launch, f_eng = result.get("flat", (c_runs, None, c_eng))
@@ -999,8 +1245,6 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
                   "the flat kernel never launched on the flat run")
             check(f_launch["suffix_match_propose_chunked"] == 0,
                   "the chunked kernel launched on the flat run")
-        check(c_launch["spec_verify_attention"] > 0,
-              "spec_verify never launched on the continuous path")
         check_rglru_launches(cfg, c_launch,
                              sum(r["stats"].n_fwd for r in c_runs),
                              f"{cfg.name} continuous (chunked)")

@@ -8,11 +8,18 @@ tensor the kernel cannot take raises.
 Unlike the TPU wrapper it pads nothing: the kernel reads queries in the
 model's ``(B, T, Hq, hd)`` layout and regroups them per kv head itself
 (rows ``t*G + g``), and masks the ragged end of the cache.
+
+The bfloat16 kernel splits the ring's tiles among CTAs (split-KV); the
+plan comes from shapes alone (``split_plan``), so a row's output never
+depends on what the cache holds elsewhere, and the wrapper reads no
+tensor value on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -24,12 +31,97 @@ LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-        ctypes.c_float, _P)
-_SIGNATURES = {"spec_verify_attention_f32": _SIG,
-               "spec_verify_attention_bf16": _SIG}
+_F = ctypes.c_float
+_SIGNATURES = {
+    "spec_verify_attention_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _F, _F, _P),
+    # ... the partials' scratch after out; the plan (tile, n_split,
+    # tiles_per_split) before the stream
+    "spec_verify_attention_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _F, _F, _I, _I, _I, _P),
+}
 _ENTRY = {torch.float32: "spec_verify_attention_f32",
           torch.bfloat16: "spec_verify_attention_bf16"}
+
+
+# The bfloat16 kernel's geometry (csrc/spec_verify.cu, TcCfg): slot
+# positions one split may stage.
+SPLIT_SLOTS_MAX = 4096
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """How the bfloat16 kernel cuts one call: ``row_blocks`` CTAs of up
+    to ``cta_rows`` query rows for each (batch, kv head), and the ring of
+    ``n_tiles`` tiles of ``tile`` slots into ``n_split`` splits, split j
+    owning tiles j, j + n_split, j + 2 n_split, ... (at most
+    ``tiles_per_split``). Ownership is fixed by tile index, so it depends
+    on shapes alone; interleaving spreads a partly filled ring over the
+    splits. Each (batch, kv head, row block, split) is one CTA, one K/V
+    stream."""
+
+    tile: int
+    n_tiles: int
+    cta_rows: int
+    row_blocks: int
+    n_split: int
+    tiles_per_split: int
+
+    def split_tiles(self, j: int) -> range:
+        """The tiles split ``j`` owns, in the order it walks them."""
+        return range(j, self.n_tiles, self.n_split)
+
+    def split_slots(self, j: int, S1: int) -> List[Tuple[int, int]]:
+        """The slot ranges ``[lo, hi)`` split ``j`` owns."""
+        return [(t * self.tile, min((t + 1) * self.tile, S1))
+                for t in self.split_tiles(j)]
+
+    def row_ranges(self, TG: int) -> List[Tuple[int, int]]:
+        return [(r * self.cta_rows, min((r + 1) * self.cta_rows, TG))
+                for r in range(self.row_blocks)]
+
+    def partial_floats(self, B: int, Hkv: int, TG: int, hd: int) -> int:
+        """float32 scratch the partials take: ``acc`` of each (batch, kv
+        head, split, row), then its (m, l); none for one split."""
+        if self.n_split == 1:
+            return 0
+        return self.n_split * B * Hkv * TG * (hd + 2)
+
+
+def split_plan(B: int, T: int, Hq: int, Hkv: int, S1: int, hd: int,
+               n_sm: int) -> SplitPlan:
+    """The bfloat16 kernel's split plan, from shapes and the SM count
+    alone. Splits are added until the CTAs (streams x splits) fill the
+    SMs once, but no further than keeps the float32 partials within half
+    the bfloat16 K/V bytes (they are pure overhead) and than there are
+    tiles; a split never stages more than ``SPLIT_SLOTS_MAX`` slots. A
+    CTA holds two warpgroups of 64 query rows, one at hd 256 (whose
+    float32 accumulator takes half a thread's registers)."""
+    tile = 32 if hd > 128 else 64
+    cta_rows = 64 if hd > 128 else 128
+    TG = T * (Hq // Hkv)
+    n_tiles = -(-S1 // tile)
+    row_blocks = -(-TG // cta_rows)
+    streams = B * Hkv * row_blocks
+    kv_bytes = 2 * B * S1 * Hkv * hd * 2
+    per_split = B * Hkv * TG * (hd + 2) * 4
+    n = max(1, min(n_sm // streams, kv_bytes // (2 * per_split), n_tiles))
+    n = max(n, -(-n_tiles * tile // SPLIT_SLOTS_MAX))
+    return SplitPlan(tile=tile, n_tiles=n_tiles, cta_rows=cta_rows,
+                     row_blocks=row_blocks, n_split=n,
+                     tiles_per_split=-(-n_tiles // n))
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def _check(q, k, v, cache_pos, positions) -> None:
@@ -70,12 +162,20 @@ def spec_verify_attention_cuda(q, k, v, cache_pos, positions, *,
     S, Hkv = k.shape[1], k.shape[2]
     lib = _build.load("spec_verify", _SIGNATURES)
     out = torch.empty_like(q)
-    err = getattr(lib, _ENTRY[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_pos.data_ptr(),
-        positions.data_ptr(), out.data_ptr(),
-        B, T, Hq, Hkv, S, hd, int(window), float(softcap),
-        float(1.0 / hd ** 0.5), _build.cuda_stream_ptr(q.device),
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_pos.data_ptr(),
+            positions.data_ptr(), out.data_ptr())
+    shape = (B, T, Hq, Hkv, S, hd, int(window), float(softcap),
+             float(1.0 / hd ** 0.5))
+    stream = _build.cuda_stream_ptr(q.device)
+    if q.dtype == torch.bfloat16:
+        plan = split_plan(B, T, Hq, Hkv, S, hd, _sm_count(q.device))
+        part = torch.empty(plan.partial_floats(B, Hkv, T * (Hq // Hkv), hd),
+                           dtype=torch.float32, device=q.device)
+        err = lib.spec_verify_attention_bf16(
+            *ptrs, part.data_ptr() or None, *shape, plan.tile, plan.n_split,
+            plan.tiles_per_split, stream)
+    else:
+        err = lib.spec_verify_attention_f32(*ptrs, *shape, stream)
     _build.check(err, "spec_verify_attention launch")
     LAUNCHES += 1
     return out

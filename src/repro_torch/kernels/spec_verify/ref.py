@@ -10,7 +10,12 @@ T-token draft block against a position-tagged ring KV cache.
   positions: (B, T) int32     absolute positions of the block tokens
 
 mask: slot s visible to query t iff 0 <= cache_pos[s] <= positions[t]
-and (window == 0 or cache_pos[s] > positions[t] - window).
+and (window == 0 or cache_pos[s] > positions[t] - window). A query that
+sees no slot gets 0, as the kernel's guard ``acc / max(l, 1e-20)`` gives
+it (and the TPU kernel's).
+
+``combine_partials_ref`` is the plain version of the bfloat16 kernel's
+split-KV combine: the merge of per-split (m, l, acc) partials.
 
 The CPU tests run this; ``chip_smoke.py`` holds the kernel against it.
 Nothing on the card path calls it.
@@ -21,6 +26,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+NEG = -1e30  # the masked score, and the m of an empty partial
 
 
 def spec_verify_attention_ref(
@@ -46,9 +53,27 @@ def spec_verify_attention_ref(
     mask = (kpos >= 0) & (kpos <= qpos)
     if window > 0:
         mask = mask & (kpos > qpos - window)
-    scores = torch.where(mask[:, None, None], scores, -1e30)
+    scores = torch.where(mask[:, None, None], scores, NEG)
     probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(mask.any(-1)[:, None, None, :, None], probs, 0.0)
     out = torch.einsum(
         "bkgts,bskh->btkgh", probs.to(q.dtype), v.to(q.dtype)
     )
     return out.reshape(B, T, Hq, hd)
+
+
+def combine_partials_ref(m: torch.Tensor, l: torch.Tensor,
+                         acc: torch.Tensor) -> torch.Tensor:
+    """Merge split-KV partials in split order, as the combine kernel
+    does: m, l (n_split, ...) and acc (n_split, ..., hd) float32 of the
+    same rows; a partial with ``m <= NEG`` is empty (weight 0, its acc
+    not read). Returns sum_i w_i acc_i / max(sum_i w_i l_i, 1e-20), w_i =
+    exp(m_i - max_j m_j): 0 for a row every partial of which is empty."""
+    M = m.max(dim=0).values
+    num = torch.zeros_like(acc[0])
+    den = torch.zeros_like(l[0])
+    for mi, li, ai in zip(m, l, acc):
+        w = torch.where(mi > NEG, torch.exp(mi - M), 0.0)
+        den = den + w * li
+        num = num + torch.where((mi > NEG)[..., None], w[..., None] * ai, 0.0)
+    return num / torch.clamp(den, min=1e-20)[..., None]
