@@ -17,11 +17,12 @@ non-zero; no phase's error is caught):
    with its split plan and ptxas report, one call under the sync-debug
    mode "error", and bf16 edge cases (T = 1, rows that see nothing, one
    live split, hd 64 and 32, softcap, G = 6); float32 at head_dim 64
-   and 256; suffix-match flat and chunked
-   bit-identical, the chunked kernel also against the flat one over the
-   same trees, at a forest larger than L2; 3d: the RG-LRU scan within
-   1e-5 at RecurrentGemma-9B's prefill and verify shapes, with pads and
-   frozen rows masked, and at a ragged width), with kernel / plain /
+   and 256; suffix-match flat and chunked (a warp a row, 33-way edge
+   search from staged splitters) bit-identical, the chunked kernel also
+   against the flat one over the same trees, at a forest larger than
+   L2; 3d: the RG-LRU scan within 1e-5 at RecurrentGemma-9B's prefill
+   and verify shapes, with pads and frozen rows masked, and at a ragged
+   width), with kernel / plain /
    library times (CUDA events, L2 flushed before every launch, and a
    device-side wait before each start event so that the wrappers' host
    work stays out of the window) and each kernel's bound (for
@@ -33,17 +34,23 @@ non-zero; no phase's error is caught):
    accept drafts; the flat suffix-match kernel must have launched, and
    spec-verify exactly once per attention layer per verify round; the
    spec-verify launches a spy keeps (each epoch's first and every 64th)
-   must match its plain version within the bf16 tolerance after the run
-   (the same holds in phases 5 and 7);
+   must match its plain version within the bf16 tolerance after the run,
+   and the suffix-match launches its spy keeps (each epoch's first and
+   every 16th) must equal theirs bit for bit (the same holds in phases 5
+   and 7); the suffix-match spy also keeps epoch 2's launches, of which
+   the one that proposed most is the flat kernel's timing case at the
+   path's own shape (after phase 5: bit-identical to the plain version,
+   kernel / plain / bound);
 5. continuous path: the same model through ``SpecEngine.serve`` — 24
    requests over 12 problems in 8 slots, two epochs, with the chunked
    forest and then, on a fresh engine and drafter, the flat one; the two
    layouts must agree on every token, round and acceptance, and each run
-   must have launched its own suffix-match kernel and not the other; the
-   chunked kernel's launches on this path (each epoch's first and every
-   16th) must equal its plain version bit for bit; every token of both
-   epochs and of lock-step ``generate`` on the same prompts must be plain
-   greedy's choice on its own prefix within the bf16 tolerance;
+   must have launched its own suffix-match kernel and not the other; each
+   run's kept suffix-match launches must equal the plain version bit for
+   bit, and the chunked run's epoch-2 launch that proposed most is the
+   chunked kernel's timing case at the path's own shape; every token of
+   both epochs and of lock-step ``generate`` on the same prompts must be
+   plain greedy's choice on its own prefix within the bf16 tolerance;
 6. the serving CLI as subprocesses (lock-step, ``--continuous``, and the
    hybrid model), last of all;
 7. RecurrentGemma-9B at full width (the Qwen3-8B weights freed first):
@@ -55,7 +62,13 @@ non-zero; no phase's error is caught):
    decoding without cache or kernels.
 
 The last lines are the card line, the per-kernel JSON line and the
-result line ``{"ok": true, "device": {...}}``.
+result line ``{"ok": true, "device": {...}}``. A kernel's ``launches``
+there sum every path that runs it, each counted from 0 (flat drafting:
+phase 4, phase 5's flat run and phase 7's lock-step run; chunked
+drafting: phase 5's and phase 7's chunked runs; spec-verify at hd 128:
+phases 4 and 5; at hd 256 and the RG-LRU scan: phase 7); the drafting
+kernels' times and bounds there are at the path's own shapes (phases
+3b and 3c are logged).
 """
 
 from __future__ import annotations
@@ -627,12 +640,13 @@ def suffix_match_bound_ms(np, got, tails, roots, budgets, forest, *, chunked,
     return nbytes / HBM_BYTES_PER_S * 1e3, entries
 
 
-def phase_suffix_match(torch, np, timer, card):
+def flat_case(torch, np, dev):
+    """Phase 3b's forest and query: four problems of 8 seeded rollouts,
+    packed flat; 8 rows of 64-token tails cut from the rollouts, one
+    inactive row, budgets from 0 to 16."""
     from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
     from repro_torch.kernels.suffix_match import ops as sm_ops
-    from repro_torch.kernels.suffix_match.ref import suffix_match_propose_ref
 
-    B, m, K = 8, 64, 16
     rollouts = synthetic_rollouts(np, 5)
     d = SuffixDrafter(DrafterConfig(scope="problem"))
     for ep, (pid, docs) in enumerate(rollouts.items()):
@@ -640,7 +654,8 @@ def phase_suffix_match(torch, np, timer, card):
             d.observe_rollout(pid, doc, epoch=ep)
     keys = list(rollouts)
     forest, roots = sm_ops.pack_forest([d.pack_for(k) for k in keys],
-                                       device="cuda")
+                                       device=dev)
+    B, m = 8, 64
     rng = np.random.default_rng(6)
     tails = np.full((B, m), -1, np.int32)
     rts = np.zeros(B, np.int32)
@@ -653,7 +668,16 @@ def phase_suffix_match(torch, np, timer, card):
         rts[b] = roots[p]
     rts[5] = -1  # an inactive row
     budgets = np.array([16, 16, 8, 4, 16, 16, 0, 12], np.int32)
-    args = [torch.from_numpy(a).cuda() for a in (tails, rts, budgets)]
+    return forest, [torch.from_numpy(a).to(dev) for a in (tails, rts, budgets)]
+
+
+def phase_suffix_match(torch, np, timer, card):
+    from repro_torch.kernels.suffix_match import ops as sm_ops
+    from repro_torch.kernels.suffix_match.ref import suffix_match_propose_ref
+
+    K = 16
+    forest, args = flat_case(torch, np, "cuda")
+    B, m = args[0].shape
     got = sm_ops.suffix_match_propose_cuda(forest, *args, n_prop_max=K,
                                            min_match=1)
     want = suffix_match_propose_ref(*args, *forest, n_prop_max=K, min_match=1)
@@ -986,6 +1010,132 @@ class SvSpy:
         self.kept.clear()
 
 
+class SmSpy:
+    """Wraps one suffix-match wrapper on the main path
+    (``suffix_match_propose_cuda``, or with ``chunked``
+    ``suffix_match_propose_chunked_cuda``). Keeps the inputs (the query
+    tensors copied, the forest by reference: a repack makes new tensors)
+    and the outputs of each epoch's first launch and of every
+    ``EVERY``-th, to be held against the plain version after the run,
+    outside its timing; and the inputs and proposal counts of every
+    launch of the second epoch, of which the one that proposed the most
+    tokens (the latest such) is the path's own timing case
+    (``path_case``). Adds no launch and no host sync."""
+
+    EVERY = 16
+
+    def __init__(self, chunked: bool):
+        from repro_torch.kernels.suffix_match import ops as sm_ops
+
+        self.ops = sm_ops
+        self.chunked = chunked
+        self.attr = ("suffix_match_propose_chunked_cuda" if chunked
+                     else "suffix_match_propose_cuda")
+        self.real = getattr(sm_ops, self.attr)
+        self.kept = []
+        self.late = []
+        self.trees = 0
+        self.n = 0
+        self.epoch = -1
+        self.first = True
+
+    def new_epoch(self):
+        self.epoch += 1
+        self.first = True
+
+    def __call__(self, forest, tails, roots, budgets, **kw):
+        out = self.real(forest, tails, roots, budgets, **kw)
+        if self.chunked:
+            self.trees = max(self.trees, int(forest.edge_node.shape[0]))
+        keep = self.first or self.n % self.EVERY == 0
+        if keep or self.epoch == 1:
+            q = tuple(t.clone() for t in (tails, roots, budgets))
+        if keep:
+            self.kept.append((forest, q, kw, tuple(o.clone() for o in out)))
+        if self.epoch == 1:
+            self.late.append((forest, q, kw, out[1].clone()))
+        self.n += 1
+        self.first = False
+        return out
+
+    def __enter__(self):
+        setattr(self.ops, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.attr, self.real)
+
+    def plain(self, forest, tails, roots, budgets, **kw):
+        from repro_torch.kernels.suffix_match.ref import (
+            suffix_match_propose_chunked_ref,
+            suffix_match_propose_ref,
+        )
+
+        ref = (suffix_match_propose_chunked_ref if self.chunked
+               else suffix_match_propose_ref)
+        return ref(tails, roots, budgets, *forest, **kw)
+
+    def check(self, torch, card, where):
+        """The kept launches against the plain version on the same forest
+        and query: bit-identical; at least one of them proposed."""
+        check(len(self.kept) >= 2,
+              f"{where}: only {len(self.kept)} {self.attr} launches kept")
+        rows = toks = 0
+        shapes = set()
+        for forest, q, kw, got in self.kept:
+            want = self.plain(forest, *q, **kw)
+            for name, g, w in zip(("match_len", "n_prop", "props"), got,
+                                  want):
+                check(torch.equal(g, w), f"{where}: a kept {self.attr} "
+                      f"launch's {name} differs from its plain version")
+            rows += int((got[1] > 0).sum())
+            toks += int(got[1].sum())
+            shapes.add((tuple(q[0].shape), tuple(forest.edge_node.shape),
+                        tuple(forest.suffix_link.shape),
+                        tuple(forest.corpus.shape)))
+        check(toks > 0, f"{where}: no kept {self.attr} launch proposed")
+        log(f"{where}: {len(self.kept)} of {self.n} {self.attr} launches "
+            f"kept (each epoch's first, every {self.EVERY}th), bit-identical "
+            f"to the plain version ({rows} rows proposed {toks} tokens; "
+            f"tails, edges, nodes, corpus seen: {sorted(shapes)})  [{card}]")
+        self.kept.clear()
+
+    def path_case(self):
+        """The inputs of the second epoch's launch that proposed the most
+        tokens (the latest of those), and its place in the epoch."""
+        check(bool(self.late), f"no {self.attr} launch in the second epoch")
+        n = [int(late[3].sum()) for late in self.late]
+        j = max(range(len(n)), key=lambda j: (n[j], j))
+        return self.late[j][:3], j
+
+
+def time_path_case(torch, np, timer, card, spy, where):
+    """The kernel at the path's own shape (``spy.path_case()``), after the
+    run: bit-identical to its plain version, then timed (kernel, plain)
+    with its bound. Returns (ms, plain_ms, bound_ms)."""
+    (forest, q, kw), j = spy.path_case()
+    got = spy.real(forest, *q, **kw)
+    want = spy.plain(forest, *q, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("match_len", "n_prop", "props"), got, want):
+        check(torch.equal(g, w), f"{where}: the path case's {name} differs "
+              "from the plain version")
+    ms = timer.ms(lambda: spy.real(forest, *q, **kw), 50)
+    plain_ms = timer.ms(lambda: spy.plain(forest, *q, **kw), 5, warmup=1)
+    bound_ms, entries = suffix_match_bound_ms(
+        np, got, *q, forest, chunked=spy.chunked, **kw)
+    B, m = q[0].shape
+    log(f"{where}: {spy.attr} at the path's shape (epoch 2, launch "
+        f"{j + 1} of {len(spy.late)}; B={B} m={m} "
+        f"K={kw['n_prop_max']}, edges {tuple(forest.edge_node.shape)}, "
+        f"{int((q[1] >= 0).sum())} rows active, n_prop "
+        f"{got[1].cpu().numpy().tolist()}): kernel {ms * 1e3:.1f} us, plain "
+        f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.4f} us "
+        f"({entries} forest entries read + query + outputs)  [{card}]")
+    spy.late.clear()
+    return ms, plain_ms, bound_ms
+
+
 @contextlib.contextmanager
 def plain_rglru_scan():
     """Swaps the plain scan into ``kernels.rglru.ops`` for a reference
@@ -1058,13 +1208,15 @@ def phase_main_path(torch, np, card, cfg, params):
     reset_launches()
     epochs = []
     spy = SvSpy()
+    sm_spy = SmSpy(chunked=False)
     for ep in range(2):
         eng.begin_iteration(ep)
         spy.new_epoch()
+        sm_spy.new_epoch()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with spy:
+        with spy, sm_spy:
             outs, st = eng.generate(prompts, pids, max_new_tokens=max_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1090,13 +1242,14 @@ def phase_main_path(torch, np, card, cfg, params):
     check_sv_launches(cfg, launches, s1.n_rounds + s2.n_rounds,
                       f"{cfg.name} lock-step")
     spy.check(torch, card, f"{cfg.name} lock-step")
+    sm_spy.check(torch, card, f"{cfg.name} lock-step")
     check(launches["suffix_match_propose_chunked"] == 0,
           "the chunked kernel launched on the flat lock-step path")
     check_rglru_launches(cfg, launches, s1.n_fwd + s2.n_fwd,
                          f"{cfg.name} lock-step")
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, sm_spy
 
 
 # ---------------------------------------------------------------------------
@@ -1160,33 +1313,15 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
                        layouts=("chunked", "flat")):
     """The continuous path with the chunked forest, then (unless
     ``layouts`` leaves it out) with the flat one on a fresh engine and
-    drafter; gated as ``phase_continuous`` says. Returns the chunked
-    run's launches, its runs, the prompts and the lock-step outputs of the
-    same prompts."""
+    drafter; gated as ``phase_continuous`` says. Returns each run's
+    launches (by layout), the chunked run's runs, the prompts, the
+    lock-step outputs of the same prompts and the chunked run's
+    suffix-match spy (its second epoch's launches kept for timing)."""
     from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
     from repro_torch.core.spec_engine import EngineConfig, SpecEngine
-    from repro_torch.kernels.suffix_match import ops as sm_ops
 
     prompts, pids, max_new = continuous_requests(
         np, cfg.vocab_size, n_problems, n_requests, limits, prompt_len)
-    trees_seen = []
-    stash = []  # chunked launches held against the plain version below
-    seen = {"n": 0, "first": True}
-    chunked_cuda = sm_ops.suffix_match_propose_chunked_cuda
-
-    def spy(forest, tails, roots, budgets, **k):
-        """Records the forest each chunked launch walks; keeps the inputs
-        and outputs of each epoch's first launch and of every 16th for
-        the check after the run (outside its timing)."""
-        trees_seen.append(int(forest.edge_node.shape[0]))
-        out = chunked_cuda(forest, tails, roots, budgets, **k)
-        if seen["first"] or seen["n"] % 16 == 0:
-            stash.append((forest, tails.clone(), roots.clone(),
-                          budgets.clone(), k, tuple(o.clone() for o in out)))
-        seen["n"] += 1
-        seen["first"] = False
-        return out
-
     result = {}
     for layout in layouts:
         # one K bucket (16): every verify round runs one (slots, 17) block
@@ -1199,32 +1334,30 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
                                                 forest_layout=layout)),
             device=dev,
         )
-        sm_ops.suffix_match_propose_chunked_cuda = spy
         sv_spy = SvSpy()
+        sm_spy = SmSpy(chunked=layout == "chunked")
 
         def on_epoch():
-            seen.update(first=True)
             sv_spy.new_epoch()
+            sm_spy.new_epoch()
 
-        try:
-            reset_launches()
-            with sv_spy:
-                runs = serve_epochs(torch, eng, prompts, pids, max_new,
-                                    slots, dev, card,
-                                    f"continuous ({layout})",
-                                    on_epoch=on_epoch)
-            launches = read_launches()
-        finally:
-            sm_ops.suffix_match_propose_chunked_cuda = chunked_cuda
+        reset_launches()
+        with sv_spy, sm_spy:
+            runs = serve_epochs(torch, eng, prompts, pids, max_new, slots,
+                                dev, card, f"continuous ({layout})",
+                                on_epoch=on_epoch)
+        launches = read_launches()
         log(f"{cfg.name} continuous ({layout}) launches: {launches}")
         if dev == "cuda":
             where = f"{cfg.name} continuous ({layout})"
             check_sv_launches(cfg, launches,
                               sum(r["stats"].n_rounds for r in runs), where)
             sv_spy.check(torch, card, where)
-        result[layout] = (runs, launches, eng)
-    c_runs, c_launch, c_eng = result["chunked"]
-    f_runs, f_launch, f_eng = result.get("flat", (c_runs, None, c_eng))
+            sm_spy.check(torch, card, where)
+        result[layout] = (runs, launches, eng, sm_spy)
+    c_runs, c_launch, c_eng, c_spy = result["chunked"]
+    f_runs, f_launch, f_eng, _ = result.get("flat",
+                                           (c_runs, None, c_eng, None))
     for ep, (c, f) in enumerate(zip(c_runs, f_runs)):
         for key in ("outputs", "rounds", "makespan", "accepted"):
             check(c[key] == f[key], f"continuous epoch {ep + 1}: {key} "
@@ -1248,40 +1381,12 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
         check_rglru_launches(cfg, c_launch,
                              sum(r["stats"].n_fwd for r in c_runs),
                              f"{cfg.name} continuous (chunked)")
-        check(max(trees_seen, default=0) >= n_problems,
-              f"the chunked forest held {max(trees_seen, default=0)} trees")
-        check_stashed_launches(torch, stash, card)
+        check(c_spy.trees >= n_problems,
+              f"the chunked forest held {c_spy.trees} trees")
     lock, _ = f_eng.generate(prompts, pids, max_new_tokens=max_new)
+    launches = {k: v[1] for k, v in result.items()}
     del c_eng, f_eng, result
-    return c_launch, c_runs, prompts, lock
-
-
-def check_stashed_launches(torch, stash, card):
-    """The chunked kernel's launches kept by the spy, at the shapes of the
-    continuous path, against the plain version on the same forest and
-    query: bit-identical. At least one of them must have proposed."""
-    from repro_torch.kernels.suffix_match.ref import (
-        suffix_match_propose_chunked_ref,
-    )
-
-    check(len(stash) >= 2, f"only {len(stash)} chunked launches were kept")
-    rows = toks = 0
-    shapes = set()
-    for forest, tails, roots, budgets, kw, got in stash:
-        want = suffix_match_propose_chunked_ref(tails, roots, budgets,
-                                                *forest, **kw)
-        for name, g, w in zip(("match_len", "n_prop", "props"), got, want):
-            check(torch.equal(g, w), f"continuous path: chunked kernel "
-                  f"{name} differs from its plain version")
-        rows += int((got[1] > 0).sum())
-        toks += int(got[1].sum())
-        shapes.add((tuple(tails.shape), tuple(forest.edge_node.shape),
-                    int(forest.suffix_link.shape[1]),
-                    int(forest.corpus.shape[1])))
-    check(toks > 0, "no kept chunked launch proposed a token")
-    log(f"continuous path: {len(stash)} chunked launches bit-identical to "
-        f"the plain version ({rows} rows proposed {toks} tokens; (B, m), "
-        f"(T, Es), Ns, Cs seen: {sorted(shapes)})  [{card}]")
+    return launches, c_runs, prompts, lock, c_spy
 
 
 def phase_continuous(torch, np, card, cfg, params,
@@ -1289,16 +1394,17 @@ def phase_continuous(torch, np, card, cfg, params,
     """``SpecEngine.serve`` at full width: 24 requests over 12 problems in
     8 slots, two epochs, chunked then flat. Gated: identical outputs,
     per-request rounds, makespan and acceptances between the layouts;
-    each run launched its own suffix-match kernel and not the other; the
-    chunked kernel's kept launches equal its plain version; the chunked
+    each run launched its own suffix-match kernel and not the other; each
+    run's kept suffix-match launches equal the plain version; the chunked
     forest held every problem's tree; slots were recycled; epoch 2
     accepted drafts; every token of both epochs and of lock-step
     ``generate`` on the same prompts is plain greedy's choice within the
     bf16 tolerance (``plain_greedy_full_width``). Reported: how many
     outputs equal lock-step ``generate`` exactly (bf16 admissions prefill
     in chunks of other sizes than the lock-step batch, so cuBLAS may round
-    differently), and where those that differ diverge."""
-    launches, runs, prompts, lock = continuous_layouts(
+    differently), and where those that differ diverge. Returns each run's
+    launches (by layout) and the chunked run's suffix-match spy."""
+    launches, runs, prompts, lock, spy = continuous_layouts(
         torch, np, cfg, params, "cuda", card, slots=8, n_problems=12,
         n_requests=24, limits=(32, 64, 128, 256), prompt_len=(128, 256),
         layouts=layouts)
@@ -1312,7 +1418,7 @@ def phase_continuous(torch, np, card, cfg, params,
         {"lock-step": lock, "continuous epoch 1": runs[0]["outputs"],
          "continuous epoch 2": runs[1]["outputs"]}, card)
     torch.cuda.empty_cache()
-    return launches
+    return launches, spy
 
 
 # The most a bf16 engine's token may fall short of plain greedy's top
@@ -1499,32 +1605,45 @@ def main() -> None:
             log(f"  [{name}] {ln}")
 
     timer = Timer(torch)
-    kernels = [*phase_spec_verify(torch, np, timer, card),
-               phase_suffix_match(torch, np, timer, card),
-               phase_suffix_match_chunked(torch, np, timer, card),
-               phase_rglru(torch, np, timer, card)]
-    del timer
+    kernels = {k["name"]: k for k in (
+        *phase_spec_verify(torch, np, timer, card),
+        phase_suffix_match(torch, np, timer, card),
+        phase_suffix_match_chunked(torch, np, timer, card),
+        phase_rglru(torch, np, timer, card))}
+    # every path's launches of each kernel, each path counted from 0
+    launches = Counter()
     cfg, params = full_width_model(torch, "qwen3-8b")
-    launches = phase_main_path(torch, np, card, cfg, params)
-    # the chunked kernel's main path is the continuous one
-    launches["suffix_match_propose_chunked"] = phase_continuous(
-        torch, np, card, cfg, params)["suffix_match_propose_chunked"]
-    del params
+    lock, flat_spy = phase_main_path(torch, np, card, cfg, params)
+    cont, chunked_spy = phase_continuous(torch, np, card, cfg, params)
+    for run in (lock, cont["chunked"], cont["flat"]):
+        launches.update(run)
+    # the drafting kernels at the path's own shapes (phases 4 and 5)
+    for spy, name in ((flat_spy, "suffix_match_propose"),
+                      (chunked_spy, "suffix_match_propose_chunked")):
+        k = kernels[name]
+        k["ms"], k["plain_ms"], k["bound_ms"] = time_path_case(
+            torch, np, timer, card, spy, f"{cfg.name} path case")
+    del timer, flat_spy, chunked_spy, params
     torch.cuda.empty_cache()
     # phase 7: RecurrentGemma-9B, whose main path runs the RG-LRU kernel
     # and spec-verify at head_dim 256 (lock-step and continuous runs)
     cfg, params = full_width_model(torch, "recurrentgemma-9b")
-    hybrid = phase_main_path(torch, np, card, cfg, params)
-    cont = phase_continuous(torch, np, card, cfg, params,
-                            layouts=("chunked",))
+    hybrid, _ = phase_main_path(torch, np, card, cfg, params)
+    cont, _ = phase_continuous(torch, np, card, cfg, params,
+                               layouts=("chunked",))
+    for run in (hybrid, cont["chunked"]):
+        launches.update({k: v for k, v in run.items()
+                         if k != "spec_verify_attention"})
     launches["spec_verify_attention_hd256"] = (
-        hybrid["spec_verify_attention"] + cont["spec_verify_attention"])
-    launches["rglru_scan"] = hybrid["rglru_scan"] + cont["rglru_scan"]
+        hybrid["spec_verify_attention"]
+        + cont["chunked"]["spec_verify_attention"])
     del params
     torch.cuda.empty_cache()
     for arch in ("qwen3-8b", "recurrentgemma-9b"):
         phase_small_reference(torch, np, arch)
     phase_cli(card)
+    log(f"launches on every path: {dict(launches)}  [{card}]")
+    kernels = list(kernels.values())
     for k in kernels:
         k["launches"] = launches[k["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

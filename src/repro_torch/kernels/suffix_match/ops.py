@@ -28,7 +28,6 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.suffix_match.ref import (
-    n_search_steps,
     suffix_match_propose_chunked_ref,
     suffix_match_propose_ref,
 )
@@ -38,6 +37,7 @@ _MIN_EDGES = 1024
 _MIN_CORPUS = 2048
 _MIN_STRIDE = 256
 _SENTINEL = np.int32(np.iinfo(np.int32).max)  # sorts past every real edge
+_MAX_EDGES = 1 << 26  # csrc/suffix_match.cu MAX_EDGES
 
 # Launches of each CUDA kernel by its wrapper (one per call on CUDA).
 LAUNCHES = 0
@@ -49,13 +49,13 @@ _SIGNATURES = {
     "suffix_match_propose_flat": (
         _P, _I, _P, _I, _P, _I,  # tails, roots, budgets (+ strides)
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # forest
-        _I, _I, _I, _I, _I, _I, _I,  # B, m, E, C, n_steps, K, min_match
+        _I, _I, _I, _I, _I, _I,  # B, m, E, C, K, min_match
         _P, _P, _P, _P,  # match_len, n_prop, props, stream
     ),
     "suffix_match_propose_chunked": (
         _P, _I, _P, _I, _P, _I,  # tails, roots, budgets (+ strides)
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # forest (T rows each)
-        _I, _I, _I, _I, _I, _I, _I,  # B, m, T, Es, Ns, Cs, n_steps
+        _I, _I, _I, _I, _I, _I,  # B, m, T, Es, Ns, Cs
         _I, _I,  # K, min_match
         _P, _P, _P, _P,  # match_len, n_prop, props, stream
     ),
@@ -218,6 +218,9 @@ def _check(forest, tails, roots, budgets, n_prop_max) -> None:
     if ndim == 2 and len({t.shape[0] for t in forest}) != 1:
         raise ValueError("suffix_match: chunked forest arrays must share "
                          "their tree count")
+    if forest.edge_node.shape[-1] >= _MAX_EDGES:
+        raise ValueError(f"suffix_match: an edge table of at most "
+                         f"{_MAX_EDGES - 1} entries (the kernels' search)")
     if tails.dim() != 2 or tails.stride(1) != 1:
         raise ValueError("suffix_match: tails must be (B, m) with unit "
                          "stride along m")
@@ -252,7 +255,7 @@ def suffix_match_propose_cuda(forest: PackedForest, tails, roots, budgets,
         tails.data_ptr(), tails.stride(0), roots.data_ptr(), roots.stride(0),
         budgets.data_ptr(), budgets.stride(0),
         *(t.data_ptr() for t in forest),
-        B, m, E, C, n_search_steps(E), int(n_prop_max), int(min_match),
+        B, m, E, C, int(n_prop_max), int(min_match),
         match_len.data_ptr(), n_prop.data_ptr(), props.data_ptr(),
         _build.cuda_stream_ptr(tails.device),
     )
@@ -287,8 +290,7 @@ def suffix_match_propose_chunked_cuda(forest: ChunkedForest, tails, roots,
         tails.data_ptr(), tails.stride(0), roots.data_ptr(), roots.stride(0),
         budgets.data_ptr(), budgets.stride(0),
         *(t.data_ptr() for t in forest),
-        B, m, T, Es, Ns, Cs, n_search_steps(Es), int(n_prop_max),
-        int(min_match),
+        B, m, T, Es, Ns, Cs, int(n_prop_max), int(min_match),
         match_len.data_ptr(), n_prop.data_ptr(), props.data_ptr(),
         _build.cuda_stream_ptr(tails.device),
     )

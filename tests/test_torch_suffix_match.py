@@ -5,29 +5,41 @@ Same seeded trees through both packages' ``SuffixTree.pack()``,
 the port's plain propose against JAX ``suffix_match_propose`` with
 ``impl="ref"`` and with the Pallas kernels in interpret mode, for the flat
 and the chunked layouts: bit-identical (integers only, no tolerance). The
-CUDA kernels are held against the plain versions in the ``gpu`` tests
-(and in ``chip_smoke.py``).
+CUDA kernels' edge search (a 33-way lower-bound search whose first two
+rounds read staged splitters) is modelled here and held to the plain
+version's binary search, on packed tables sorted as it needs. The CUDA
+kernels are held against the plain versions in the ``gpu`` tests (and in
+``chip_smoke.py``); those need only the port, so on a machine without JAX
+they run alone: ``pytest --noconftest -m gpu`` on this file.
 """
 
-import jax.numpy as jnp
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from repro.core.drafter import DrafterConfig as JDrafterConfig
-from repro.core.drafter import SuffixDrafter as JSuffixDrafter
 from repro.core.suffix_tree import SuffixTree as JSuffixTree
-from repro.kernels.suffix_match import ops as jops
-from repro.kernels.suffix_match.kernel import (
-    suffix_match_propose_kernel_chunked,
-)
 from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
 from repro_torch.core.suffix_tree import SuffixTree
 from repro_torch.kernels.suffix_match import ops as tops
 from repro_torch.kernels.suffix_match.ref import (
+    _find_child,
     suffix_match_propose_chunked_ref,
     suffix_match_propose_ref,
 )
+
+try:  # absent where only the port is installed: the gpu tests run there
+    import jax.numpy as jnp
+
+    from repro.core.drafter import DrafterConfig as JDrafterConfig
+    from repro.core.drafter import SuffixDrafter as JSuffixDrafter
+    from repro.kernels.suffix_match import ops as jops
+    from repro.kernels.suffix_match.kernel import (
+        suffix_match_propose_kernel_chunked,
+    )
+except ModuleNotFoundError:
+    jnp = None
 
 TAIL = 16
 KMAX = 8
@@ -267,6 +279,202 @@ def test_batched_sessions_equal_jax(layout):
     assert isinstance(tb.forest_arrays(), want_type)
 
 
+# ---- the CUDA kernels' edge search, modelled on the CPU ----------------
+# csrc/suffix_match.cu finds a child with a 33-way lower-bound search: each
+# round probes 32 evenly spaced entries of the live range as 64-bit
+# (node, token) keys and keeps the sub-range the count of "key < query"
+# picks; once at most 31 entries are left it probes them all. Rounds 1 and
+# 2 read splitters staged once per table. The model below mirrors
+# probe/narrow/stage_splitters/find_child statement for statement; it must
+# return the child the plain version's binary search returns, which rests
+# on the packed tables being non-decreasing in (node, token).
+
+_INT_MAX = int(np.iinfo(np.int32).max)
+_NSPLIT = 32 + 33 * 32
+
+
+def _edge_key(node, tok):
+    """The kernel's edge_key: (node, tok) as one signed 64-bit key."""
+    v = ((int(node) & 0xFFFFFFFF) << 32) | ((int(tok) & 0xFFFFFFFF)
+                                            ^ 0x80000000)
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _probe(lo, hi, lane):
+    s = hi - lo
+    return lo + lane if s <= 31 else lo + (lane + 1) * s // 33
+
+
+def _narrow(lo, hi, c):
+    s = hi - lo
+    return (lo + c * s // 33 + 1 if c > 0 else lo,
+            lo + (c + 1) * s // 33 if c < 32 else hi)
+
+
+def _table_entry(en, et, ec, p, lo, hi, with_child):
+    if p <= hi and p < len(en):
+        return (_edge_key(en[p], et[p]),
+                int(ec[p]) if with_child else -1)
+    return _edge_key(_INT_MAX, _INT_MAX), -1
+
+
+def _splitters(en, et, ec):
+    """The staged table, built as stage_splitters builds it: entry j of
+    round 1, then entry 32 + 32 c + j of round 2 after c less-than probes
+    in round 1; children only for entries of a last round."""
+    table = []
+    for e in range(_NSPLIT):
+        lo, hi, lane = 0, len(en), e
+        if e >= 32:
+            lo, hi = _narrow(lo, hi, (e - 32) >> 5)
+            lane = (e - 32) & 31
+        table.append(_table_entry(en, et, ec, _probe(lo, hi, lane), lo, hi,
+                                  hi - lo <= 31))
+    return table
+
+
+def _find_child_33(en, et, ec, table, node, tok):
+    """find_child: (child or -1, rounds taken)."""
+    q = _edge_key(node, tok)
+    lo, hi = 0, len(en)
+    for r in range(64):
+        last = hi - lo <= 31
+        if r < 2:  # staged: round 1's 32 entries, round 2's for outcome c
+            base = 0 if r == 0 else 32 + 32 * c
+            probes = table[base:base + 32]
+        else:
+            probes = [_table_entry(en, et, ec, _probe(lo, hi, lane), lo, hi,
+                                   last) for lane in range(32)]
+        c = sum(key < q for key, _ in probes)
+        if last:  # the lower bound is lo + c, probed by lane c
+            key, child = probes[c]
+            return (child if key == q else -1), r + 1
+        lo, hi = _narrow(lo, hi, c)
+    raise AssertionError("the search did not end")
+
+
+def _search_trees():
+    """The TREES plus a larger seeded tree (thousands of edges)."""
+    trees = [_mk(SuffixTree, **TREES[n]) for n in sorted(TREES)]
+    trees.append(_mk(SuffixTree, _seeded_docs(13, 20, 50, 300), decay=0.9,
+                     epochs=list(range(20))))
+    return trees
+
+
+# (layout, which trees, packing options): default sizes (three rounds),
+# tables padded to 2^15 and 2^17 edges (sentinel pads; three and four
+# rounds), small per-tree strides (round 2 is the last), a table of 16
+# edges (round 1 is the last), a one-tree forest
+SEARCH_CASES = {
+    "flat": ("flat", "all", {}),
+    "flat_32k": ("flat", "all", dict(min_edges=1 << 15)),
+    "flat_128k": ("flat", "all", dict(min_edges=1 << 17)),
+    "chunked": ("chunked", "all", {}),
+    "chunked_small": ("chunked", "small", dict(min_stride_edges=16)),
+    "chunked_tiny": ("chunked", "tiny", dict(min_stride_edges=16)),
+    "one_tree": ("flat", "basic", {}),
+}
+
+
+def _search_tables(case):
+    """Each edge table of the case's forest (one per tree row when
+    chunked) as (edge_node, edge_tok, edge_child, node count)."""
+    layout, which, kw = SEARCH_CASES[case]
+    trees = _search_trees()
+    if which == "small":
+        trees = trees[:len(TREES)]
+    elif which == "basic":
+        trees = [trees[sorted(TREES).index("basic")]]
+    elif which == "tiny":
+        trees = [_mk(SuffixTree, [[1, 2, 1]])]
+    packs = [t.pack() for t in trees]
+    if layout == "flat":
+        f, _ = tops.pack_forest(packs, device="cpu", **kw)
+        rows = [(f.edge_node, f.edge_tok, f.edge_child, f.suffix_link)]
+    else:
+        f, _ = tops.pack_forest_chunked(packs, device="cpu", **kw)
+        rows = list(zip(f.edge_node, f.edge_tok, f.edge_child,
+                        f.suffix_link))
+    return [(en.numpy(), et.numpy(), ec.numpy(), len(sl))
+            for en, et, ec, sl in rows]
+
+
+def _search_queries(en, et, n_nodes, rng):
+    """Present keys, absent keys (a token past or before a present one,
+    tok = -1), the first and last node ids and one past them, random
+    nodes with random tokens."""
+    real = np.flatnonzero(en != _INT_MAX)
+    pick = rng.choice(real, size=min(len(real), 300), replace=False) \
+        if len(real) else real
+    q = [(en[j], et[j]) for j in pick]
+    q += [(en[j], et[j] + 1) for j in pick[:100]]
+    q += [(en[j], et[j] - 1) for j in pick[:100]]
+    q += [(en[j], -1) for j in pick[:50]]
+    top = int(en[real].max()) if len(real) else 0
+    for node in (0, 1, top, top + 1, n_nodes - 1, n_nodes):
+        q += [(node, -1), (node, 0)] + [(node, int(t)) for t in
+                                       rng.integers(0, 60, size=8)]
+    q += [(int(n), int(t)) for n, t in zip(rng.integers(0, n_nodes, 100),
+                                           rng.integers(-1, 60, 100))]
+    return q
+
+
+@pytest.mark.parametrize("case", sorted(SEARCH_CASES))
+def test_kernel_search_model_equals_plain_find_child(case):
+    """The 33-way search with staged splitters returns the plain binary
+    search's child for every query, within ceil(log33 E) + 1 rounds."""
+    rng = np.random.default_rng(17)
+    tables = _search_tables(case)
+    found = 0
+    for en, et, ec, n_nodes in tables:
+        E = len(en)
+        most = next(k for k in range(1, 64) if 33 ** k >= E) + 1
+        table = _splitters(en, et, ec)
+        queries = _search_queries(en, et, n_nodes, rng)
+        node = torch.tensor([n for n, _ in queries], dtype=torch.int32)
+        tok = torch.tensor([t for _, t in queries], dtype=torch.int32)
+        want = _find_child(torch.from_numpy(en)[None],
+                           torch.from_numpy(et)[None],
+                           torch.from_numpy(ec)[None],
+                           torch.zeros(len(queries), dtype=torch.long),
+                           node, tok).tolist()
+        for (n, t), w in zip(queries, want):
+            got, rounds = _find_child_33(en, et, ec, table, n, t)
+            assert got == w, (case, E, n, t)
+            assert rounds <= most, (case, E, rounds)
+            found += got >= 0
+    assert found > 0  # the queries include present keys
+    if case == "flat_128k":
+        assert math.ceil(math.log(len(tables[0][0]), 33)) + 1 == 5
+
+
+@pytest.mark.parametrize("layout", ["flat", "chunked"])
+@pytest.mark.parametrize("pad", [{}, "large"])
+def test_packed_edge_tables_are_sorted(layout, pad):
+    """pack_forest / pack_forest_chunked give edge tables non-decreasing in
+    (node, token), sentinel pads included (row by row when chunked): the
+    precondition for the kernels' search and the binary search to find
+    the same lower bound."""
+    packs = [t.pack() for t in _search_trees()]
+    if layout == "flat":
+        kw = dict(min_edges=1 << 15) if pad else {}
+        f, _ = tops.pack_forest(packs, device="cpu", **kw)
+        rows = [(f.edge_node.numpy(), f.edge_tok.numpy())]
+    else:
+        kw = dict(min_stride_edges=1 << 14, min_trees=8) if pad else {}
+        f, _ = tops.pack_forest_chunked(packs, device="cpu", **kw)
+        rows = list(zip(f.edge_node.numpy(), f.edge_tok.numpy()))
+    for en, et in rows:
+        key = en.astype(np.int64) * (1 << 32) + (et.astype(np.int64)
+                                                 + (1 << 31))
+        assert (np.diff(key) >= 0).all()
+        assert (en[-1], et[-1]) == (_INT_MAX, _INT_MAX)  # a sentinel pad
+        # the 64-bit key of the kernel orders as (node, token) does
+        sample = np.linspace(0, len(en) - 1, 64).astype(int)
+        k64 = [_edge_key(en[j], et[j]) for j in sample]
+        assert k64 == sorted(k64)
+
+
 def test_batched_sessions_default_to_the_card(monkeypatch):
     """Without a device the drafter's forest asks for CUDA, and raises
     without a card: nothing quietly runs the plain version."""
@@ -319,3 +527,42 @@ def test_cuda_chunked_kernel_bit_identical_to_plain_and_flat():
     torch.cuda.synchronize()
     for g, w, f in zip(got, want, flat):
         assert torch.equal(g, w) and torch.equal(g, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["flat", "chunked"])
+def test_cuda_kernels_at_odd_shapes(layout):
+    """Rows that fill no whole CTA of the flat kernel (B = 13), a CTA with
+    no active row, a tail of 37 tokens, proposals past 32 (a lane-wide run
+    and then some): bit-identical to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    packs = [t.pack() for t in _search_trees()]
+    docs = _seeded_docs(13, 20, 50, 300)  # the last tree's documents
+    B, m, K = 13, 37, 40
+    rng = np.random.default_rng(21)
+    tails = np.full((B, m), -1, np.int32)
+    for b in range(B):
+        doc = docs[b % len(docs)]
+        cut = int(rng.integers(1, len(doc) + 1))
+        tail = doc[max(0, cut - m):cut]
+        tails[b, m - len(tail):] = tail
+    budgets = np.full(B, K, np.int32)
+    budgets[5] = 33
+    if layout == "flat":
+        forest, roots = tops.pack_forest(packs, device="cuda")
+        run, ref = tops.suffix_match_propose_cuda, suffix_match_propose_ref
+    else:
+        forest, roots = tops.pack_forest_chunked(packs, device="cuda")
+        run = tops.suffix_match_propose_chunked_cuda
+        ref = suffix_match_propose_chunked_ref
+    rts = np.full(B, roots[-1], np.int32)
+    rts[:4] = -1  # the flat kernel's first CTA has no active row
+    args = [torch.from_numpy(a).cuda() for a in (tails, rts, budgets)]
+    for min_match in (1, 4):
+        got = run(forest, *args, n_prop_max=K, min_match=min_match)
+        want = ref(*args, *forest, n_prop_max=K, min_match=min_match)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert int(got[1].max()) > 32
