@@ -20,9 +20,12 @@ non-zero; no phase's error is caught):
    and 256; suffix-match flat and chunked (a warp a row, 33-way edge
    search from staged splitters) bit-identical, the chunked kernel also
    against the flat one over the same trees, at a forest larger than
-   L2; 3d: the RG-LRU scan within 1e-5 at RecurrentGemma-9B's prefill
-   and verify shapes, with pads and frozen rows masked, and at a ragged
-   width), with kernel / plain /
+   L2, and both at edge tables of 2^26 entries (their 64-bit search); 3d: the RG-LRU scan bit-identical (and within 1e-5) at
+   RecurrentGemma-9B's verify shape (B 8, T 17, frozen rows masked), its
+   prefill shape (B 8, T 256, left pads), the longest prompt (B 1, T
+   2047), a ragged width and a width not a multiple of 4, after the
+   timer's floor (an empty kernel); phase 7's most frequent admission
+   shape follows phase 7), with kernel / plain /
    library times (CUDA events, L2 flushed before every launch, and a
    device-side wait before each start event so that the wrappers' host
    work stays out of the window) and each kernel's bound (for
@@ -68,7 +71,13 @@ phase 4, phase 5's flat run and phase 7's lock-step run; chunked
 drafting: phase 5's and phase 7's chunked runs; spec-verify at hd 128:
 phases 4 and 5; at hd 256 and the RG-LRU scan: phase 7); the drafting
 kernels' times and bounds there are at the path's own shapes (phases
-3b and 3c are logged).
+3b and 3c are logged). The scan has an entry per shape class, split by
+the wrapper's launches by (B, T): ``rglru_scan`` at the verify shape
+with the verify rounds' launches (T = 17), ``rglru_scan_prefill`` at the
+prefill shape with every prefill's; the two sum to the gated total. Its
+bound counts x, r and i only at the steps the mask updates (the kernel
+loads nothing at a masked step); the log gives the bound reading every
+step beside it.
 """
 
 from __future__ import annotations
@@ -640,10 +649,11 @@ def suffix_match_bound_ms(np, got, tails, roots, budgets, forest, *, chunked,
     return nbytes / HBM_BYTES_PER_S * 1e3, entries
 
 
-def flat_case(torch, np, dev):
+def flat_case(torch, np, dev, layout="flat", **pack_kw):
     """Phase 3b's forest and query: four problems of 8 seeded rollouts,
-    packed flat; 8 rows of 64-token tails cut from the rollouts, one
-    inactive row, budgets from 0 to 16."""
+    packed flat (or chunked; ``pack_kw`` to the packer); 8 rows of
+    64-token tails cut from the rollouts, one inactive row, budgets from
+    0 to 16."""
     from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
     from repro_torch.kernels.suffix_match import ops as sm_ops
 
@@ -653,8 +663,10 @@ def flat_case(torch, np, dev):
         for doc in docs:
             d.observe_rollout(pid, doc, epoch=ep)
     keys = list(rollouts)
-    forest, roots = sm_ops.pack_forest([d.pack_for(k) for k in keys],
-                                       device=dev)
+    pack = sm_ops.pack_forest if layout == "flat" else \
+        sm_ops.pack_forest_chunked
+    forest, roots = pack([d.pack_for(k) for k in keys], device=dev,
+                         **pack_kw)
     B, m = 8, 64
     rng = np.random.default_rng(6)
     tails = np.full((B, m), -1, np.int32)
@@ -669,6 +681,46 @@ def flat_case(torch, np, dev):
     rts[5] = -1  # an inactive row
     budgets = np.array([16, 16, 8, 4, 16, 16, 0, 12], np.int32)
     return forest, [torch.from_numpy(a).to(dev) for a in (tails, rts, budgets)]
+
+
+# csrc/suffix_match.cu's WIDE_EDGES: edge tables from this size on take
+# the kernels' search with 64-bit index products
+WIDE_EDGES = 1 << 26
+
+
+def wide_tables(torch, np, timer, card, K):
+    """Phase 3b's trees in edge tables of WIDE_EDGES entries (sentinel
+    pads), flat and chunked: both kernels' 64-bit search, bit-identical
+    to the plain versions, timed once each."""
+    from repro_torch.kernels.suffix_match import ops as sm_ops
+    from repro_torch.kernels.suffix_match.ref import (
+        suffix_match_propose_chunked_ref,
+        suffix_match_propose_ref,
+    )
+
+    for layout, kw, run, ref in (
+            ("flat", dict(min_edges=WIDE_EDGES),
+             sm_ops.suffix_match_propose_cuda, suffix_match_propose_ref),
+            ("chunked", dict(min_stride_edges=WIDE_EDGES),
+             sm_ops.suffix_match_propose_chunked_cuda,
+             suffix_match_propose_chunked_ref)):
+        forest, args = flat_case(torch, np, "cuda", layout, **kw)
+        check(forest.edge_node.shape[-1] >= WIDE_EDGES,
+              f"the {layout} table holds {forest.edge_node.shape[-1]} edges")
+        got = run(forest, *args, n_prop_max=K, min_match=1)
+        want = ref(*args, *forest, n_prop_max=K, min_match=1)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("match_len", "n_prop", "props"), got, want):
+            check(torch.equal(g, w), f"suffix_match ({layout}, "
+                  f"{tuple(forest.edge_node.shape)} edges) {name} differs "
+                  "from plain")
+        ms = timer.ms(lambda: run(forest, *args, n_prop_max=K, min_match=1),
+                      10)
+        log(f"suffix_match {layout}, edge table {tuple(forest.edge_node.shape)}"
+            f" (64-bit search): bit-identical, {int(got[1].sum())} tokens "
+            f"proposed, kernel {ms * 1e3:.1f} us  [{card}]")
+        del forest, args, got, want
+        torch.cuda.empty_cache()
 
 
 def phase_suffix_match(torch, np, timer, card):
@@ -698,6 +750,7 @@ def phase_suffix_match(torch, np, timer, card):
     log(f"suffix_match timing: kernel {ms * 1e3:.1f} us, plain "
         f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.4f} us (bytes: "
         f"{entries} forest entries read + query + outputs)  [{card}]")
+    wide_tables(torch, np, timer, card, K)
     return dict(name="suffix_match_propose", route="cuda",
                 source="src/repro_torch/csrc/suffix_match.cu",
                 replaces="src/repro/kernels/suffix_match/kernel.py:331",
@@ -828,80 +881,148 @@ def rglru_inputs(torch, np, B, T, W, seed):
 # a and exp(2 log_a) (2 exp, 1 product), 1 - e, clip (2), sqrt, i·x,
 # mult·gx, a·h, + gx
 RGLRU_OPS_PER_STEP = 13
+# The verify block's T on the main path: its one K bucket (16) + the head.
+VERIFY_T = 17
 
 
-def rglru_bound_ms(x, mask):
-    """Least time for the same work, the larger of: x, r, i read and hs
-    written once, h0, Λ, h_final and the mask once, at the HBM rate; the
-    scan's float32 operations at the card's float32 rate. Returns (ms,
-    which bounds it)."""
-    B, T, W = x.shape
-    nbytes = 4 * (4 * B * T * W + 2 * B * W + W)
+def rglru_bytes(B, T, W, mask, skip_masked=True):
+    """Bytes the scan's result depends on, and the steps it updates: x, r
+    and i at the updated steps (at every step with ``skip_masked`` False,
+    the count before the kernel skipped masked steps), hs written once,
+    h0, Λ, h_final and the (B, T) mask once."""
+    kept = B * T if mask is None or not skip_masked else int(mask.sum())
+    nbytes = 4 * (3 * kept * W + B * T * W + 2 * B * W + W)
     if mask is not None:
         nbytes += mask.numel()
+    return nbytes, kept
+
+
+def rglru_bound_ms(x, mask, skip_masked=True):
+    """Least time for the same work, the larger of: ``rglru_bytes`` at the
+    HBM rate; the scan's float32 operations at the updated steps at the
+    card's float32 rate. Returns (ms, which bounds it)."""
+    B, T, W = x.shape
+    nbytes, kept = rglru_bytes(B, T, W, mask, skip_masked)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = RGLRU_OPS_PER_STEP * B * T * W / PEAK_FLOPS["float32"] * 1e3
+    t_ops = RGLRU_OPS_PER_STEP * kept * W / PEAK_FLOPS["float32"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_rglru(torch, np, timer, card):
+def rglru_launch_split(by_shape, verify_t=VERIFY_T):
+    """(verify launches, prefill launches) of a count by (B, T): T equal
+    to the verify block's is a verify round, any other a prefill (a
+    lock-step prompt batch or an admission)."""
+    verify = sum(n for (_, t), n in by_shape.items() if t == verify_t)
+    return verify, sum(by_shape.values()) - verify
+
+
+def rglru_mask(torch, np, kind, B, T, dev="cuda"):
+    """The (B, T) update mask of a phase 3d case (None for ``None``)."""
+    if kind == "left pads":  # prompts of 64..T tokens, right-aligned
+        lens = np.linspace(min(64, T), T, B).astype(int)
+    elif kind == "bucket pads":  # an admission: T is the 16-multiple bucket
+        lens = np.linspace(max(T - 15, 1), T, B).astype(int)
+    elif kind == "rows masked out":  # frozen rows of a verify block
+        m = np.ones((B, T), bool)
+        m[1::3] = False
+        return torch.tensor(m, device=dev)
+    elif kind == "all kept":
+        lens = np.full(B, T)
+    else:
+        return None
+    return torch.tensor(np.arange(T)[None] >= (T - lens)[:, None], device=dev)
+
+
+# (label, B, T, W, mask): RecurrentGemma-9B's verify block at the main
+# path's batch (the frozen-row mask), its prefill batch (left pads), the
+# longest prompt the port prefills (below _FLASH_THRESHOLD, one row), a
+# ragged width without a mask and a width that is not a multiple of 4
+# (the kernel's 4-byte copy path). The admission shape is added after
+# phase 7, from the launches by shape of its continuous run.
+RGLRU_CASES = [("verify", 8, VERIFY_T, 4096, "rows masked out"),
+               ("prefill", 8, 256, 4096, "left pads"),
+               ("longest prompt", 1, 2047, 4096, "all kept"),
+               ("ragged width", 3, 40, 4000, None),
+               ("odd width", 2, 33, 4001, "rows masked out")]
+
+
+def rglru_case(torch, np, timer, card, label, B, T, W, mk, seed):
+    """One phase 3d case: the kernel bit-identical to the plain version
+    (and within RGLRU_TOL), then kernel, plain and bound times."""
     from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
-    def masks(kind, B, T):
-        if kind == "left pads":  # prompts of 64..T tokens, right-aligned
-            lens = np.linspace(64, T, B).astype(int)
-            m = np.arange(T)[None] >= (T - lens)[:, None]
-        elif kind == "rows masked out":  # frozen rows of a verify block
-            m = np.ones((B, T), bool)
-            m[1::3] = False
-        else:
-            return None
-        return torch.tensor(m, device="cuda")
+    copies = [rglru_inputs(torch, np, B, T, W, seed + j) for j in range(4)]
+    mask = rglru_mask(torch, np, mk, B, T)
+    got = rg_ops.rglru_scan_cuda(*copies[0], mask)
+    want = rglru_scan_ref(*copies[0], mask)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("hs", "h_final"), got, want):
+        check(bool(torch.isfinite(g).all()), f"rglru {name}: non-finite")
+        err = max(err, float((g - w).abs().max()))
+        where = f"rglru {label} (B={B} T={T} W={W}, {mk}) {name}"
+        check(torch.allclose(g, w, **RGLRU_TOL),
+              f"{where}: max |err| {float((g - w).abs().max())}")
+        check(torch.equal(g, w), f"{where}: not bit-identical to the plain "
+              "version")
+    it = {"i": 0}
 
-    # (B, T, W, mask): the prefill and verify shapes of RecurrentGemma-9B
-    # at the main path's batch, and a ragged width without a mask
-    cases = [(8, 256, 4096, "left pads"), (8, 17, 4096, "rows masked out"),
-             (3, 40, 4000, None)]
-    res = {}
-    for ci, (B, T, W, mk) in enumerate(cases):
-        copies = [rglru_inputs(torch, np, B, T, W, 40 + 4 * ci + j)
-                  for j in range(4)]
-        mask = masks(mk, B, T)
-        got = rg_ops.rglru_scan_cuda(*copies[0], mask)
-        want = rglru_scan_ref(*copies[0], mask)
-        torch.cuda.synchronize()
-        err = 0.0
-        for name, g, w in zip(("hs", "h_final"), got, want):
-            check(bool(torch.isfinite(g).all()), f"rglru {name}: non-finite")
-            err = max(err, float((g - w).abs().max()))
-            check(torch.allclose(g, w, **RGLRU_TOL),
-                  f"rglru (B={B} T={T} W={W}, {mk}) {name}: max |err| "
-                  f"{float((g - w).abs().max())}")
-        it = {"i": 0}
+    def nxt():
+        it["i"] += 1
+        return copies[it["i"] % len(copies)]
 
-        def nxt():
-            it["i"] += 1
-            return copies[it["i"] % len(copies)]
+    ms = timer.ms(lambda: rg_ops.rglru_scan_cuda(*nxt(), mask), 50)
+    plain_ms = timer.ms(lambda: rglru_scan_ref(*nxt(), mask), 5, warmup=1)
+    bound_ms, bound_by = rglru_bound_ms(copies[0][0], mask)
+    every_ms, _ = rglru_bound_ms(copies[0][0], mask, skip_masked=False)
+    log(f"rglru_scan {label} (B={B} T={T} W={W}, mask: {mk}): bit-identical "
+        f"to the plain version (max |err| {err:.3e}); kernel "
+        f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+        f"{bound_ms * 1e3:.2f} us ({bound_by}; {every_ms * 1e3:.2f} us "
+        f"reading every step)  [{card}]")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
-        ms = timer.ms(lambda: rg_ops.rglru_scan_cuda(*nxt(), mask), 50)
-        plain_ms = timer.ms(lambda: rglru_scan_ref(*nxt(), mask), 5,
-                            warmup=1)
-        bound_ms, bound_by = rglru_bound_ms(copies[0][0], mask)
-        log(f"rglru_scan (B={B} T={T} W={W}, mask: {mk}): max |err| "
-            f"{err:.3e} (tolerance 1e-5 abs/rel); kernel {ms * 1e3:.1f} us, "
-            f"plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
-            f"({bound_by})  [{card}]")
-        res[ci] = (err, ms, plain_ms, bound_ms, bound_by)
-    _, ms, plain_ms, bound_ms, bound_by = res[0]  # the prefill shape
+
+def timer_floor(torch, np, timer, card):
+    """The timer's floor: an empty kernel (``torch.cuda._sleep(0)``) and
+    the scan at (B 1, T 1, W 1), timed as every kernel is."""
+    from repro_torch.kernels.rglru import ops as rg_ops
+
+    empty = timer.ms(lambda: torch.cuda._sleep(0), 50)
+    tiny = rglru_inputs(torch, np, 1, 1, 1, 0)
+    one = timer.ms(lambda: rg_ops.rglru_scan_cuda(*tiny), 50)
+    log(f"timer floor: empty kernel {empty * 1e3:.2f} us, rglru_scan at "
+        f"(1, 1, 1) {one * 1e3:.2f} us  [{card}]")
+    return empty, one
+
+
+def phase_rglru(torch, np, timer, card):
+    """Phase 3d. Returns the kernels JSON line's two entries of the scan:
+    ``rglru_scan`` at the verify shape and ``rglru_scan_prefill`` at the
+    prefill shape (their launches are set after phase 7)."""
+    timer_floor(torch, np, timer, card)
+    res = {label: rglru_case(torch, np, timer, card, label, B, T, W, mk,
+                             40 + 4 * ci)
+           for ci, (label, B, T, W, mk) in enumerate(RGLRU_CASES)}
     # library_ms is null: no single PyTorch call computes a gated linear
     # recurrence (torch has no associative scan over a custom operator)
-    return dict(name="rglru_scan", route="cuda",
-                source="src/repro_torch/csrc/rglru.cu",
-                replaces="src/repro/kernels/rglru/kernel.py:64",
-                max_abs_err=max(r[0] for r in res.values()), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+    common = dict(route="cuda", source="src/repro_torch/csrc/rglru.cu",
+                  replaces="src/repro/kernels/rglru/kernel.py:64",
+                  library_ms=None)
+    out = []
+    for name, label, errs in (
+            ("rglru_scan", "verify", ("verify",)),
+            ("rglru_scan_prefill", "prefill",
+             [c[0] for c in RGLRU_CASES if c[0] != "verify"])):
+        r = res[label]
+        out.append(dict(name=name, max_abs_err=max(res[e]["err"]
+                                                   for e in errs),
+                        ms=r["ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        **common))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -917,6 +1038,7 @@ def reset_launches():
     sm_ops.LAUNCHES = 0
     sm_ops.LAUNCHES_CHUNKED = 0
     rg_ops.LAUNCHES = 0
+    rg_ops.LAUNCHES_BY_SHAPE.clear()
 
 
 def read_launches():
@@ -927,7 +1049,8 @@ def read_launches():
     return {"spec_verify_attention": sv_ops.LAUNCHES,
             "suffix_match_propose": sm_ops.LAUNCHES,
             "suffix_match_propose_chunked": sm_ops.LAUNCHES_CHUNKED,
-            "rglru_scan": rg_ops.LAUNCHES}
+            "rglru_scan": rg_ops.LAUNCHES,
+            "rglru_scan_by_shape": Counter(rg_ops.LAUNCHES_BY_SHAPE)}
 
 
 def check_rglru_launches(cfg, launches, n_fwd, where):
@@ -937,6 +1060,9 @@ def check_rglru_launches(cfg, launches, n_fwd, where):
     check(launches["rglru_scan"] == n_rec * n_fwd,
           f"{where}: {launches['rglru_scan']} RG-LRU launches, expected "
           f"{n_rec} layers x {n_fwd} forwards")
+    check(sum(launches["rglru_scan_by_shape"].values())
+          == launches["rglru_scan"],
+          f"{where}: the RG-LRU launches by shape do not sum to the total")
 
 
 def check_sv_launches(cfg, launches, n_rounds, where):
@@ -1609,14 +1735,22 @@ def main() -> None:
         *phase_spec_verify(torch, np, timer, card),
         phase_suffix_match(torch, np, timer, card),
         phase_suffix_match_chunked(torch, np, timer, card),
-        phase_rglru(torch, np, timer, card))}
-    # every path's launches of each kernel, each path counted from 0
+        *phase_rglru(torch, np, timer, card))}
+    # every path's launches of each kernel, each path counted from 0 (the
+    # scan's also by (B, T))
     launches = Counter()
+    rglru_shapes = Counter()
+
+    def add(run, skip=()):
+        launches.update({k: v for k, v in run.items()
+                         if k not in skip and k != "rglru_scan_by_shape"})
+        rglru_shapes.update(run["rglru_scan_by_shape"])
+
     cfg, params = full_width_model(torch, "qwen3-8b")
     lock, flat_spy = phase_main_path(torch, np, card, cfg, params)
     cont, chunked_spy = phase_continuous(torch, np, card, cfg, params)
     for run in (lock, cont["chunked"], cont["flat"]):
-        launches.update(run)
+        add(run)
     # the drafting kernels at the path's own shapes (phases 4 and 5)
     for spy, name in ((flat_spy, "suffix_match_propose"),
                       (chunked_spy, "suffix_match_propose_chunked")):
@@ -1632,20 +1766,39 @@ def main() -> None:
     cont, _ = phase_continuous(torch, np, card, cfg, params,
                                layouts=("chunked",))
     for run in (hybrid, cont["chunked"]):
-        launches.update({k: v for k, v in run.items()
-                         if k != "spec_verify_attention"})
+        add(run, skip=("spec_verify_attention",))
     launches["spec_verify_attention_hd256"] = (
         hybrid["spec_verify_attention"]
         + cont["chunked"]["spec_verify_attention"])
     del params
     torch.cuda.empty_cache()
+    # the scan's launches by shape class (phase 7), and the admission
+    # prefill shape its continuous run launched most, timed as phase 3d
+    verify_n, prefill_n = rglru_launch_split(rglru_shapes)
+    check(verify_n + prefill_n == launches["rglru_scan"],
+          f"RG-LRU launches by shape ({verify_n} verify + {prefill_n} "
+          f"prefill) differ from the total {launches['rglru_scan']}")
+    admissions = Counter({bt: n for bt, n in
+                          cont["chunked"]["rglru_scan_by_shape"].items()
+                          if bt[1] != VERIFY_T})
+    check(bool(admissions), "phase 7's continuous run prefilled nothing")
+    (aB, aT), an = admissions.most_common(1)[0]
+    log(f"RG-LRU launches by (B, T) in phase 7: {dict(rglru_shapes)}; "
+        f"admission shape (B={aB}, T={aT}): {an} of the continuous run's "
+        f"{sum(admissions.values())} prefill launches  [{card}]")
+    timer = Timer(torch)
+    rglru_case(torch, np, timer, card, "admission", aB, aT, cfg.rnn_width,
+               "bucket pads", 80)
+    del timer
+    kernels["rglru_scan"]["launches"] = verify_n
+    kernels["rglru_scan_prefill"]["launches"] = prefill_n
     for arch in ("qwen3-8b", "recurrentgemma-9b"):
         phase_small_reference(torch, np, arch)
     phase_cli(card)
     log(f"launches on every path: {dict(launches)}  [{card}]")
     kernels = list(kernels.values())
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k.setdefault("launches", launches[k["name"]])
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s  [{card}]")

@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Two builds of the suffix-match drafting kernels, timed in one call.
+"""Builds of the suffix-match drafting kernels, timed in one call.
 
-    python3 scripts/suffix_match_ab.py OLD.cu [--cases idle,3b,3c,path]
-        [--out FILE]
+    python3 scripts/suffix_match_ab.py OLD.cu [OTHER.cu ...]
+        [--cases idle,3b,3c,path] [--out FILE]
 
-Needs one CUDA card. ``OLD.cu`` is another version of
-``src/repro_torch/csrc/suffix_match.cu`` (for example the parent commit's:
-``git show HEAD~1:src/repro_torch/csrc/suffix_match.cu > build/old.cu``);
-its C entries may take the binary search's depth (``n_steps``) after the
-forest sizes, as the kernels before the 33-way search did. The script
-builds it beside the checkout's own source (``nvcc`` with
-``_build.NVCC_FLAGS``, ptxas report printed) and, for each case, holds
-both builds to the plain version bit for bit and times them in turns
-(old, new, new, old, 50 launches each; ``chip_smoke.Timer``: L2 flushed
-and a device-side lead before each launch):
+Needs one CUDA card. ``OLD.cu`` (and any ``OTHER.cu``) is another
+version of ``src/repro_torch/csrc/suffix_match.cu`` (for example the
+parent commit's: ``git show HEAD~1:src/repro_torch/csrc/suffix_match.cu
+> build/old.cu``); its C entries may take the binary search's depth
+(``n_steps``) after the forest sizes, as the kernels before the 33-way
+search did. The script builds each beside the checkout's own source
+(``nvcc`` with ``_build.NVCC_FLAGS``, ptxas report printed) and, for
+each case, holds every build to the plain version bit for bit and times
+them in turns (old, ..., new, new, ..., old: each build twice, 50
+launches a turn; ``chip_smoke.Timer``: L2 flushed and a device-side
+lead before each launch):
 
 * ``idle``: phase 3b's forest with every row inactive (the fixed cost:
   launch, staging, outputs);
@@ -73,10 +74,11 @@ class OldBuild:
     wrappers' C signatures (translated where it is an older build, which
     takes ``n_steps``)."""
 
-    def __init__(self, src: Path):
+    def __init__(self, src: Path, tag: str = "old"):
         text = src.read_bytes()
         h = hashlib.sha256(text + " ".join(_build.NVCC_FLAGS).encode())
-        out = _build.BUILD_DIR / f"suffix_match_old-{h.hexdigest()[:16]}.so"
+        out = _build.BUILD_DIR / (f"suffix_match_{tag}-"
+                                  f"{h.hexdigest()[:16]}.so")
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         proc = subprocess.run(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
@@ -132,7 +134,7 @@ def path_cases(card):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("old", type=Path)
+    ap.add_argument("others", type=Path, nargs="+")
     ap.add_argument("--cases", default="idle,3b,3c,path")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "chiprun_out" / "suffix_match_ab.json")
@@ -142,13 +144,15 @@ def main() -> None:
     card = cs.card_line()
     cs.log(f"card: {card} | torch {torch.__version__} cuda "
            f"{torch.version.cuda}")
-    old = OldBuild(a.old)
-    new = _build.load("suffix_match", sm_ops._SIGNATURES)
-    for tag, log in (("old", old.log),
-                     ("new", _build.BUILD_LOG.get("suffix_match", ""))):
-        for ln in ptxas(log):
+    builds = {}
+    for j, src in enumerate(a.others):
+        tag = "old" if j == 0 else src.stem
+        builds[tag] = OldBuild(src, tag)
+        for ln in ptxas(builds[tag].log):
             cs.log(f"  [{tag}] {ln}")
-    builds = {"old": old, "new": new}
+    new = builds["new"] = _build.load("suffix_match", sm_ops._SIGNATURES)
+    for ln in ptxas(_build.BUILD_LOG.get("suffix_match", "")):
+        cs.log(f"  [new] {ln}")
     kw = dict(n_prop_max=16, min_match=1)
     cases = {}
     wanted = set(a.cases.split(","))
@@ -182,12 +186,12 @@ def main() -> None:
                 cs.check(torch.equal(g, w), f"{name}: the {tag} build's "
                          f"{field} differs from the plain version")
         turns = []
-        for tag in ("old", "new", "new", "old"):
+        tags = list(builds)
+        for tag in tags + tags[::-1]:
             _build._LIBS["suffix_match"] = builds[tag]
             turns.append((tag, timer.ms(lambda: run(forest, *q, **k),
                                         REPS)))
-        ms = {t: sum(v for u, v in turns if u == t) / 2
-              for t in ("old", "new")}
+        ms = {t: sum(v for u, v in turns if u == t) / 2 for t in tags}
         bound_ms, entries = cs.suffix_match_bound_ms(
             np, want, *q, forest, chunked=chunked, **k)
         B = q[0].shape[0]
@@ -195,15 +199,15 @@ def main() -> None:
             where=where, B=B, edges=list(forest.edge_node.shape),
             rows_active=int((q[1] >= 0).sum()),
             tokens_proposed=int(want[1].sum()), old_ms=ms["old"],
-            new_ms=ms["new"], turns=turns, bound_ms=bound_ms)
+            new_ms=ms["new"], ms=ms, turns=turns, bound_ms=bound_ms)
         cs.log(f"{name} ({where}; B={B}, edges "
                f"{tuple(forest.edge_node.shape)}, "
                f"{int((q[1] >= 0).sum())} rows active, "
-               f"{int(want[1].sum())} tokens proposed): both builds "
-               f"bit-identical to the plain version; old "
-               f"{ms['old'] * 1e3:.1f} us, new {ms['new'] * 1e3:.1f} us "
-               f"({ms['old'] / ms['new']:.2f}x; turns "
-               + ", ".join(f"{t} {v * 1e3:.1f}" for t, v in turns)
+               f"{int(want[1].sum())} tokens proposed): every build "
+               "bit-identical to the plain version; "
+               + ", ".join(f"{t} {v * 1e3:.2f} us" for t, v in ms.items())
+               + f" (old / new {ms['old'] / ms['new']:.2f}x; turns "
+               + ", ".join(f"{t} {v * 1e3:.2f}" for t, v in turns)
                + f"), bound {bound_ms * 1e3:.4f} us ({entries} forest "
                f"entries)  [{card}]")
     _build._LIBS["suffix_match"] = new

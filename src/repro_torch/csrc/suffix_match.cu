@@ -40,7 +40,11 @@
 //   the sub-range; once at most 31 entries are left the lanes probe all of
 //   them (and the child column) and the answer's lane holds the result:
 //   ceil(log33 E) + 1 rounds at most, 3 at E = 2^15 where the binary
-//   search took 16. Edge tables are non-decreasing in (node, token) with
+//   search took 16. Below 2^26 entries the probes' index products fit 32
+//   bits; a larger table (any int32 size, as the plain version takes) is
+//   searched by an instance of the kernels with 64-bit products, chosen
+//   at launch, so the common case keeps its short search chain.
+//   Edge tables are non-decreasing in (node, token) with
 //   sentinels sorting last, so the lower bound is unique: it is the index
 //   the reference's binary search returns, and the child is the same.
 // * The first two rounds probe the same entries in every search over one
@@ -77,7 +81,9 @@ constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NSPLIT = 32 + 33 * 32;  // keys probed by rounds 1 and 2
-constexpr int MAX_EDGES = 1 << 26;  // keeps the search's products in 32 bits
+// Edge tables from this size on take the search with 64-bit products
+// (WIDE); below it (lane + 1) * s stays under 2^31.
+constexpr int WIDE_EDGES = 1 << 26;
 
 struct Forest {
   const int* en;      // (E,) edge table: node
@@ -108,19 +114,41 @@ __device__ __forceinline__ long long edge_key(int node, int tok) {
                      ((unsigned)tok ^ 0x80000000u));
 }
 
+// A probed index: int below WIDE_EDGES, 64 bits in the WIDE search
+// (lo + 31 may pass INT_MAX in its last round; such a probe is past hi).
+template <bool WIDE> struct Index { typedef int type; };
+template <> struct Index<true> { typedef long long type; };
+
 // The entry probed by `lane` in a round over the live range [lo, hi) (the
 // lower bound lies in [lo, hi]): 32 evenly spaced entries, or, once the
 // range holds at most 31 entries (the last round), every entry of
-// [lo, hi]. A probe past hi or past the table reads nothing. Products stay
-// below 2^31 since E < MAX_EDGES = 2^26.
-__device__ __forceinline__ int probe(int lo, int hi, int lane) {
+// [lo, hi]. A probe past hi or past the table reads nothing. Below
+// WIDE_EDGES the products stay below 2^31; WIDE takes them (up to
+// 32 * (2^31 - 1)) in 64 bits.
+template <bool WIDE>
+__device__ __forceinline__ typename Index<WIDE>::type probe(int lo, int hi,
+                                                            int lane) {
+  if (WIDE) {
+    const unsigned long long s = (unsigned)(hi - lo);
+    return s <= 31 ? (long long)lo + lane
+                   : lo + (long long)((lane + 1) * s / 33u);
+  }
   const unsigned s = hi - lo;
   return s <= 31 ? lo + lane : lo + (int)((lane + 1) * s / 33u);
 }
 
 // The live range after a round (not the last) in which c probes were less
 // than the query: between the c-th probe and the next.
+template <bool WIDE>
 __device__ __forceinline__ void narrow(int& lo, int& hi, int c) {
+  if (WIDE) {
+    const unsigned long long s = (unsigned)(hi - lo);
+    const int nlo = c > 0 ? lo + (int)(c * s / 33u) + 1 : lo;
+    const int nhi = c < 32 ? lo + (int)((c + 1) * s / 33u) : hi;
+    lo = nlo;
+    hi = nhi;
+    return;
+  }
   const unsigned s = hi - lo;
   const int nlo = c > 0 ? lo + (int)(c * s / 33u) + 1 : lo;
   const int nhi = c < 32 ? lo + (int)((c + 1) * s / 33u) : hi;
@@ -135,7 +163,7 @@ __device__ __forceinline__ void narrow(int& lo, int& hi, int c) {
 // misses to scattered lines. Children are read only for entries of a last
 // round (a table of at most 1,055 edges); a probe past the table reads
 // nothing and keys past every edge.
-template <int NT>
+template <int NT, bool WIDE>
 __device__ void stage_splitters(const Forest& f, Splitters& sp, int tid) {
   constexpr int PER = (NSPLIT + NT - 1) / NT;
   constexpr int BATCH = PER < 17 ? PER : 17;
@@ -146,14 +174,14 @@ __device__ void stage_splitters(const Forest& f, Splitters& sp, int tid) {
       const int e = tid + (k0 + k) * NT;
       int lo = 0, hi = f.E, lane = e;
       if (e >= 32) {
-        narrow(lo, hi, (e - 32) >> 5);
+        narrow<WIDE>(lo, hi, (e - 32) >> 5);
         lane = (e - 32) & 31;
       }
-      const int p = probe(lo, hi, lane);
+      const auto p = probe<WIDE>(lo, hi, lane);
       const bool valid = e < NSPLIT && p <= hi && p < f.E;
-      en[k] = valid ? ld(f.en, p) : INT_MAX;
-      et[k] = valid ? ld(f.et, p) : INT_MAX;
-      ch[k] = valid && hi - lo <= 31 ? ld(f.ec, p) : -1;
+      en[k] = valid ? ld(f.en, (int)p) : INT_MAX;
+      et[k] = valid ? ld(f.et, (int)p) : INT_MAX;
+      ch[k] = valid && hi - lo <= 31 ? ld(f.ec, (int)p) : -1;
     }
 #pragma unroll
     for (int k = 0; k < BATCH; ++k) {
@@ -182,6 +210,7 @@ __device__ __forceinline__ Table table(const Splitters& sp, int lane) {
 // the 33-way lower-bound search, rounds 1 and 2 from the staged splitters,
 // the rest from global memory. In the last round the answer's lane holds
 // the result. Warp-uniform result.
+template <bool WIDE>
 __device__ int find_child(const Forest& f, const Table& tb, int node,
                           int tok, int lane) {
   const long long q = edge_key(node, tok);
@@ -189,24 +218,24 @@ __device__ int find_child(const Forest& f, const Table& tb, int node,
   int c = __popc(__ballot_sync(FULL, tb.key0 < q));
   if (hi - lo <= 31)
     return __shfl_sync(FULL, tb.key0 == q ? tb.child0 : -1, c);
-  narrow(lo, hi, c);
+  narrow<WIDE>(lo, hi, c);
   const int e = 32 + 32 * c + lane;
   const long long key1 = tb.sp.key[e];
   c = __popc(__ballot_sync(FULL, key1 < q));
   if (hi - lo <= 31)
     return __shfl_sync(FULL, key1 == q ? tb.sp.child[e] : -1, c);
-  narrow(lo, hi, c);
+  narrow<WIDE>(lo, hi, c);
   for (;;) {
     const bool last = hi - lo <= 31;
-    const int p = probe(lo, hi, lane);
+    const auto p = probe<WIDE>(lo, hi, lane);
     const bool valid = p <= hi && p < f.E;
-    const int en = valid ? ld(f.en, p) : INT_MAX;
-    const int et = valid ? ld(f.et, p) : INT_MAX;
-    const int ch = valid && last ? ld(f.ec, p) : -1;
+    const int en = valid ? ld(f.en, (int)p) : INT_MAX;
+    const int et = valid ? ld(f.et, (int)p) : INT_MAX;
+    const int ch = valid && last ? ld(f.ec, (int)p) : -1;
     const long long key = edge_key(en, et);
     c = __popc(__ballot_sync(FULL, key < q));
     if (last) return __shfl_sync(FULL, key == q ? ch : -1, c);
-    narrow(lo, hi, c);
+    narrow<WIDE>(lo, hi, c);
   }
 }
 
@@ -215,12 +244,13 @@ struct Memo {
   int node, tok, child;
 };
 
+template <bool WIDE>
 __device__ __forceinline__ int lookup(const Forest& f, const Table& tb,
                                       const Memo& memo, int node, int tok,
                                       int lane) {
   return (node == memo.node && tok == memo.tok)
              ? memo.child
-             : find_child(f, tb, node, tok, lane);
+             : find_child<WIDE>(f, tb, node, tok, lane);
 }
 
 // The edge a walk is on: its corpus start and length, and a window of 64
@@ -262,6 +292,7 @@ __device__ __forceinline__ int run_length(bool good) {
 // The row core, run by one warp: one row's match and proposal over forest
 // view `f` (splitters `tb`, tail `tail` in shared memory), writing
 // props[0..n_prop_max) and the row's match_len / n_prop.
+template <bool WIDE>
 __device__ void match_propose_row(const Forest& f, const Table& tb,
                                   const int* tail, int m, int root,
                                   int budget_in, int n_prop_max,
@@ -293,7 +324,7 @@ __device__ void match_propose_row(const Forest& f, const Table& tb,
         mode = FEED;
         continue;
       }
-      const int c_s = max(lookup(f, tb, memo, dnode,
+      const int c_s = max(lookup<WIDE>(f, tb, memo, dnode,
                                  ld(f.corpus, min(dpos, C - 1)), lane), 0);
       const int ell = ld(f.el, c_s);
       if (drem >= ell) {  // skip the whole edge
@@ -341,14 +372,14 @@ __device__ void match_propose_row(const Forest& f, const Table& tb,
         continue;
       }
     } else {
-      const int c = lookup(f, tb, memo, node, t, lane);
+      const int c = lookup<WIDE>(f, tb, memo, node, t, lane);
       ok = c >= 0;
       if (ok) {
         const int start = ld(f.es, c), len = ld(f.el, c);
         // While those load, search ahead for the next step, which starts
         // at c if c's edge is one token long.
         if (i + 1 < m && tail[i + 1] >= 0) {
-          memo.child = find_child(f, tb, c, tail[i + 1], lane);
+          memo.child = find_child<WIDE>(f, tb, c, tail[i + 1], lane);
           memo.node = c;
           memo.tok = tail[i + 1];
         }
@@ -398,7 +429,7 @@ __device__ void match_propose_row(const Forest& f, const Table& tb,
         mode = FEED;
         continue;
       }
-      const int c_s = max(lookup(f, tb, memo, dnode,
+      const int c_s = max(lookup<WIDE>(f, tb, memo, dnode,
                                  ld(f.corpus, min(dpos, C - 1)), lane), 0);
       const int ell = ld(f.el, c_s);
       if (drem >= ell) {
@@ -471,6 +502,7 @@ __device__ __forceinline__ void stage_tail(int* dst, const int* src, int m,
   for (int j = lane; j < m; j += 32) dst[j] = src[j];
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 suffix_match_kernel(Forest f, const int* __restrict__ tails, int tail_stride,
                     const int* __restrict__ roots, int root_stride,
@@ -486,11 +518,11 @@ suffix_match_kernel(Forest f, const int* __restrict__ tails, int tail_stride,
   const int root = row < B ? roots[(size_t)row * root_stride] : -1;
   if (row < B) stage_tail(tail, tails + (size_t)row * tail_stride, m, lane);
   if (__syncthreads_or(root >= 0)) {  // the CTA's rows share the splitters
-    stage_splitters<THREADS>(f, sp, threadIdx.x);
+    stage_splitters<THREADS, WIDE>(f, sp, threadIdx.x);
     __syncthreads();
   }
   if (row >= B) return;
-  match_propose_row(f, table(sp, lane), tail, m, root,
+  match_propose_row<WIDE>(f, table(sp, lane), tail, m, root,
                     budgets[(size_t)row * budget_stride], n_prop_max,
                     min_match, lane, match_len + row, n_prop + row,
                     props + (size_t)row * n_prop_max);
@@ -504,6 +536,7 @@ struct ChunkedForest {
   int T, Es, Ns, Cs;
 };
 
+template <bool WIDE>
 __global__ void __launch_bounds__(32)
 suffix_match_chunked_kernel(ChunkedForest cf,
                             const int* __restrict__ tails, int tail_stride,
@@ -533,10 +566,10 @@ suffix_match_chunked_kernel(ChunkedForest cf,
   f.corpus = cf.corpus + t * cf.Cs;
   f.E = cf.Es;
   f.C = cf.Cs;
-  if (r >= 0) stage_splitters<32>(f, sp, lane);  // this row's tree
+  if (r >= 0) stage_splitters<32, WIDE>(f, sp, lane);  // this row's tree
   stage_tail(tail, tails + (size_t)row * tail_stride, m, lane);
   __syncwarp();
-  match_propose_row(f, table(sp, lane), tail, m, r >= 0 ? 0 : -1,
+  match_propose_row<WIDE>(f, table(sp, lane), tail, m, r >= 0 ? 0 : -1,
                     budgets[(size_t)row * budget_stride], n_prop_max,
                     min_match, lane, match_len + row, n_prop + row,
                     props + (size_t)row * n_prop_max);
@@ -552,7 +585,44 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
   return err;
 }
 
-size_t flat_allowed = 0, chunked_allowed = 0;
+// by WIDE
+size_t flat_allowed[2] = {0, 0}, chunked_allowed[2] = {0, 0};
+
+template <bool WIDE>
+cudaError_t launch_flat(const Forest& f, const int* tails, int tail_stride,
+                        const int* roots, int root_stride,
+                        const int* budgets, int budget_stride, int B, int m,
+                        int n_prop_max, int min_match, int* match_len,
+                        int* n_prop, int* props, cudaStream_t stream) {
+  const size_t smem = sizeof(Splitters) + (size_t)WARPS * m * sizeof(int);
+  const cudaError_t err =
+      allow_smem(suffix_match_kernel<WIDE>, smem, flat_allowed[WIDE]);
+  if (err != cudaSuccess) return err;
+  const int blocks = (B + WARPS - 1) / WARPS;
+  if (blocks > 0)
+    suffix_match_kernel<WIDE><<<blocks, THREADS, smem, stream>>>(
+        f, tails, tail_stride, roots, root_stride, budgets, budget_stride,
+        B, m, n_prop_max, min_match, match_len, n_prop, props);
+  return cudaGetLastError();
+}
+
+template <bool WIDE>
+cudaError_t launch_chunked(const ChunkedForest& cf, const int* tails,
+                           int tail_stride, const int* roots,
+                           int root_stride, const int* budgets,
+                           int budget_stride, int B, int m, int n_prop_max,
+                           int min_match, int* match_len, int* n_prop,
+                           int* props, cudaStream_t stream) {
+  const size_t smem = sizeof(Splitters) + (size_t)m * sizeof(int);
+  const cudaError_t err = allow_smem(suffix_match_chunked_kernel<WIDE>, smem,
+                                     chunked_allowed[WIDE]);
+  if (err != cudaSuccess) return err;
+  if (B > 0)
+    suffix_match_chunked_kernel<WIDE><<<B, 32, smem, stream>>>(
+        cf, tails, tail_stride, roots, root_stride, budgets, budget_stride,
+        m, n_prop_max, min_match, match_len, n_prop, props);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -574,19 +644,13 @@ extern "C" int suffix_match_propose_flat(
   f.ft = (const int*)first_tok;
   f.bc = (const int*)best_child;
   f.corpus = (const int*)corpus;
-  if (E >= MAX_EDGES) return (int)cudaErrorInvalidValue;
   f.E = E;
   f.C = C;
-  const size_t smem = sizeof(Splitters) + (size_t)WARPS * m * sizeof(int);
-  cudaError_t err = allow_smem(suffix_match_kernel, smem, flat_allowed);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + WARPS - 1) / WARPS;
-  if (blocks > 0)
-    suffix_match_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-        f, (const int*)tails, tail_stride, (const int*)roots, root_stride,
-        (const int*)budgets, budget_stride, B, m, n_prop_max, min_match,
-        (int*)match_len, (int*)n_prop, (int*)props);
-  return (int)cudaGetLastError();
+  const auto launch = E >= WIDE_EDGES ? launch_flat<true> : launch_flat<false>;
+  return (int)launch(f, (const int*)tails, tail_stride, (const int*)roots,
+                     root_stride, (const int*)budgets, budget_stride, B, m,
+                     n_prop_max, min_match, (int*)match_len, (int*)n_prop,
+                     (int*)props, (cudaStream_t)stream);
 }
 
 extern "C" int suffix_match_propose_chunked(
@@ -597,7 +661,6 @@ extern "C" int suffix_match_propose_chunked(
     const void* best_child, const void* corpus, int B, int m, int T, int Es,
     int Ns, int Cs, int n_prop_max, int min_match, void* match_len,
     void* n_prop, void* props, void* stream) {
-  if (Es >= MAX_EDGES) return (int)cudaErrorInvalidValue;
   ChunkedForest cf;
   cf.en = (const int*)edge_node;
   cf.et = (const int*)edge_tok;
@@ -612,14 +675,10 @@ extern "C" int suffix_match_propose_chunked(
   cf.Es = Es;
   cf.Ns = Ns;
   cf.Cs = Cs;
-  const size_t smem = sizeof(Splitters) + (size_t)m * sizeof(int);
-  cudaError_t err =
-      allow_smem(suffix_match_chunked_kernel, smem, chunked_allowed);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0)
-    suffix_match_chunked_kernel<<<B, 32, smem, (cudaStream_t)stream>>>(
-        cf, (const int*)tails, tail_stride, (const int*)roots, root_stride,
-        (const int*)budgets, budget_stride, m, n_prop_max, min_match,
-        (int*)match_len, (int*)n_prop, (int*)props);
-  return (int)cudaGetLastError();
+  const auto launch =
+      Es >= WIDE_EDGES ? launch_chunked<true> : launch_chunked<false>;
+  return (int)launch(cf, (const int*)tails, tail_stride, (const int*)roots,
+                     root_stride, (const int*)budgets, budget_stride, B, m,
+                     n_prop_max, min_match, (int*)match_len, (int*)n_prop,
+                     (int*)props, (cudaStream_t)stream);
 }

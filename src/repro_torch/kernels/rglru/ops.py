@@ -6,13 +6,14 @@ version (``ref.py``). There is no fallback between the two: a CUDA
 tensor the kernel cannot take raises.
 
 Unlike the TPU wrapper it precomputes and pads nothing: the kernel forms
-log a and i·x from x, r and i in registers, masks the ragged width, and
+log a and i·x from x, r and i on the chip, masks the ragged width, and
 takes the optional (B, T) update mask of the model's scan.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -20,8 +21,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
-# Launches of the CUDA kernel by this wrapper (one per call on CUDA).
+# Launches of the CUDA kernel by this wrapper (one per call on CUDA), in
+# all and by (B, T): verify blocks and prefills have different shapes.
 LAUNCHES = 0
+LAUNCHES_BY_SHAPE: Counter = Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,6 +75,7 @@ def rglru_scan_cuda(x, r, i, lam, h0, mask: Optional[torch.Tensor] = None
     )
     _build.check(err, "rglru_scan launch")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(B, T)] += 1
     return hs, h_final
 
 

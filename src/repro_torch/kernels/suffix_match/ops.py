@@ -37,7 +37,6 @@ _MIN_EDGES = 1024
 _MIN_CORPUS = 2048
 _MIN_STRIDE = 256
 _SENTINEL = np.int32(np.iinfo(np.int32).max)  # sorts past every real edge
-_MAX_EDGES = 1 << 26  # csrc/suffix_match.cu MAX_EDGES
 
 # Launches of each CUDA kernel by its wrapper (one per call on CUDA).
 LAUNCHES = 0
@@ -218,9 +217,6 @@ def _check(forest, tails, roots, budgets, n_prop_max) -> None:
     if ndim == 2 and len({t.shape[0] for t in forest}) != 1:
         raise ValueError("suffix_match: chunked forest arrays must share "
                          "their tree count")
-    if forest.edge_node.shape[-1] >= _MAX_EDGES:
-        raise ValueError(f"suffix_match: an edge table of at most "
-                         f"{_MAX_EDGES - 1} entries (the kernels' search)")
     if tails.dim() != 2 or tails.stride(1) != 1:
         raise ValueError("suffix_match: tails must be (B, m) with unit "
                          "stride along m")

@@ -9,8 +9,12 @@
 * ``apply_rglru`` against the JAX block on the same weights, for prefill
   (update mask over left pads) and verify (``collect=True``: staged
   per-step h and conv contexts from a cached state, a frozen row).
-* The CUDA kernel against the plain version (``gpu``: skips without a
-  card; ``chip_smoke.py`` runs it at the main path's shapes).
+* A model of the CUDA kernel's decomposition (tiles of 32 steps by 32
+  lanes, gates formed a tile at a time, the carry walked per lane, no
+  load at a masked step) bit for bit against the plain version, and
+  within the tolerance against the JAX kernel and ``_rglru_scan``.
+* The CUDA kernel against the plain version, bit for bit (``gpu``: skips
+  without a card; ``chip_smoke.py`` runs it at the main path's shapes).
 """
 
 import dataclasses
@@ -28,7 +32,7 @@ from repro.kernels.rglru import rglru_scan_ref as jax_ref
 from repro.models import layers as JL
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru import ops as rg_ops
-from repro_torch.kernels.rglru.ref import rglru_scan_ref
+from repro_torch.kernels.rglru.ref import RGLRU_C, rglru_scan_ref
 from repro_torch.models import layers as TL
 from repro_torch.models.convert import tensor_from_numpy
 
@@ -82,8 +86,125 @@ def test_masked_scan_matches_jax_model_scan(B, T, W):
 
 def test_cpu_wrapper_runs_the_plain_version_without_launching():
     before = rg_ops.LAUNCHES
+    shapes = dict(rg_ops.LAUNCHES_BY_SHAPE)
     hs, _ = rg_ops.rglru_scan(*map(torch.from_numpy, _inputs(1, 3, 8)))
     assert rg_ops.LAUNCHES == before and torch.isfinite(hs).all()
+    assert dict(rg_ops.LAUNCHES_BY_SHAPE) == shapes
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's decomposition, modelled on the CPU
+# ---------------------------------------------------------------------------
+# csrc/rglru.cu gives a CTA one row and KWT = 32 width lanes and walks T
+# in chunks of KCT = 32 steps: its gater warps copy a chunk's tiles of x,
+# r and i (nothing at a masked step) and form a and mult * (i * x) for the
+# tile; then one thread per lane walks the carry over the chunk in time
+# order. The model repeats that tile by tile: the gates with the plain
+# version's expressions on the tile's loaded steps, log sigmoid(Λ) per
+# lane, the carry in numpy float32 (a product and a sum, each rounded).
+
+KCT, KWT = 32, 32
+
+
+def _tile_gates(x, r, i, a_base):
+    """a and mult * (i * x) of the loaded steps of one tile."""
+    x, r, i, a_base = (torch.from_numpy(np.ascontiguousarray(v))
+                       for v in (x, r, i, a_base))
+    log_a = RGLRU_C * r * a_base
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-9, 1.0))
+    return torch.exp(log_a).numpy(), (mult * (i * x)).numpy()
+
+
+def _kernel_model(x, r, i, lam, h0, mask):
+    """(hs, h_final, loads): the scan as the kernel's CTAs compute it;
+    ``loads[b, t]`` counts the tiles that copied step t of row b."""
+    B, T, W = x.shape
+    hs = np.full((B, T, W), np.nan, np.float32)
+    hf = np.full((B, W), np.nan, np.float32)
+    a_base = torch.log(torch.sigmoid(torch.from_numpy(lam))).numpy()
+    upd = np.ones((B, T), bool) if mask is None else mask
+    loads = np.zeros((B, T), int)
+    for b in range(B):
+        for w0 in range(0, W, KWT):  # a CTA
+            lanes = slice(w0, min(w0 + KWT, W))
+            n = lanes.stop - w0
+            h = h0[b, lanes].copy()
+            for t0 in range(0, T, KCT):  # a chunk (a stage of the ring)
+                steps = np.arange(t0, min(t0 + KCT, T))
+                kept = steps[upd[b, steps]]  # the steps copied
+                loads[b, kept] += 1
+                a = np.full((KCT, KWT), np.nan, np.float32)  # unloaded
+                gx = a.copy()
+                if len(kept):
+                    a[kept - t0, :n], gx[kept - t0, :n] = _tile_gates(
+                        x[b, kept, lanes], r[b, kept, lanes],
+                        i[b, kept, lanes], a_base[lanes])
+                for t in steps:  # the walker: one thread a lane
+                    if upd[b, t]:
+                        h = a[t - t0, :n] * h + gx[t - t0, :n]
+                    hs[b, t, lanes] = h
+            hf[b, lanes] = h
+    return hs, hf, loads
+
+
+def _model_mask(kind, B, T, seed):
+    """Rows masked for the whole block, left pads longer than a chunk,
+    or random left pads."""
+    rng = np.random.default_rng(seed)
+    if kind == "frozen rows":
+        mask = np.ones((B, T), bool)
+        mask[1::3] = False
+        return mask
+    if kind == "long pads":
+        pads = np.minimum(rng.integers(KCT + 1, 3 * KCT, size=B), T - 1)
+    elif kind == "pads":
+        pads = rng.integers(0, T, size=B)
+    else:
+        return None
+    return np.arange(T)[None] >= pads[:, None]
+
+
+# (B, T, W, mask): T of 1, the verify block's 17, KCT - 1, KCT, KCT + 1
+# and the longest prompt's 2047; widths that are not multiples of KWT
+MODEL_CASES = {
+    "T1": (2, 1, 40, None),
+    "T17_frozen_rows": (8, 17, 72, "frozen rows"),
+    "T31_pads": (3, 31, 70, "pads"),
+    "T32": (2, 32, 96, None),
+    "T33_long_pads": (3, 33, 40, "long pads"),
+    "T33_frozen_rows": (4, 33, 33, "frozen rows"),
+    "T2047": (1, 2047, 36, None),
+    "T2047_long_pads": (2, 2047, 20, "long pads"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MODEL_CASES))
+def test_kernel_model_bit_identical_to_plain_and_near_jax(case):
+    B, T, W, kind = MODEL_CASES[case]
+    arrs = _inputs(B, T, W, seed=len(case))
+    mask = _model_mask(kind, B, T, seed=3)
+    hs, hf, loads = _kernel_model(*arrs, mask)
+    want_hs, want_hf = rglru_scan_ref(
+        *map(torch.from_numpy, arrs),
+        None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_array_equal(hs.view(np.uint32),
+                                  want_hs.numpy().view(np.uint32))
+    np.testing.assert_array_equal(hf.view(np.uint32),
+                                  want_hf.numpy().view(np.uint32))
+    # each kept step is copied once by each of the row's tiles, a masked
+    # one never (a row masked for a whole chunk loads nothing there)
+    upd = np.ones((B, T), bool) if mask is None else mask
+    np.testing.assert_array_equal(loads, upd * -(-W // KWT))
+    if kind in ("frozen rows", "long pads"):  # a row's first chunk masked
+        assert (~upd[:, :KCT]).all(axis=1).any()
+    jargs = [jnp.asarray(a) for a in arrs]
+    if mask is None:
+        jhs, jhf = jax_kernel(*jargs)
+    else:
+        upd_t = jnp.asarray(mask.T)
+        jhs, jhf = JL._rglru_scan(*jargs, upd_t, upd_t)
+    np.testing.assert_allclose(hs, np.asarray(jhs), **TOL)
+    np.testing.assert_allclose(hf, np.asarray(jhf), **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -152,8 +273,13 @@ def test_apply_rglru_commit_upto_is_not_ported(block):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T,W", CASES)
+@pytest.mark.parametrize("B,T,W", CASES + [(8, 17, 4096), (8, 256, 4096),
+                                           (1, 2047, 4096), (2, 33, 4001),
+                                           (3, 40, 4000), (1, 1, 1)])
 def test_cuda_kernel_matches_plain(B, T, W):
+    """Within the tolerance and bit for bit, with and without a mask, at
+    the small cases, the path's verify and prefill shapes, the longest
+    prompt, a width not a multiple of 4 (4-byte copies) and a ragged one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     args = [torch.from_numpy(a).cuda() for a in _inputs(B, T, W)]
@@ -164,3 +290,4 @@ def test_cuda_kernel_matches_plain(B, T, W):
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                        **TOL)
+            assert torch.equal(g, w)

@@ -14,6 +14,8 @@ they run alone: ``pytest --noconftest -m gpu`` on this file.
 """
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -446,6 +448,88 @@ def test_kernel_search_model_equals_plain_find_child(case):
     assert found > 0  # the queries include present keys
     if case == "flat_128k":
         assert math.ceil(math.log(len(tables[0][0]), 33)) + 1 == 5
+
+
+def _probe32(lo, hi, lane):
+    """probe with its product in 32 bits (the kernels' search below
+    WIDE_EDGES entries)."""
+    s = hi - lo
+    return lo + lane if s <= 31 else lo + ((lane + 1) * s & 0xFFFFFFFF) // 33
+
+
+def _narrow32(lo, hi, c):
+    s = hi - lo
+    return (lo + (c * s & 0xFFFFFFFF) // 33 + 1 if c > 0 else lo,
+            lo + ((c + 1) * s & 0xFFFFFFFF) // 33 if c < 32 else hi)
+
+
+def _wide_edges():
+    """WIDE_EDGES of csrc/suffix_match.cu: tables from this size on take
+    the search with 64-bit index products."""
+    src = (Path(tops.__file__).resolve().parents[2] / "csrc"
+           / "suffix_match.cu").read_text()
+    return 1 << int(re.search(r"WIDE_EDGES = 1 << (\d+);", src).group(1))
+
+
+def _lower_bound_33(E, q, probe=_probe, narrow=_narrow):
+    """The kernels' search over a virtual table whose entry j has key j
+    (entries past hi or past the table key past every query): the index
+    of the first key >= q, or None if the search does not end. A probe
+    of the 64-bit search is an index below 2^32."""
+    lo, hi = 0, E
+    for _ in range(64):
+        last = hi - lo <= 31
+        ps = [probe(lo, hi, lane) for lane in range(32)]
+        if probe is _probe:
+            assert all(0 <= p < 1 << 32 for p in ps)
+        c = sum((p if p <= hi and p < E else 1 << 40) < q for p in ps)
+        if last:
+            return lo + c
+        lo, hi = narrow(lo, hi, c)
+    return None
+
+
+@pytest.mark.parametrize("E", [(1 << 26) - 1, 1 << 26, (1 << 26) + 33,
+                               1 << 30, (1 << 31) - 1])
+def test_kernel_search_arithmetic_at_int32_sizes(E):
+    """The search with 64-bit index products (the kernels' instance for
+    tables of WIDE_EDGES = 2^26 entries and more) finds the lower bound
+    over live ranges up to 2^31 - 1 (index arithmetic only, no table).
+    The 32-bit products of the other instance are exact below 2^26 and
+    miss past 2^27."""
+    assert _wide_edges() == 1 << 26
+    rng = np.random.default_rng(E % 1000)
+    queries = [0, 1, 31, 32, 33, E // 33, E // 2, E - 32, E - 31, E - 1, E]
+    queries += [int(q) for q in rng.integers(0, E + 1, size=60)]
+    for q in queries:
+        assert _lower_bound_33(E, q) == q, (E, q)
+    narrow32 = [_lower_bound_33(E, q, _probe32, _narrow32) for q in queries]
+    if E < _wide_edges():
+        assert narrow32 == queries
+    if E >= 1 << 27:
+        assert narrow32 != queries
+
+
+@pytest.mark.parametrize("layout", ["flat", "chunked"])
+@pytest.mark.parametrize("E", [1 << 26, (1 << 31) - 1])
+def test_wrappers_take_edge_tables_of_any_int32_size(layout, E):
+    """The CUDA wrappers' checks take edge tables of 2^26 entries and more
+    (tensors on the meta device: no memory; the kernels search them with
+    64-bit products), so the drafter's ``auto`` layout, flat in the
+    port, has no size it must fall back from."""
+    def t(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    if layout == "flat":
+        forest = tops.PackedForest(t(E), t(E), t(E), *(t(1024),) * 5, t(2048))
+    else:
+        forest = tops.ChunkedForest(t(2, E), t(2, E), t(2, E),
+                                    *(t(2, 1024),) * 5, t(2, 2048))
+    tails, roots, budgets = t(8, 64), t(8), t(8)
+    tops._check(forest, tails, roots, budgets, 16)
+    d = SuffixDrafter(DrafterConfig(scope="problem"))
+    assert d.cfg.forest_layout == "auto"
+    assert d.batched_sessions(2, tensor_device="cpu")._pick_layout([]) == "flat"
 
 
 @pytest.mark.parametrize("layout", ["flat", "chunked"])
