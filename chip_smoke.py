@@ -12,8 +12,10 @@ non-zero; no phase's error is caught):
    for sm_90a, in parallel, with the ptxas register/shared-memory report;
 3. kernels against their plain PyTorch versions at main-path shapes
    (spec-verify attention within the bfloat16 tolerance at Qwen3-8B's
-   head shape and at RecurrentGemma-9B's (head_dim 256, MQA, window
-   2048), each at the main path's cache fill and with the full ring,
+   head shape, at RecurrentGemma-9B's (head_dim 256, MQA, window 2048)
+   and at Qwen2-1.5B's (12/2 heads of 128, G = 6, phase 8b's ring of
+   2,305 slots filled past 2,100), each at its path's cache fill and
+   with the full ring,
    with its split plan and ptxas report, one call under the sync-debug
    mode "error", and bf16 edge cases (T = 1, rows that see nothing, one
    live split, hd 64 and 32, softcap, G = 6); float32 at head_dim 64
@@ -55,21 +57,54 @@ non-zero; no phase's error is caught):
    both epochs and of lock-step ``generate`` on the same prompts must be
    plain greedy's choice on its own prefix within the bf16 tolerance;
 6. the serving CLI as subprocesses (lock-step, ``--continuous``, and the
-   hybrid model), last of all;
+   hybrid model) and the training CLI (``--smoke``), last of all;
 7. RecurrentGemma-9B at full width (the Qwen3-8B weights freed first):
    phase 4's lock-step traffic and phase 5's continuous traffic (chunked
    forest only), gated as there, with one RG-LRU launch per recurrent
    layer per forward and plain greedy's forwards run on the plain scan;
-   then the small float32 variants of Qwen3-8B and RecurrentGemma-9B:
-   lock-step and continuous (chunked) output against plain greedy
-   decoding without cache or kernels.
+   then (phase 8, below) the RL loop; then the small float32 variants
+   of Qwen3-8B and RecurrentGemma-9B: lock-step and continuous (chunked)
+   output against plain greedy decoding without cache or kernels;
+8. the RL loop on Qwen2-1.5B at its published config (28 layers,
+   d_model 1536, 12/2 heads of 128, d_ff 8960, vocab 151,936, QKV bias,
+   tied embeddings; random bf16 weights from seed 0):
+   8a. ``_flash_attn_train`` (the memory-bounded flash attention with a
+       hand-written backward) at B 4, S 2304, 12/2 heads, hd 128, float32
+       and bf16, against autograd through plain dense attention
+       (``FLASH_TOL``), timed beside dense attention and SDPA with the
+       same boolean mask, with each one's peak memory;
+   8b. long-prompt rollouts: 4 rows over 2 problems (prompts of 2,100
+       and 2,200 seeded tokens), 64 new tokens, T = 0, lock-step, two
+       epochs: every prefill through ``_flash`` once per layer,
+       spec-verify once per attention layer per verify round (kept
+       launches held to the plain version), epoch 2 equal to epoch 1
+       and drafting, every token plain greedy's choice (0.25 logit);
+   8c. one GRPO step at S >= 2048 on 8b's epoch-1 batch (seeded
+       advantages, ``compute_old_logprobs``): the surrogate at ratio 1
+       within ``SURROGATE_RTOL`` of -sum(adv*mask)/sum(mask), every
+       gradient finite, every layer's wq/wk/wv gradient non-zero (the
+       flash backward carries gradient), update_norm = lr * min(1,
+       clip/gnorm) * gnorm, and a lower surrogate after the step; its
+       time and peak memory;
+   8d. after ``set_params``, a third epoch of 8b's traffic, every token
+       plain greedy's under the updated weights;
+   8e. ``Trainer.run``: the pattern task (8 problems), 4 prompts a step,
+       G = 2, 32 new tokens, 4 SFT warmup steps (the CE must fall) and 4
+       GRPO steps at T = 0.6, spec-verify once per attention layer per
+       round in every rollout and the drafting kernel in every rollout
+       from the second epoch on (the first has no history); a
+       checkpoint after step 2 into a temporary directory, from which a
+       fresh trainer resumes with cursor 2 and the drafter's rollouts,
+       and its steps 3-4 equal the uninterrupted run's token for token
+       (the sidecar carries the generator's state) with equal losses.
 
 The last lines are the card line, the per-kernel JSON line and the
 result line ``{"ok": true, "device": {...}}``. A kernel's ``launches``
 there sum every path that runs it, each counted from 0 (flat drafting:
-phase 4, phase 5's flat run and phase 7's lock-step run; chunked
+phase 4, phase 5's flat run, phase 7's lock-step run and phase 8; chunked
 drafting: phase 5's and phase 7's chunked runs; spec-verify at hd 128:
-phases 4 and 5; at hd 256 and the RG-LRU scan: phase 7); the drafting
+phases 4 and 5; at hd 256 and the RG-LRU scan: phase 7; at Qwen2-1.5B's
+shape, ``spec_verify_attention_qwen2``: phase 8); the drafting
 kernels' times and bounds there are at the path's own shapes (phases
 3b and 3c are logged). The scan has an entry per shape class, split by
 the wrapper's launches by (B, T): ``rglru_scan`` at the verify shape
@@ -330,13 +365,20 @@ def phase_spec_verify(torch, np, timer, card):
     # each at the ring and fill phases 4, 5 and 7 give it (S+1 = 577: the
     # paths' max_len of 576 is below window + headroom) and with a full
     # ring (for RecurrentGemma the window's own: S+1 = 2113)
+    # and Qwen2-1.5B's (hd 128, GQA 12/2: G = 6, 102 query rows a kv head)
+    # at phase 8b's batch, ring and fill (prompts of 2,100 and 2,200
+    # tokens, 64 generated: S+1 = 2305)
     entries = []
-    for name, (Hq, Hkv, hd, S1_path, S1_full, window, min_len) in (
-            ("spec_verify_attention", (32, 8, 128, 577, 577, 0, 128)),
+    for name, (B, Hq, Hkv, hd, S1_path, S1_full, window, min_len,
+               fill) in (
+            ("spec_verify_attention",
+             (8, 32, 8, 128, 577, 577, 0, 128, SV_PATH_FILL)),
             ("spec_verify_attention_hd256",
-             (16, 1, 256, 577, 2113, 2048, 1024))):
-        e = sv_main_shape(torch, np, timer, card, 8, 17, Hq, Hkv, hd,
-                          S1_path, S1_full, window, min_len)
+             (8, 16, 1, 256, 577, 2113, 2048, 1024, SV_PATH_FILL)),
+            ("spec_verify_attention_qwen2",
+             (4, 12, 2, 128, 2305, 2305, 0, 2100, SV_LONG_FILL))):
+        e = sv_main_shape(torch, np, timer, card, B, 17, Hq, Hkv, hd,
+                          S1_path, S1_full, window, min_len, fill)
         e["max_abs_err"] = max(e["max_abs_err"], edge_err)
         entries.append(dict(name=name, **e))
     return entries
@@ -345,13 +387,16 @@ def phase_spec_verify(torch, np, timer, card):
 # The path's fill: prompts of 128-256 tokens and up to 256 generated
 # (phases 4, 5 and 7), so a block's first position lies in [128, 512].
 SV_PATH_FILL = (128, 513)
+# Phase 8b's fill: prompts of 2,100 and 2,200 tokens and up to 64
+# generated, so a block's first position lies in [2100, 2264].
+SV_LONG_FILL = (2100, 2265)
 
 
 def sv_main_shape(torch, np, timer, card, B, T, Hq, Hkv, hd, S1_path,
-                  S1_full, window, min_len):
+                  S1_full, window, min_len, path_fill=SV_PATH_FILL):
     """One bf16 main-path shape at the path's ring (S+1 = ``S1_path``) and
-    fill and with a full ring of ``S1_full`` slots (lengths from
-    ``min_len``): the kernel against the plain version,
+    fill (``path_fill``) and with a full ring of ``S1_full`` slots
+    (lengths from ``min_len``): the kernel against the plain version,
     then kernel, plain, SDPA and bound times (the full ring's kernel
     time also without the timer's lead, once). The path fill's numbers
     are returned; the full ring's are logged."""
@@ -362,7 +407,7 @@ def sv_main_shape(torch, np, timer, card, B, T, Hq, Hkv, hd, S1_path,
 
     res = {}
     for fill, S1, (lo, hi), seed in (
-            ("path fill", S1_path, SV_PATH_FILL, 20),
+            ("path fill", S1_path, path_fill, 20),
             ("full ring", S1_full, (min_len, None), 10)):
         log(f"spec_verify bf16 hd={hd} S+1={S1} "
             f"{sv_plan_line(torch, B, T, Hq, Hkv, hd, S1)}  [{card}]")
@@ -1682,20 +1727,469 @@ def phase_small_reference(torch, np, arch, dev="cuda"):
         f"{st.n_accepted} lock-step, {cst.n_accepted} continuous)")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the RL loop on the card (Qwen2-1.5B at its published config)
+# ---------------------------------------------------------------------------
+
+# _flash against dense attention on the same inputs: the output within
+# atol/rtol, each gradient within ``grad`` of the dense one's largest
+# magnitude (max |err| / max |ref|). bf16 rounds P before the value
+# product tile by tile in _flash and once over the whole row in the dense
+# softmax, so it needs the looser bound.
+FLASH_TOL = {"float32": dict(atol=1e-4, rtol=1e-3, grad=1e-4),
+             "bfloat16": dict(atol=3e-2, rtol=1e-2, grad=3e-2)}
+# the GRPO surrogate at ratio 1 against -sum(adv * mask) / sum(mask)
+SURROGATE_RTOL = 1e-3
+# Learning rate of phase 8's AdamW steps. Adam's first steps move every
+# weight by about lr (the sign of its gradient), and the weights are bf16
+# with no master copy (the reference's rule): at 1e-4 every weight of the
+# random model moves by about one ulp at once and the surrogate rose from
+# -0.72 to 25.8 in one step (NVIDIA H100 80GB HBM3, 700 W); at 1e-5 only
+# the small weights and the zero-initialised QKV biases move.
+STEP_LR = 1e-5
+
+
+def peak_mb(torch, fn):
+    """Device memory ``fn`` allocates at its peak beyond what was live
+    before it, in MB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def phase_flash(torch, np, timer, card, B=4, S=2304, Hq=12, Hkv=2, hd=128):
+    """8a: ``_flash_attn_train`` forward and backward at Qwen2-1.5B's
+    attention shape and a long-tail length, float32 and bf16, against
+    autograd through the plain dense attention (``_attn_core``); times
+    (forward, forward + backward) beside the dense version's and SDPA's
+    forward + backward with the same boolean mask, and each one's peak
+    memory."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config("qwen2-1.5b")
+    rng = np.random.default_rng(80)
+    base = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+            for shape in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd),
+                          (B, S, Hq, hd))]
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
+    mask = (pos[:, None, :] <= pos[:, :, None])[:, None]  # (B, 1, S, S)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q, k, v = (t.to(dt).requires_grad_() for t in base[:3])
+        dout = base[3].to(dt)
+
+        def flash():
+            return L._flash_attn_train(q, k, v, pos, cfg, window=0,
+                                       valid=None)
+
+        def dense():
+            return L._attn_core(q, k, v, mask, cfg)
+
+        out = flash()
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        ref = dense()
+        rgrads = torch.autograd.grad(ref, (q, k, v), dout)
+        tol = FLASH_TOL[dtype]
+        out, ref = out.detach(), ref.detach()
+        err = float((out.float() - ref.float()).abs().max())
+        check(bool(torch.isfinite(out).all()) and torch.allclose(
+            out.float(), ref.float(), atol=tol["atol"], rtol=tol["rtol"]),
+            f"_flash {dtype} forward: max |err| {err}")
+        rel = []
+        for name, g, r in zip(("dq", "dk", "dv"), grads, rgrads):
+            e = float((g.float() - r.float()).abs().max()
+                      / r.float().abs().max())
+            check(bool(torch.isfinite(g).all()) and e <= tol["grad"],
+                  f"_flash {dtype} {name}: max |err| / max |ref| {e}")
+            rel.append(f"{name} {e:.2e}")
+        del out, grads, ref, rgrads
+        # SDPA yardstick: forward + backward with the same boolean mask,
+        # (B, H, S, hd) layout made outside the timing
+        qs, ks, vs = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        ds = dout.transpose(1, 2).contiguous()
+
+        def sdpa_fb():
+            o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                               enable_gqa=True)
+            return torch.autograd.grad(o, (qs, ks, vs), ds)
+
+        def fwd():
+            with torch.no_grad():
+                return flash()
+
+        def fb():
+            return torch.autograd.grad(flash(), (q, k, v), dout)
+
+        def dense_fb():
+            return torch.autograd.grad(dense(), (q, k, v), dout)
+
+        res = {}
+        for name, fn in (("forward", fwd), ("forward + backward", fb),
+                         ("dense forward + backward", dense_fb),
+                         ("SDPA forward + backward", sdpa_fb)):
+            res[name] = (timer.ms(fn, 5, warmup=1), peak_mb(torch, fn))
+        log(f"_flash {dtype} (B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd}, causal): "
+            f"forward max |err| {err:.3e} (atol {tol['atol']}, rtol "
+            f"{tol['rtol']}), gradients max |err| / max |ref|: "
+            f"{', '.join(rel)} (<= {tol['grad']})  ok; "
+            + "; ".join(f"{n} {ms:.2f} ms, peak {mb:.0f} MB"
+                        for n, (ms, mb) in res.items()) + f"  [{card}]")
+        del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+
+
+class FlashSpy:
+    """Counts the calls of ``layers._flash_attn_train`` (every full-
+    sequence attention at 2048+ tokens) while active."""
+
+    def __init__(self):
+        from repro_torch.models import layers as L
+
+        self.L = L
+        self.real = L._flash_attn_train
+        self.n = 0
+
+    def __call__(self, *a, **kw):
+        self.n += 1
+        return self.real(*a, **kw)
+
+    def __enter__(self):
+        self.L._flash_attn_train = self
+        return self
+
+    def __exit__(self, *exc):
+        self.L._flash_attn_train = self.real
+
+
+def sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def long_prompt_epochs(torch, np, card, cfg, eng, prompts, pids, epochs,
+                       where, update_norm=0.0, dev="cuda"):
+    """``epochs`` lock-step ``generate`` epochs of the long prompts
+    (T = 0): the prefill through ``_flash`` once per layer, and on the
+    card spec-verify once per attention layer per verify round (its kept
+    launches held to the plain version). Returns each epoch's (outputs,
+    stats) and the launches."""
+    reset_launches()
+    spy, flash = SvSpy(), FlashSpy()
+    runs = []
+    for ep in epochs:
+        eng.begin_iteration(ep, update_norm)
+        spy.new_epoch()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        with spy, flash:
+            outs, st = eng.generate(prompts, pids, max_new_tokens=64)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        runs.append((outs, st))
+        log(f"{where} epoch {ep + 1}: wall {wall * 1e3:.1f} ms, rounds "
+            f"{st.n_rounds}, tokens {st.n_toks_emitted}, drafted "
+            f"{st.n_drafted}, accepted {st.n_accepted}  [{card}]")
+    launches = read_launches()
+    check(flash.n == cfg.num_layers * len(epochs),
+          f"{where}: {flash.n} _flash calls, expected {cfg.num_layers} layers "
+          f"x {len(epochs)} prefills")
+    if dev == "cuda":
+        check_sv_launches(cfg, launches,
+                          sum(st.n_rounds for _, st in runs), where)
+        spy.check(torch, card, where)
+    log(f"{where}: {flash.n} _flash calls (one per layer per prefill); "
+        f"launches {launches}")
+    return runs, launches
+
+
+def phase_rl_rollouts(torch, np, card, cfg, params, dev="cuda",
+                      lens=(2100, 2200)):
+    """8b: long-prompt rollouts, 4 rows over 2 problems (G = 2), prompts of
+    2,100 and 2,200 seeded tokens, 64 new tokens, T = 0, lock-step, two
+    epochs: epoch 2 equals epoch 1 and accepts drafts, the flat drafting
+    kernel launched, every token plain greedy's choice."""
+    from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
+    from repro_torch.core.spec_engine import EngineConfig, SpecEngine
+
+    eng = SpecEngine(
+        params, cfg,
+        EngineConfig(max_draft=16, block_buckets=(16,), max_new_tokens=64,
+                     eos_token=1),
+        drafter=SuffixDrafter(DrafterConfig(scope="problem")),
+        device=dev,
+    )
+    rng = np.random.default_rng(81)
+    problems = [[int(t) for t in rng.integers(2, cfg.vocab_size, size=n)]
+                for n in lens]
+    prompts = [problems[i // 2] for i in range(4)]
+    pids = [f"long{i // 2}" for i in range(4)]
+    runs, launches = long_prompt_epochs(torch, np, card, cfg, eng, prompts,
+                                        pids, (0, 1), f"{cfg.name} 8b",
+                                        dev=dev)
+    (o1, _), (o2, s2) = runs
+    check(o2 == o1, "8b: epoch 2 outputs differ from epoch 1 (T=0)")
+    check(s2.n_accepted > 0, "8b: epoch 2 accepted no drafts")
+    check(dev != "cuda" or launches["suffix_match_propose"] > 0,
+          "8b: the drafting kernel never launched")
+    plain_greedy_full_width(torch, np, cfg, params, prompts,
+                            {"8b epoch 1": o1, "8b epoch 2": o2}, card)
+    return eng, prompts, pids, o1, launches
+
+
+def phase_rl_step(torch, np, card, cfg, params, prompts, outs,
+                  dev="cuda"):
+    """8c: one GRPO step at S >= 2048 on 8b's epoch-1 batch, seeded
+    non-zero advantages, ``old_logprobs`` from ``compute_old_logprobs``:
+    the surrogate at ratio 1, finite gradients, non-zero ones in every
+    layer's wq/wk/wv, the update norm, and a lower surrogate after the
+    step. Returns the step's update norm."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.rl import grpo
+    from repro_torch.rl.rollout import pack_train_arrays
+
+    tokens, resp = pack_train_arrays(prompts, outs)
+    adv = np.random.default_rng(82).normal(size=len(prompts)).astype(
+        np.float32)
+    check(bool((adv != 0).all()), "8c: an advantage is 0")
+    M.set_trainable(params)
+    tok = torch.tensor(tokens, device=dev)
+    batch = {"tokens": tok, "resp_mask": torch.tensor(resp, device=dev),
+             "advantages": torch.tensor(adv, device=dev),
+             "old_logprobs": grpo.compute_old_logprobs(params, cfg, tok)}
+    ocfg = adamw.AdamWConfig(lr=STEP_LR)
+    opt = adamw.init_state(params)
+    gcfg = grpo.GRPOConfig()
+    sync(torch, dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _ = grpo.grpo_loss(params, cfg, gcfg, batch)
+    grads = grpo.param_grads(params, loss)
+    loss = float(loss.detach())
+    sync(torch, dev)
+    t_grad = time.perf_counter() - t0
+    params, opt, om = adamw.apply_updates(ocfg, params, grads, opt)
+    sync(torch, dev)
+    t_step = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda"
+            else float("nan"))
+    want = float(-(adv[:, None] * resp).sum() / resp.sum())
+    check(abs(loss - want) <= SURROGATE_RTOL * abs(want),
+          f"8c: surrogate {loss} at ratio 1, expected {want}")
+    gn = float(om["grad_norm"])
+    check(np.isfinite(gn) and gn > 0, f"8c: grad_norm {gn}")
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    check(not bad, f"8c: non-finite gradients in {bad[:4]}")
+    for li in range(cfg.num_layers):
+        for w in ("wq", "wk", "wv"):
+            g = grads[f"layers.{li}.attn.{w}"]
+            check(bool((g != 0).any()), f"8c: layer {li} {w} gradient is 0")
+    lr = float(om["lr"])
+    un_want = lr * min(1.0, ocfg.grad_clip / gn) * gn
+    un = float(om["update_norm"])
+    check(abs(un - un_want) <= 1e-5 * un_want,
+          f"8c: update_norm {un}, expected lr*min(1, clip/gnorm)*gnorm "
+          f"{un_want}")
+    del grads
+    with torch.no_grad():
+        after, _ = grpo.grpo_loss(params, cfg, gcfg, batch)
+    after = float(after)
+    check(after < loss, f"8c: surrogate after the step {after} is not "
+          f"below {loss}")
+    B, S = tokens.shape
+    log(f"{cfg.name} 8c GRPO step (B={B}, S={S}, {int(resp.sum())} response "
+        f"tokens, no remat): surrogate {loss:.6f} at ratio 1 (expected "
+        f"{want:.6f}), after the step {after:.6f}; grad_norm {gn:.4f}, lr "
+        f"{lr:g}, update_norm {un:.6f}; every gradient finite, every "
+        f"layer's wq/wk/wv gradient non-zero; loss + gradients "
+        f"{t_grad:.3f} s, with the AdamW update {t_step:.3f} s, peak memory "
+        f"{peak:.2f} GiB  [{card}]")
+    return un
+
+
+def phase_rl_after_update(torch, np, card, cfg, params, eng, prompts, pids,
+                          update_norm, dev="cuda"):
+    """8d: the engine sees the update: a third epoch of 8b's traffic after
+    ``set_params``, every token plain greedy's under the new weights."""
+    eng.set_params(params)
+    runs, launches = long_prompt_epochs(torch, np, card, cfg, eng, prompts,
+                                        pids, (2,), f"{cfg.name} 8d",
+                                        update_norm, dev)
+    plain_greedy_full_width(torch, np, cfg, params, prompts,
+                            {"8d epoch 3 (updated weights)": runs[0][0]},
+                            card)
+    return launches
+
+
+def phase_trainer(torch, np, card, cfg=None, dev="cuda"):
+    """8e: ``Trainer.run`` end to end at full width: the pattern task (8
+    problems), 4 prompts a step, G = 2, 32 new tokens, 4 SFT warmup steps
+    then 4 GRPO steps at temperature 0.6, a checkpoint after step 2 into
+    a temporary directory; a fresh trainer loaded from it resumes steps 3
+    and 4 token for token. Returns the launches of both runs."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.drafter import DrafterConfig
+    from repro_torch.core.spec_engine import EngineConfig
+    from repro_torch.data.tasks import PatternTask
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.rl.trainer import Trainer, TrainerConfig
+
+    cfg = cfg or get_config("qwen2-1.5b")
+    n_attn = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds)
+
+    def trainer():
+        return Trainer(
+            cfg, PatternTask(n_problems=8),
+            TrainerConfig(
+                steps=4, prompts_per_step=4, group_size=2, max_new_tokens=32,
+                temperature=0.6, seed=0, sft_warmup_steps=4, sft_lr=STEP_LR,
+                optim=AdamWConfig(lr=STEP_LR, warmup_steps=2),
+                engine=EngineConfig(max_draft=16, block_buckets=(16,),
+                                    eos_token=1),
+                drafter=DrafterConfig(scope="problem")),
+            device=dev)
+
+    def watch(tr, rolls, where):
+        orig = tr.worker.rollout
+
+        def wrapped(*a, **k):
+            before = read_launches()
+            batch = orig(*a, **k)
+            after = read_launches()
+            sv = (after["spec_verify_attention"]
+                  - before["spec_verify_attention"])
+            sm = (after["suffix_match_propose"]
+                  - before["suffix_match_propose"])
+            check(dev != "cuda" or sv == n_attn * batch.stats.n_rounds,
+                  f"{where} rollout {len(rolls) + 1}: {sv} spec-verify "
+                  f"launches, expected {n_attn} x {batch.stats.n_rounds}")
+            # the first epoch has no history to draft from: from the
+            # second on, every rollout drafts through the kernel
+            if tr._epoch > 0 and dev == "cuda":
+                check(sm > 0, f"{where} rollout {len(rolls) + 1} (epoch "
+                      f"{tr._epoch + 1}) never launched the drafting kernel")
+            rolls.append([list(r) for r in batch.responses])
+            return batch
+
+        tr.worker.rollout = wrapped
+
+    def log_steps(hist, where):
+        for h in hist:
+            log(f"{where} step {h['step'] + 1} (epoch {h['epoch'] + 1}): "
+                f"reward_mean {h['reward_mean']:.4f}, loss {h['loss']:.6f}, "
+                f"grad_norm {h['grad_norm']:.4f}, accept_per_round "
+                f"{h['accept_per_round']:.3f}, rollout {h['gen_time_s']:.3f} "
+                f"s, train step {h['train_time_s']:.3f} s  [{card}]")
+
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = trainer()
+        rolls_a = []
+        watch(tr, rolls_a, "8e")
+        t0 = time.perf_counter()
+        tr.run(steps=2)  # the SFT warmup, then steps 1-2
+        sft = tr.sft_losses
+        log(f"{cfg.name} 8e SFT warmup CE by step: "
+            f"{', '.join(f'{x:.4f}' for x in sft)}; with steps 1-2 "
+            f"{time.perf_counter() - t0:.1f} s  [{card}]")
+        check(sft[-1] < sft[0], f"8e: SFT loss did not fall: {sft}")
+        path = os.path.join(tmp, "step2.npz")
+        t0 = time.perf_counter()
+        tr.save_checkpoint(path)
+        t_save = time.perf_counter() - t0
+        n_roll = tr.engine.drafter.store.n_rollouts
+        hist_a = tr.run(steps=4)
+        tr.close()
+        log_steps(hist_a, f"{cfg.name} 8e")
+        del tr
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        tr = trainer()
+        t0 = time.perf_counter()
+        tr.load_checkpoint(path)
+        sync(torch, dev)
+        t_load = time.perf_counter() - t0
+        size = os.path.getsize(path) / 2**30
+    check(tr._step == 2, f"8e: the resumed trainer's cursor is {tr._step}")
+    check(tr.engine.drafter.store.n_rollouts == n_roll,
+          f"8e: the resumed drafter holds {tr.engine.drafter.store.n_rollouts}"
+          f" rollouts, the checkpointed one {n_roll}")
+    rolls_b = []
+    watch(tr, rolls_b, "8e resumed")
+    hist_b = tr.run(steps=4)
+    tr.close()
+    log_steps(hist_b[2:], f"{cfg.name} 8e resumed")
+    check(len(rolls_a) == 4 and len(rolls_b) == 2,
+          f"8e: {len(rolls_a)} and {len(rolls_b)} rollouts")
+    check(rolls_b == rolls_a[2:],
+          "8e: the resumed steps' rollouts differ from the uninterrupted run")
+    for a, b in zip(hist_a[2:], hist_b[2:]):
+        check(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"],
+              f"8e: resumed step {a['step'] + 1}: loss {b['loss']} vs "
+              f"{a['loss']}")
+    log(f"{cfg.name} 8e resume: checkpoint of {size:.2f} GiB saved in "
+        f"{t_save:.1f} s, loaded in {t_load:.1f} s; cursor 2, drafter "
+        f"{n_roll} rollouts restored; steps 3-4 token-identical at T=0.6 "
+        f"({sum(len(r) for rs in rolls_b for r in rs)} tokens), losses "
+        f"equal  [{card}]")
+    return read_launches()
+
+
+def phase_rl(torch, np, timer, card):
+    """Phase 8, the RL loop on the card; returns its launches (the
+    spec-verify ones at the 12/2-head shape)."""
+    phase_flash(torch, np, timer, card)
+    t0 = time.perf_counter()
+    cfg, params = full_width_model(torch, "qwen2-1.5b")
+    eng, prompts, pids, outs, l8b = phase_rl_rollouts(torch, np, card, cfg,
+                                                      params)
+    un = phase_rl_step(torch, np, card, cfg, params, prompts, outs)
+    l8d = phase_rl_after_update(torch, np, card, cfg, params, eng, prompts,
+                                pids, un)
+    del eng, params
+    torch.cuda.empty_cache()
+    l8e = phase_trainer(torch, np, card)
+    torch.cuda.empty_cache()
+    total = Counter()
+    for run in (l8b, l8d, l8e):
+        total.update({k: v for k, v in run.items()
+                      if k != "rglru_scan_by_shape"})
+    check(total["rglru_scan"] == 0 and
+          total["suffix_match_propose_chunked"] == 0,
+          f"phase 8 launched a kernel off its path: {dict(total)}")
+    total["spec_verify_attention_qwen2"] = total.pop("spec_verify_attention")
+    log(f"phase 8 (8b-8e) in {time.perf_counter() - t0:.1f} s; launches "
+        f"{dict(total)}  [{card}]")
+    return total
+
+
 def phase_cli(card):
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    base = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke"]
-    for args in (["--arch", "qwen3-8b", "--scope", "problem", "--rounds",
-                  "2"],
-                 ["--arch", "qwen2-1.5b", "--continuous"],
-                 ["--arch", "recurrentgemma-9b", "--rounds", "2"]):
+    for mod, args in (
+            ("serve", ["--arch", "qwen3-8b", "--scope", "problem",
+                       "--rounds", "2"]),
+            ("serve", ["--arch", "qwen2-1.5b", "--continuous"]),
+            ("serve", ["--arch", "recurrentgemma-9b", "--rounds", "2"]),
+            ("train", ["--arch", "qwen2-1.5b", "--steps", "2"])):
         t0 = time.perf_counter()
-        proc = subprocess.run(base + args, cwd=str(ROOT), env=env,
-                              capture_output=True, text=True, timeout=600)
+        proc = subprocess.run(
+            [sys.executable, "-m", f"repro_torch.launch.{mod}", "--smoke",
+             *args], cwd=str(ROOT), env=env, capture_output=True, text=True,
+            timeout=600)
         tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
-        check(proc.returncode == 0, f"serve CLI {' '.join(args)} exited "
+        check(proc.returncode == 0, f"{mod} CLI {' '.join(args)} exited "
               f"{proc.returncode}: {' | '.join(tail)}")
-        log(f"serve CLI {' '.join(args)} ok in "
+        log(f"{mod} CLI {' '.join(args)} ok in "
             f"{time.perf_counter() - t0:.1f} s [{card}]: {' | '.join(tail)}")
 
 
@@ -1792,6 +2286,11 @@ def main() -> None:
     del timer
     kernels["rglru_scan"]["launches"] = verify_n
     kernels["rglru_scan_prefill"]["launches"] = prefill_n
+    # phase 8: the RL loop on Qwen2-1.5B at its published config
+    timer = Timer(torch)
+    rl = phase_rl(torch, np, timer, card)
+    del timer
+    launches.update(rl)
     for arch in ("qwen3-8b", "recurrentgemma-9b"):
         phase_small_reference(torch, np, arch)
     phase_cli(card)

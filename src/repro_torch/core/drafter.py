@@ -551,6 +551,28 @@ class SuffixDrafter:
         """Reference path: fresh tree from the store window."""
         return self.index.rebuild(key, self.store.window(key), epoch=self.epoch)
 
+    def warm_trees(self) -> int:
+        """Eagerly (re)build every per-problem tree from the store — the
+        warm-start path after loading persisted history."""
+        n = 0
+        for key in self.store.keys():
+            if self.store.window(key):
+                self._rebuild(key)
+                n += 1
+        return n
+
+    def load_store(self, store) -> None:
+        """Swap in a (persisted) ``RolloutHistoryStore``; live trees are
+        dropped and rebuilt lazily per key (or eagerly via
+        ``warm_trees``). The drafter's configured window size wins over
+        the persisted one: shrinking evicts immediately, growing lets
+        the window refill naturally (evicted payloads are gone)."""
+        self.store = store
+        self.index.clear()
+        self.epoch = store.epoch
+        if store.window_size != self._window_size:
+            store.set_window_size(self._window_size)
+
     def begin_iteration(
         self, epoch: int, update_norm: Optional[float] = None
     ) -> None:

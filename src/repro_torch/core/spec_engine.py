@@ -130,6 +130,10 @@ class RolloutStats:
     def acceptance_per_round(self) -> float:
         return self.n_accepted / max(self.n_rounds, 1)
 
+    @property
+    def mean_accepted_per_fwd(self) -> float:
+        return self.n_toks_emitted / max(self.n_fwd, 1)
+
 
 def _emit_scan(
     cand: np.ndarray,  # (B, K+1) candidate emissions per row

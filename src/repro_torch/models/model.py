@@ -28,7 +28,9 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -181,6 +183,11 @@ def _run_block(blk: Block, x, cfg: ModelConfig, *, positions, cache, valid,
     return x + L.apply_mlp(blk.mlp, hm, cfg), new
 
 
+def _block_hidden(blk: Block, x, cfg: ModelConfig, positions, valid):
+    return _run_block(blk, x, cfg, positions=positions, cache=None,
+                      valid=valid, collect=False)[0]
+
+
 def head(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Final-norm hidden states (B,T,D) → float32 logits (B,T,V_padded)."""
     if cfg.tie_embeddings:
@@ -198,6 +205,7 @@ def forward(
     valid: Optional[torch.Tensor] = None,  # (B, T) bool
     return_hidden: bool = False,
     collect_states: bool = False,
+    remat: bool = False,
 ):
     """Returns (logits (B,T,V_padded) f32, cache | per-layer entries:
     (k, v, pos) for attention, {"h", "conv"} final states for RG-LRU).
@@ -208,8 +216,18 @@ def forward(
     left as they were and the returned ``Cache`` holds their staged
     per-step states instead (``apply_rglru(collect=True)``), for
     ``commit_staged_cache``. ``return_hidden`` returns the final-norm
-    hidden states instead of logits."""
-    x = params.embed[tokens].to(L.torch_dtype(cfg.dtype))
+    hidden states instead of logits (callers then use
+    ``rl.grpo.chunked_token_logprobs``, so the (B, T, V) float32 logits
+    never exist). ``remat`` checkpoints each block for the backward
+    (``torch.utils.checkpoint``, non-reentrant: activation recompute, the
+    reference's ``jax.checkpoint`` on the layer scan); a block run so
+    returns no cache entry (None)."""
+    if remat and cache is not None:
+        raise ValueError("remat is for full-sequence (training) forwards")
+    # F.embedding, not indexing: its backward on CUDA sums the rows of a
+    # repeated token in a fixed order (indexing's accumulates by atomics),
+    # so a training step is bit-reproducible
+    x = F.embedding(tokens, params.embed).to(L.torch_dtype(cfg.dtype))
     B, T = tokens.shape
     if positions is None:
         ar = torch.arange(T, dtype=torch.int32, device=x.device)[None]
@@ -217,6 +235,11 @@ def forward(
                      else ar.expand(B, T))
     kv_out = []
     for li, blk in enumerate(params.layers):
+        if remat:
+            x = checkpoint(_block_hidden, blk, x, cfg, positions, valid,
+                           use_reentrant=False)
+            kv_out.append(None)
+            continue
         c = cache.layers[li] if cache is not None else None
         x, kv = _run_block(blk, x, cfg, positions=positions, cache=c,
                            valid=valid, collect=collect_states)
@@ -311,3 +334,15 @@ def commit_staged_cache(cfg: ModelConfig, cache: Cache, staged: Cache,
 
 def param_count(params: Transformer) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+def set_trainable(params: Transformer) -> Transformer:
+    """Mark every parameter as one autograd differentiates, in place.
+    Parameters are created frozen (the engine only reads them); the
+    learner (``rl.grpo``) needs them trainable. Never call this, nor
+    create parameters, under ``torch.inference_mode()``: inference tensors
+    cannot be saved for a backward."""
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params
+

@@ -207,19 +207,6 @@ def test_bfloat16_leaves_cross_bit_exactly():
     np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
 
 
-def test_long_prefill_is_refused():
-    jcfg = jax_smoke_variant(jax_get_config("qwen3-8b"))
-    cfg = port_cfg(jcfg).replace(num_layers=1, vocab_size=64,
-                                 vocab_pad_multiple=64, d_model=64,
-                                 num_heads=2, num_kv_heads=1, head_dim=32,
-                                 d_ff=64)
-    params = TM.init_params(cfg, seed=0, device="cpu")
-    toks = torch.zeros((1, 2048), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="_flash_attn_train"):
-        TM.prefill(params, cfg, toks, torch.ones_like(toks, dtype=torch.bool),
-                   max_len=2048)
-
-
 def test_no_card_no_device_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     jcfg = jax_smoke_variant(jax_get_config("qwen3-8b"))
