@@ -8,7 +8,7 @@ imports only ``repro_torch``, torch and numpy. Phases (any failure exits
 non-zero; no phase's error is caught):
 
 1. device: the card's name and power limit (nvidia-smi), torch's view;
-2. build: the three CUDA sources from ``src/repro_torch/csrc`` with nvcc
+2. build: the four CUDA sources from ``src/repro_torch/csrc`` with nvcc
    for sm_90a, in parallel, with the ptxas register/shared-memory report;
 3. kernels against their plain PyTorch versions at main-path shapes
    (spec-verify attention within the bfloat16 tolerance at Qwen3-8B's
@@ -45,7 +45,11 @@ non-zero; no phase's error is caught):
    and 7); the suffix-match spy also keeps epoch 2's launches, of which
    the one that proposed most is the flat kernel's timing case at the
    path's own shape (after phase 5: bit-identical to the plain version,
-   kernel / plain / bound);
+   kernel / plain / bound); after phase 5 the same traffic again with
+   ``MICRO_R`` = 4 fused rounds a dispatch (the micro-loop): per epoch
+   the R = 1 run's tokens and verify rounds with strictly fewer result
+   downloads, spec-verify once per attention layer per dispatched
+   micro-round (the idle ones past the loop's exit included);
 5. continuous path: the same model through ``SpecEngine.serve`` — 24
    requests over 12 problems in 8 slots, two epochs, with the chunked
    forest and then, on a fresh engine and drafter, the flat one; the two
@@ -57,12 +61,14 @@ non-zero; no phase's error is caught):
    both epochs and of lock-step ``generate`` on the same prompts must be
    plain greedy's choice on its own prefix within the bf16 tolerance;
 6. the serving CLI as subprocesses (lock-step, ``--continuous``, and the
-   hybrid model) and the training CLI (``--smoke``), last of all;
+   hybrid model) and the training CLI (``--smoke``, Qwen2-1.5B and the
+   hybrid), last of all;
 7. RecurrentGemma-9B at full width (the Qwen3-8B weights freed first):
    phase 4's lock-step traffic and phase 5's continuous traffic (chunked
    forest only), gated as there, with one RG-LRU launch per recurrent
-   layer per forward and plain greedy's forwards run on the plain scan;
-   then (phase 8, below) the RL loop; then the small float32 variants
+   layer per forward and plain greedy's forwards run on the plain scan,
+   and the lock-step traffic again with R = 4 as in phase 4;
+   then (phases 8 and 9, below) the RL loops; then the small float32 variants
    of Qwen3-8B and RecurrentGemma-9B: lock-step and continuous (chunked)
    output against plain greedy decoding without cache or kernels;
 8. the RL loop on Qwen2-1.5B at its published config (28 layers,
@@ -96,20 +102,40 @@ non-zero; no phase's error is caught):
        checkpoint after step 2 into a temporary directory, from which a
        fresh trainer resumes with cursor 2 and the drafter's rollouts,
        and its steps 3-4 equal the uninterrupted run's token for token
-       (the sidecar carries the generator's state) with equal losses.
+       (the sidecar carries the generator's state) with equal losses;
+9. RecurrentGemma-9B training at its published widths, depth cut to 6
+   layers (two (rglru, rglru, local_attn) triples, 2.23 B parameters:
+   all 38 layers' weights, gradients and moments would take ~102 GB):
+   9a. the RG-LRU scan's backward kernel against its plain version on
+       the forward kernel's hs at the GRPO step's shape (B 4, T 2272, W
+       4096), with left pads, a ragged width and a width not a multiple
+       of 4: dx, dr, di and dh0 bit for bit, dΛ within
+       ``RGLRU_DLAM_TOL``; timed beside its bound after the timer's
+       floor, and the forward timed at the training shape;
+   9b. 8b's long-prompt rollouts and 8c's GRPO step on the cut hybrid:
+       every RG-LRU parameter's gradient non-zero in every recurrent
+       layer, one forward and one backward scan launch per recurrent
+       layer in the step, and with remat the same loss and gradients
+       with twice the forward launches;
+   9c. 8e's ``Trainer.run`` on the cut hybrid (T = 0.6, checkpoint,
+       token-identical resume), one backward launch per recurrent layer
+       per train step.
 
 The last lines are the card line, the per-kernel JSON line and the
 result line ``{"ok": true, "device": {...}}``. A kernel's ``launches``
 there sum every path that runs it, each counted from 0 (flat drafting:
-phase 4, phase 5's flat run, phase 7's lock-step run and phase 8; chunked
-drafting: phase 5's and phase 7's chunked runs; spec-verify at hd 128:
-phases 4 and 5; at hd 256 and the RG-LRU scan: phase 7; at Qwen2-1.5B's
-shape, ``spec_verify_attention_qwen2``: phase 8); the drafting
+phases 4 and 7 (R = 1 and R = 4), phase 5's flat run and phases 8 and 9;
+chunked drafting: phase 5's and phase 7's chunked runs; spec-verify at hd
+128: phases 4 and 5; at hd 256 and the RG-LRU scan: phases 7 and 9; at
+Qwen2-1.5B's shape, ``spec_verify_attention_qwen2``: phase 8; the scan's
+backward: phase 9); the drafting
 kernels' times and bounds there are at the path's own shapes (phases
 3b and 3c are logged). The scan has an entry per shape class, split by
 the wrapper's launches by (B, T): ``rglru_scan`` at the verify shape
 with the verify rounds' launches (T = 17), ``rglru_scan_prefill`` at the
-prefill shape with every prefill's; the two sum to the gated total. Its
+prefill shape with every other launch below T 2048, and
+``rglru_scan_long`` at phase 9's training shape with the launches at T
+>= 2048; the three sum to the gated total. Its
 bound counts x, r and i only at the steps the mask updates (the kernel
 loads nothing at a masked step); the log gives the bound reading every
 step beside it.
@@ -1084,6 +1110,7 @@ def reset_launches():
     sm_ops.LAUNCHES_CHUNKED = 0
     rg_ops.LAUNCHES = 0
     rg_ops.LAUNCHES_BY_SHAPE.clear()
+    rg_ops.BWD_LAUNCHES = 0
 
 
 def read_launches():
@@ -1095,7 +1122,8 @@ def read_launches():
             "suffix_match_propose": sm_ops.LAUNCHES,
             "suffix_match_propose_chunked": sm_ops.LAUNCHES_CHUNKED,
             "rglru_scan": rg_ops.LAUNCHES,
-            "rglru_scan_by_shape": Counter(rg_ops.LAUNCHES_BY_SHAPE)}
+            "rglru_scan_by_shape": Counter(rg_ops.LAUNCHES_BY_SHAPE),
+            "rglru_scan_bwd": rg_ops.BWD_LAUNCHES}
 
 
 def check_rglru_launches(cfg, launches, n_fwd, where):
@@ -1323,11 +1351,15 @@ def plain_rglru_scan():
         rg_ops.rglru_scan = saved
 
 
-def full_width_model(torch, arch):
+def full_width_model(torch, arch, layers=None):
+    """``arch`` at its published config, depth cut to ``layers`` if given;
+    random bf16 weights from seed 0, made on the card."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1340,7 +1372,10 @@ def full_width_model(torch, arch):
     return cfg, params
 
 
-def phase_main_path(torch, np, card, cfg, params):
+def phase_main_path(torch, np, card, cfg, params, micro_rounds=1):
+    """Phase 4's lock-step traffic (phase 7's for the hybrid), with up to
+    ``micro_rounds`` fused rounds a dispatch. Returns the launches, the
+    flat suffix-match spy and each epoch's (outputs, stats, wall s)."""
     from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
     from repro_torch.core.spec_engine import EngineConfig, SpecEngine
     from repro_torch.models import model as M
@@ -1352,10 +1387,13 @@ def phase_main_path(torch, np, card, cfg, params):
     eng = SpecEngine(
         params, cfg,
         EngineConfig(max_draft=16, block_buckets=(16,), max_new_tokens=256,
-                     eos_token=1, fuse_rounds="auto"),
+                     eos_token=1, fuse_rounds="auto",
+                     micro_rounds=micro_rounds),
         drafter=SuffixDrafter(DrafterConfig(scope="problem")),
         device="cuda",
     )
+    where = f"{cfg.name} lock-step" + (f" R={micro_rounds}"
+                                       if micro_rounds > 1 else "")
     rng = np.random.default_rng(1)
     problems = [[int(t) for t in rng.integers(2, cfg.vocab_size,
                                               size=int(rng.integers(128, 257)))]
@@ -1391,17 +1429,17 @@ def phase_main_path(torch, np, card, cfg, params):
             outs, st = eng.generate(prompts, pids, max_new_tokens=max_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        epochs.append((outs, st))
+        epochs.append((outs, st, wall))
         toks_n = st.n_toks_emitted
-        log(f"{cfg.name} epoch {ep + 1}: wall {wall * 1e3:.1f} ms, rounds "
+        log(f"{where} epoch {ep + 1}: wall {wall * 1e3:.1f} ms, rounds "
             f"{st.n_rounds}, "
             f"tokens {toks_n}, {toks_n / wall:.1f} tok/s, drafted "
             f"{st.n_drafted}, accepted {st.n_accepted} "
             f"({st.acceptance_per_round:.2f}/round), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
     launches = read_launches()
-    log(f"{cfg.name} lock-step path launches: {launches}")
-    (o1, s1), (o2, s2) = epochs
+    log(f"{where} path launches: {launches}")
+    (o1, s1, _), (o2, s2, _) = epochs
     for b, o in enumerate(o1):
         check(len(o) <= max_new[b], f"row {b} emitted {len(o)} > {max_new[b]}")
         check(all(0 <= t < cfg.vocab_size for t in o), f"row {b}: bad token")
@@ -1410,17 +1448,48 @@ def phase_main_path(torch, np, card, cfg, params):
     check(s2.n_rounds < s1.n_rounds, "epoch 2 did not cut verify rounds")
     check(launches["suffix_match_propose"] > 0,
           "suffix_match_propose never launched on the lock-step path")
-    check_sv_launches(cfg, launches, s1.n_rounds + s2.n_rounds,
-                      f"{cfg.name} lock-step")
-    spy.check(torch, card, f"{cfg.name} lock-step")
-    sm_spy.check(torch, card, f"{cfg.name} lock-step")
+    # every dispatched micro-round launches, the rounds past the loop's
+    # exit (``n_idle_rounds``) included
+    idle = s1.n_idle_rounds + s2.n_idle_rounds
+    check_sv_launches(cfg, launches, s1.n_rounds + s2.n_rounds + idle, where)
+    spy.check(torch, card, where)
+    sm_spy.check(torch, card, where)
     check(launches["suffix_match_propose_chunked"] == 0,
           "the chunked kernel launched on the flat lock-step path")
-    check_rglru_launches(cfg, launches, s1.n_fwd + s2.n_fwd,
-                         f"{cfg.name} lock-step")
+    check_rglru_launches(cfg, launches, s1.n_fwd + s2.n_fwd + idle, where)
     del eng
     torch.cuda.empty_cache()
-    return launches, sm_spy
+    return launches, sm_spy, epochs
+
+
+MICRO_R = 4  # the micro-loop's rounds a dispatch on the card
+
+
+def phase_micro(torch, np, card, cfg, params, ref):
+    """The lock-step traffic again with ``MICRO_R`` fused rounds a
+    dispatch (``EngineConfig.micro_rounds``), against ``ref``, the R = 1
+    run's epochs: per epoch the same tokens, the same verify rounds and
+    strictly fewer result downloads (``n_d2h``). Logs the rounds a
+    dispatch, the live micro-rounds of those dispatched and the wall a
+    round beside R = 1's. Returns the launches."""
+    launches, _, runs = phase_main_path(torch, np, card, cfg, params,
+                                        micro_rounds=MICRO_R)
+    for ep, ((o1, s1, w1), (o4, s4, w4)) in enumerate(zip(ref, runs)):
+        where = f"{cfg.name} R={MICRO_R} epoch {ep + 1}"
+        check(o4 == o1, f"{where}: tokens differ from the R = 1 run")
+        check(s4.n_rounds == s1.n_rounds, f"{where}: {s4.n_rounds} verify "
+              f"rounds, R = 1 ran {s1.n_rounds}")
+        check(s4.n_d2h < s1.n_d2h, f"{where}: n_d2h {s4.n_d2h} is not below "
+              f"R = 1's {s1.n_d2h}")
+        dispatched = s4.n_rounds + s4.n_idle_rounds
+        log(f"{where}: tokens and {s4.n_rounds} rounds equal to R = 1; "
+            f"{s4.n_dispatches} dispatches, {s4.n_rounds / s4.n_dispatches:.2f}"
+            f" rounds a dispatch, {s4.n_rounds} of {dispatched} dispatched "
+            f"micro-rounds live; n_d2h {s4.n_d2h} (R = 1: {s1.n_d2h}); wall a "
+            f"round {w4 / s4.n_rounds * 1e3:.2f} ms (R = 1: "
+            f"{w1 / s1.n_rounds * 1e3:.2f} ms); drafted {s4.n_drafted} "
+            f"(R = 1: {s1.n_drafted})  [{card}]")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1740,6 +1809,10 @@ FLASH_TOL = {"float32": dict(atol=1e-4, rtol=1e-3, grad=1e-4),
              "bfloat16": dict(atol=3e-2, rtol=1e-2, grad=3e-2)}
 # the GRPO surrogate at ratio 1 against -sum(adv * mask) / sum(mask)
 SURROGATE_RTOL = 1e-3
+# remat recomputes each block's forward with the same kernels in the
+# backward: its gradients against the step's, max |err| / max |ref| per
+# parameter (bf16 gradients; 0 when every kernel repeats its rounding)
+REMAT_GRAD_TOL = 1e-2
 # Learning rate of phase 8's AdamW steps. Adam's first steps move every
 # weight by about lr (the sign of its gradient), and the weights are bf16
 # with no master copy (the reference's rule): at 1e-4 every weight of the
@@ -1897,20 +1970,21 @@ def long_prompt_epochs(torch, np, card, cfg, eng, prompts, pids, epochs,
             f"{st.n_rounds}, tokens {st.n_toks_emitted}, drafted "
             f"{st.n_drafted}, accepted {st.n_accepted}  [{card}]")
     launches = read_launches()
-    check(flash.n == cfg.num_layers * len(epochs),
-          f"{where}: {flash.n} _flash calls, expected {cfg.num_layers} layers "
-          f"x {len(epochs)} prefills")
+    n_attn = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds)
+    check(flash.n == n_attn * len(epochs),
+          f"{where}: {flash.n} _flash calls, expected {n_attn} attention "
+          f"layers x {len(epochs)} prefills")
     if dev == "cuda":
         check_sv_launches(cfg, launches,
                           sum(st.n_rounds for _, st in runs), where)
         spy.check(torch, card, where)
-    log(f"{where}: {flash.n} _flash calls (one per layer per prefill); "
-        f"launches {launches}")
+    log(f"{where}: {flash.n} _flash calls (one per attention layer per "
+        f"prefill); launches {launches}")
     return runs, launches
 
 
 def phase_rl_rollouts(torch, np, card, cfg, params, dev="cuda",
-                      lens=(2100, 2200)):
+                      lens=(2100, 2200), tag="8b"):
     """8b: long-prompt rollouts, 4 rows over 2 problems (G = 2), prompts of
     2,100 and 2,200 seeded tokens, 64 new tokens, T = 0, lock-step, two
     epochs: epoch 2 equals epoch 1 and accepts drafts, the flat drafting
@@ -1931,34 +2005,62 @@ def phase_rl_rollouts(torch, np, card, cfg, params, dev="cuda",
     prompts = [problems[i // 2] for i in range(4)]
     pids = [f"long{i // 2}" for i in range(4)]
     runs, launches = long_prompt_epochs(torch, np, card, cfg, eng, prompts,
-                                        pids, (0, 1), f"{cfg.name} 8b",
+                                        pids, (0, 1), f"{cfg.name} {tag}",
                                         dev=dev)
     (o1, _), (o2, s2) = runs
-    check(o2 == o1, "8b: epoch 2 outputs differ from epoch 1 (T=0)")
-    check(s2.n_accepted > 0, "8b: epoch 2 accepted no drafts")
+    check(o2 == o1, f"{tag}: epoch 2 outputs differ from epoch 1 (T=0)")
+    check(s2.n_accepted > 0, f"{tag}: epoch 2 accepted no drafts")
     check(dev != "cuda" or launches["suffix_match_propose"] > 0,
-          "8b: the drafting kernel never launched")
+          f"{tag}: the drafting kernel never launched")
     plain_greedy_full_width(torch, np, cfg, params, prompts,
-                            {"8b epoch 1": o1, "8b epoch 2": o2}, card)
+                            {f"{tag} epoch 1": o1, f"{tag} epoch 2": o2},
+                            card)
     return eng, prompts, pids, o1, launches
 
 
+RGLRU_PARAMS = ("wx", "wy", "wo", "conv", "w_a", "w_i", "lam")
+
+
+def check_layer_grads(cfg, grads, tag):
+    """Every attention layer's wq/wk/wv gradient and every RG-LRU layer's
+    gradient of each of its parameters is non-zero somewhere."""
+    for li, kind in enumerate(cfg.layer_kinds):
+        names = ([f"rglru.{w}" for w in RGLRU_PARAMS] if kind == "rglru"
+                 else [f"attn.{w}" for w in ("wq", "wk", "wv")])
+        for w in names:
+            g = grads[f"layers.{li}.{w}"]
+            check(bool((g != 0).any()), f"{tag}: layer {li} ({kind}) {w} "
+                  "gradient is 0")
+
+
+def scan_launch_delta(before, after):
+    return (after["rglru_scan"] - before["rglru_scan"],
+            after["rglru_scan_bwd"] - before["rglru_scan_bwd"])
+
+
 def phase_rl_step(torch, np, card, cfg, params, prompts, outs,
-                  dev="cuda"):
-    """8c: one GRPO step at S >= 2048 on 8b's epoch-1 batch, seeded
-    non-zero advantages, ``old_logprobs`` from ``compute_old_logprobs``:
-    the surrogate at ratio 1, finite gradients, non-zero ones in every
-    layer's wq/wk/wv, the update norm, and a lower surrogate after the
-    step. Returns the step's update norm."""
+                  dev="cuda", tag="8c", remat_check=False):
+    """8c (9b for the hybrid): one GRPO step at S >= 2048 on the rollouts'
+    epoch-1 batch, seeded non-zero advantages, ``old_logprobs`` from
+    ``compute_old_logprobs``: the surrogate at ratio 1, finite gradients,
+    non-zero ones in every attention layer's wq/wk/wv and every RG-LRU
+    layer's parameters, one forward and one backward RG-LRU launch per
+    recurrent layer (on the card), the update norm, and a lower surrogate
+    after the step. With ``remat_check``, the loss and gradients again
+    with ``GRPOConfig(remat=True)`` first: the same loss and gradients,
+    two forward launches per recurrent layer. Returns the step's update
+    norm and the launches from the start of the phase."""
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
     from repro_torch.rl import grpo
     from repro_torch.rl.rollout import pack_train_arrays
 
+    n_rec = sum(k == "rglru" for k in cfg.layer_kinds)
+    reset_launches()
     tokens, resp = pack_train_arrays(prompts, outs)
     adv = np.random.default_rng(82).normal(size=len(prompts)).astype(
         np.float32)
-    check(bool((adv != 0).all()), "8c: an advantage is 0")
+    check(bool((adv != 0).all()), f"{tag}: an advantage is 0")
     M.set_trainable(params)
     tok = torch.tensor(tokens, device=dev)
     batch = {"tokens": tok, "resp_mask": torch.tensor(resp, device=dev),
@@ -1970,49 +2072,81 @@ def phase_rl_step(torch, np, card, cfg, params, prompts, outs,
     sync(torch, dev)
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    before = read_launches()
     t0 = time.perf_counter()
     loss, _ = grpo.grpo_loss(params, cfg, gcfg, batch)
     grads = grpo.param_grads(params, loss)
     loss = float(loss.detach())
     sync(torch, dev)
     t_grad = time.perf_counter() - t0
-    params, opt, om = adamw.apply_updates(ocfg, params, grads, opt)
-    sync(torch, dev)
-    t_step = time.perf_counter() - t0
     peak = (torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda"
             else float("nan"))
+    fwd, bwd = scan_launch_delta(before, read_launches())
+    check(dev != "cuda" or (fwd, bwd) == (n_rec, n_rec),
+          f"{tag}: {fwd} forward and {bwd} backward RG-LRU launches in the "
+          f"step, expected {n_rec} each (one per recurrent layer)")
+    remat = ""
+    if remat_check:
+        before = read_launches()
+        t0 = time.perf_counter()
+        rloss, _ = grpo.grpo_loss(params, cfg,
+                                  grpo.GRPOConfig(remat=True), batch)
+        rgrads = grpo.param_grads(params, rloss)
+        sync(torch, dev)
+        t_remat = time.perf_counter() - t0
+        rfwd, rbwd = scan_launch_delta(before, read_launches())
+        check(dev != "cuda" or (rfwd, rbwd) == (2 * n_rec, n_rec),
+              f"{tag} remat: {rfwd} forward and {rbwd} backward RG-LRU "
+              f"launches, expected {2 * n_rec} and {n_rec}")
+        rl = float(rloss.detach())
+        check(rl == loss, f"{tag} remat: loss {rl} differs from {loss}")
+        worst = max(float((rgrads[k].float() - g.float()).abs().max()
+                          / g.float().abs().max().clamp(min=1e-30))
+                    for k, g in grads.items())
+        check(worst <= REMAT_GRAD_TOL, f"{tag} remat: gradients differ by "
+              f"{worst:.3e} of their largest magnitude")
+        del rgrads, rloss
+        remat = (f"; with remat: the same loss, gradients within {worst:.2e} "
+                 f"of their largest magnitude, {rfwd} forward / {rbwd} "
+                 f"backward RG-LRU launches, {t_remat:.3f} s")
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, om = adamw.apply_updates(ocfg, params, grads, opt)
+    sync(torch, dev)
+    t_step = t_grad + time.perf_counter() - t0
+    if dev == "cuda":  # the step's peak: loss and gradients, or the update
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
     want = float(-(adv[:, None] * resp).sum() / resp.sum())
     check(abs(loss - want) <= SURROGATE_RTOL * abs(want),
-          f"8c: surrogate {loss} at ratio 1, expected {want}")
+          f"{tag}: surrogate {loss} at ratio 1, expected {want}")
     gn = float(om["grad_norm"])
-    check(np.isfinite(gn) and gn > 0, f"8c: grad_norm {gn}")
+    check(np.isfinite(gn) and gn > 0, f"{tag}: grad_norm {gn}")
     bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
-    check(not bad, f"8c: non-finite gradients in {bad[:4]}")
-    for li in range(cfg.num_layers):
-        for w in ("wq", "wk", "wv"):
-            g = grads[f"layers.{li}.attn.{w}"]
-            check(bool((g != 0).any()), f"8c: layer {li} {w} gradient is 0")
+    check(not bad, f"{tag}: non-finite gradients in {bad[:4]}")
+    check_layer_grads(cfg, grads, tag)
     lr = float(om["lr"])
     un_want = lr * min(1.0, ocfg.grad_clip / gn) * gn
     un = float(om["update_norm"])
     check(abs(un - un_want) <= 1e-5 * un_want,
-          f"8c: update_norm {un}, expected lr*min(1, clip/gnorm)*gnorm "
+          f"{tag}: update_norm {un}, expected lr*min(1, clip/gnorm)*gnorm "
           f"{un_want}")
     del grads
     with torch.no_grad():
         after, _ = grpo.grpo_loss(params, cfg, gcfg, batch)
     after = float(after)
-    check(after < loss, f"8c: surrogate after the step {after} is not "
+    check(after < loss, f"{tag}: surrogate after the step {after} is not "
           f"below {loss}")
     B, S = tokens.shape
-    log(f"{cfg.name} 8c GRPO step (B={B}, S={S}, {int(resp.sum())} response "
-        f"tokens, no remat): surrogate {loss:.6f} at ratio 1 (expected "
-        f"{want:.6f}), after the step {after:.6f}; grad_norm {gn:.4f}, lr "
-        f"{lr:g}, update_norm {un:.6f}; every gradient finite, every "
-        f"layer's wq/wk/wv gradient non-zero; loss + gradients "
-        f"{t_grad:.3f} s, with the AdamW update {t_step:.3f} s, peak memory "
-        f"{peak:.2f} GiB  [{card}]")
-    return un
+    log(f"{cfg.name} {tag} GRPO step (B={B}, S={S}, {int(resp.sum())} "
+        f"response tokens, no remat): surrogate {loss:.6f} at ratio 1 "
+        f"(expected {want:.6f}), after the step {after:.6f}; grad_norm "
+        f"{gn:.4f}, lr {lr:g}, update_norm {un:.6f}; every gradient finite, "
+        f"every attention layer's wq/wk/wv and every RG-LRU layer's "
+        f"parameters' gradient non-zero; {fwd} forward / {bwd} backward "
+        f"RG-LRU launches; loss + gradients {t_grad:.3f} s, with the AdamW "
+        f"update {t_step:.3f} s, peak memory {peak:.2f} GiB{remat}  [{card}]")
+    return un, read_launches()
 
 
 def phase_rl_after_update(torch, np, card, cfg, params, eng, prompts, pids,
@@ -2029,12 +2163,14 @@ def phase_rl_after_update(torch, np, card, cfg, params, eng, prompts, pids,
     return launches
 
 
-def phase_trainer(torch, np, card, cfg=None, dev="cuda"):
-    """8e: ``Trainer.run`` end to end at full width: the pattern task (8
-    problems), 4 prompts a step, G = 2, 32 new tokens, 4 SFT warmup steps
-    then 4 GRPO steps at temperature 0.6, a checkpoint after step 2 into
-    a temporary directory; a fresh trainer loaded from it resumes steps 3
-    and 4 token for token. Returns the launches of both runs."""
+def phase_trainer(torch, np, card, cfg=None, dev="cuda", tag="8e"):
+    """8e (9c for the hybrid): ``Trainer.run`` end to end at full width:
+    the pattern task (8 problems), 4 prompts a step, G = 2, 32 new tokens,
+    4 SFT warmup steps then 4 GRPO steps at temperature 0.6, a checkpoint
+    after step 2 into a temporary directory; a fresh trainer loaded from
+    it resumes steps 3 and 4 token for token. On the card, every train
+    step runs one backward RG-LRU launch per recurrent layer. Returns the
+    launches of both runs."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -2046,6 +2182,7 @@ def phase_trainer(torch, np, card, cfg=None, dev="cuda"):
 
     cfg = cfg or get_config("qwen2-1.5b")
     n_attn = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds)
+    n_rec = sum(k == "rglru" for k in cfg.layer_kinds)
 
     def trainer():
         return Trainer(
@@ -2095,14 +2232,14 @@ def phase_trainer(torch, np, card, cfg=None, dev="cuda"):
     with tempfile.TemporaryDirectory() as tmp:
         tr = trainer()
         rolls_a = []
-        watch(tr, rolls_a, "8e")
+        watch(tr, rolls_a, tag)
         t0 = time.perf_counter()
         tr.run(steps=2)  # the SFT warmup, then steps 1-2
         sft = tr.sft_losses
-        log(f"{cfg.name} 8e SFT warmup CE by step: "
+        log(f"{cfg.name} {tag} SFT warmup CE by step: "
             f"{', '.join(f'{x:.4f}' for x in sft)}; with steps 1-2 "
             f"{time.perf_counter() - t0:.1f} s  [{card}]")
-        check(sft[-1] < sft[0], f"8e: SFT loss did not fall: {sft}")
+        check(sft[-1] < sft[0], f"{tag}: SFT loss did not fall: {sft}")
         path = os.path.join(tmp, "step2.npz")
         t0 = time.perf_counter()
         tr.save_checkpoint(path)
@@ -2110,7 +2247,7 @@ def phase_trainer(torch, np, card, cfg=None, dev="cuda"):
         n_roll = tr.engine.drafter.store.n_rollouts
         hist_a = tr.run(steps=4)
         tr.close()
-        log_steps(hist_a, f"{cfg.name} 8e")
+        log_steps(hist_a, f"{cfg.name} {tag}")
         del tr
         if dev == "cuda":
             torch.cuda.empty_cache()
@@ -2120,29 +2257,35 @@ def phase_trainer(torch, np, card, cfg=None, dev="cuda"):
         sync(torch, dev)
         t_load = time.perf_counter() - t0
         size = os.path.getsize(path) / 2**30
-    check(tr._step == 2, f"8e: the resumed trainer's cursor is {tr._step}")
+    check(tr._step == 2, f"{tag}: the resumed trainer's cursor is {tr._step}")
     check(tr.engine.drafter.store.n_rollouts == n_roll,
-          f"8e: the resumed drafter holds {tr.engine.drafter.store.n_rollouts}"
+          f"{tag}: the resumed drafter holds {tr.engine.drafter.store.n_rollouts}"
           f" rollouts, the checkpointed one {n_roll}")
     rolls_b = []
-    watch(tr, rolls_b, "8e resumed")
+    watch(tr, rolls_b, f"{tag} resumed")
     hist_b = tr.run(steps=4)
     tr.close()
-    log_steps(hist_b[2:], f"{cfg.name} 8e resumed")
+    log_steps(hist_b[2:], f"{cfg.name} {tag} resumed")
     check(len(rolls_a) == 4 and len(rolls_b) == 2,
-          f"8e: {len(rolls_a)} and {len(rolls_b)} rollouts")
+          f"{tag}: {len(rolls_a)} and {len(rolls_b)} rollouts")
     check(rolls_b == rolls_a[2:],
-          "8e: the resumed steps' rollouts differ from the uninterrupted run")
+          f"{tag}: the resumed steps' rollouts differ from the uninterrupted "
+          "run")
     for a, b in zip(hist_a[2:], hist_b[2:]):
         check(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"],
-              f"8e: resumed step {a['step'] + 1}: loss {b['loss']} vs "
+              f"{tag}: resumed step {a['step'] + 1}: loss {b['loss']} vs "
               f"{a['loss']}")
-    log(f"{cfg.name} 8e resume: checkpoint of {size:.2f} GiB saved in "
+    log(f"{cfg.name} {tag} resume: checkpoint of {size:.2f} GiB saved in "
         f"{t_save:.1f} s, loaded in {t_load:.1f} s; cursor 2, drafter "
         f"{n_roll} rollouts restored; steps 3-4 token-identical at T=0.6 "
         f"({sum(len(r) for rs in rolls_b for r in rs)} tokens), losses "
         f"equal  [{card}]")
-    return read_launches()
+    launches = read_launches()
+    steps = len(sft) + len(hist_a) + len(hist_b) - 2
+    check(dev != "cuda" or launches["rglru_scan_bwd"] == n_rec * steps,
+          f"{tag}: {launches['rglru_scan_bwd']} backward RG-LRU launches, "
+          f"expected {n_rec} recurrent layers x {steps} train steps")
+    return launches
 
 
 def phase_rl(torch, np, timer, card):
@@ -2153,7 +2296,7 @@ def phase_rl(torch, np, timer, card):
     cfg, params = full_width_model(torch, "qwen2-1.5b")
     eng, prompts, pids, outs, l8b = phase_rl_rollouts(torch, np, card, cfg,
                                                       params)
-    un = phase_rl_step(torch, np, card, cfg, params, prompts, outs)
+    un, _ = phase_rl_step(torch, np, card, cfg, params, prompts, outs)
     l8d = phase_rl_after_update(torch, np, card, cfg, params, eng, prompts,
                                 pids, un)
     del eng, params
@@ -2164,13 +2307,174 @@ def phase_rl(torch, np, timer, card):
     for run in (l8b, l8d, l8e):
         total.update({k: v for k, v in run.items()
                       if k != "rglru_scan_by_shape"})
-    check(total["rglru_scan"] == 0 and
+    check(total["rglru_scan"] == 0 and total["rglru_scan_bwd"] == 0 and
           total["suffix_match_propose_chunked"] == 0,
           f"phase 8 launched a kernel off its path: {dict(total)}")
     total["spec_verify_attention_qwen2"] = total.pop("spec_verify_attention")
     log(f"phase 8 (8b-8e) in {time.perf_counter() - t0:.1f} s; launches "
         f"{dict(total)}  [{card}]")
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 9: RecurrentGemma-9B training (published widths, depth cut)
+# ---------------------------------------------------------------------------
+
+# Bf16 weights and gradients with float32 moments (12 bytes a parameter:
+# no master copy, the reference's rule) of all 38 layers take about 102
+# GB, more than the card's 80: phase 9 keeps two (rglru, rglru,
+# local_attn) triples, 2.23 B parameters, every width as published.
+HYBRID_TRAIN_LAYERS = 6
+# The GRPO step's sequence length in 9b (prompts of 2,100 and 2,200 tokens
+# and 64 new ones, packed): the backward kernel's training shape.
+TRAIN_S = 2272
+# float32 operations a (b, t, w) step of the backward does: log a (2
+# products), a and exp(2 log a) (2 exp, a product), 1 - e, the clip (2),
+# the square root, the division, i·x, and the carry's chain (14 products
+# and sums)
+RGLRU_BWD_OPS_PER_STEP = 25
+# (label, B, T, W, mask): the GRPO step's shape (no mask, as training
+# runs it), the same with left pads, a ragged width and a width that is
+# not a multiple of 4
+RGLRU_BWD_CASES = [("train", 4, TRAIN_S, 4096, None),
+                   ("train, left pads", 4, TRAIN_S, 4096, "left pads"),
+                   ("ragged width", 3, 40, 4000, None),
+                   ("odd width", 2, 33, 4001, "rows masked out")]
+# dΛ sums B · T products a lane; the kernel repeats the plain version's
+# order, and dΛ is held to this tolerance (its bits are reported)
+RGLRU_DLAM_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def rglru_bwd_bytes(B, T, W, mask):
+    """Bytes the backward's result depends on, and the updated steps: x,
+    r, i and h_{t-1} at the updated steps, dhs at every step, dx, dr and di
+    written at every step (32 bytes a (b, t, w) without a mask), h0,
+    dh_final and dh0, Λ and dΛ once, and the mask."""
+    kept = B * T if mask is None else int(mask.sum())
+    nbytes = 4 * (4 * kept * W + 4 * B * T * W + 3 * B * W + 2 * W)
+    if mask is not None:
+        nbytes += mask.numel()
+    return nbytes, kept
+
+
+def rglru_bwd_bound_ms(B, T, W, mask):
+    nbytes, kept = rglru_bwd_bytes(B, T, W, mask)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = RGLRU_BWD_OPS_PER_STEP * kept * W / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rglru_long_launches(by_shape, long_t=2048):
+    """The forward scan's launches at T >= 2048 (phase 9's training steps
+    and long prefills), a part of ``rglru_launch_split``'s prefill count."""
+    return sum(n for (_, t), n in by_shape.items() if t >= long_t)
+
+
+def rglru_bwd_case(torch, np, timer, card, label, B, T, W, mk, seed):
+    """One 9a case: the backward kernel against the plain version on the
+    forward kernel's hs (dx, dr, di, dh0 bit for bit, dΛ within
+    RGLRU_DLAM_TOL), then kernel, plain and bound times."""
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_bwd_ref
+
+    x, r, i, lam, h0 = rglru_inputs(torch, np, B, T, W, seed)
+    mask = rglru_mask(torch, np, mk, B, T)
+    hs, _ = rg_ops.rglru_scan_cuda(x, r, i, lam, h0, mask)
+    rng = np.random.default_rng(seed + 1)
+    dhs = torch.tensor(rng.normal(size=(B, T, W)), dtype=torch.float32,
+                       device="cuda")
+    dhf = torch.tensor(rng.normal(size=(B, W)), dtype=torch.float32,
+                       device="cuda")
+    args = (x, r, i, lam, h0, hs, dhs, dhf, mask)
+    got = rg_ops.rglru_scan_bwd_cuda(*args)
+    want = rglru_scan_bwd_ref(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    where = f"rglru_scan_bwd {label} (B={B} T={T} W={W}, {mk})"
+    for name, g, w in zip(("dx", "dr", "di", "dlam", "dh0"), got, want):
+        check(bool(torch.isfinite(g).all()), f"{where} {name}: non-finite")
+        e = float((g - w).abs().max())
+        err = max(err, e)
+        if name == "dlam":
+            dlam_exact = torch.equal(g, w)
+            check(torch.allclose(g, w, **RGLRU_DLAM_TOL),
+                  f"{where} dlam: max |err| {e}")
+        else:
+            check(torch.equal(g, w), f"{where} {name}: not bit-identical to "
+                  f"the plain version (max |err| {e})")
+    ms = timer.ms(lambda: rg_ops.rglru_scan_bwd_cuda(*args), 20)
+    plain_ms = timer.ms(lambda: rglru_scan_bwd_ref(*args), 2, warmup=1)
+    bound_ms, bound_by = rglru_bwd_bound_ms(B, T, W, mask)
+    log(f"{where}: dx, dr, di, dh0 bit-identical to the plain version, dΛ "
+        f"{'bit-identical' if dlam_exact else 'within the tolerance'} (max "
+        f"|err| {err:.3e}); kernel {ms * 1e3:.1f} us, plain "
+        f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+        f"({bound_by})  [{card}]")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_rglru_bwd(torch, np, timer, card):
+    """9a: the backward kernel at RGLRU_BWD_CASES after the timer's floor,
+    and the forward kernel timed at the training shape. Returns the kernels
+    JSON line's entries ``rglru_scan_bwd`` and ``rglru_scan_long`` (the
+    forward at T >= 2048), launches set after phase 9."""
+    timer_floor(torch, np, timer, card)
+    res = {label: rglru_bwd_case(torch, np, timer, card, label, B, T, W, mk,
+                                 90 + 4 * ci)
+           for ci, (label, B, T, W, mk) in enumerate(RGLRU_BWD_CASES)}
+    fwd = rglru_case(torch, np, timer, card, "train", 4, TRAIN_S, 4096,
+                     None, 110)
+    r = res["train"]
+    common = dict(route="cuda", library_ms=None)
+    return [dict(name="rglru_scan_bwd",
+                 source="src/repro_torch/csrc/rglru_bwd.cu",
+                 replaces="src/repro/models/layers.py:665",
+                 max_abs_err=max(v["err"] for v in res.values()),
+                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                 bound_by=r["bound_by"], **common),
+            dict(name="rglru_scan_long", source="src/repro_torch/csrc/rglru.cu",
+                 replaces="src/repro/kernels/rglru/kernel.py:64",
+                 max_abs_err=fwd["err"], ms=fwd["ms"],
+                 plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
+                 bound_by=fwd["bound_by"], **common)]
+
+
+def phase_hybrid_train(torch, np, timer, card):
+    """Phase 9: 9a (the backward kernel), then RecurrentGemma-9B at its
+    published widths cut to HYBRID_TRAIN_LAYERS layers: 9b, long-prompt
+    rollouts (phase 8b's traffic) and one GRPO step at S >= 2048 on them,
+    with the remat check; 9c, ``Trainer.run`` with a checkpoint and a
+    token-identical resume. Returns the JSON entries of 9a, the launches
+    of 9b and 9c and their forward scan launches by (B, T)."""
+    entries = phase_rglru_bwd(torch, np, timer, card)
+    t0 = time.perf_counter()
+    cfg, params = full_width_model(torch, "recurrentgemma-9b",
+                                   layers=HYBRID_TRAIN_LAYERS)
+    eng, prompts, _, outs, l_roll = phase_rl_rollouts(
+        torch, np, card, cfg, params, tag="9b")
+    del eng
+    _, l_step = phase_rl_step(torch, np, card, cfg, params, prompts, outs,
+                              tag="9b", remat_check=True)
+    del params
+    torch.cuda.empty_cache()
+    l_tr = phase_trainer(torch, np, card, cfg=cfg, tag="9c")
+    torch.cuda.empty_cache()
+    total, shapes = Counter(), Counter()
+    for run in (l_roll, l_step, l_tr):
+        total.update({k: v for k, v in run.items()
+                      if k != "rglru_scan_by_shape"})
+        shapes.update(run["rglru_scan_by_shape"])
+    check(total["rglru_scan"] > 0 and total["rglru_scan_bwd"] > 0
+          and total["suffix_match_propose"] > 0,
+          f"phase 9 left a kernel of its path unlaunched: {dict(total)}")
+    check(total["suffix_match_propose_chunked"] == 0,
+          f"phase 9 launched the chunked kernel: {dict(total)}")
+    total["spec_verify_attention_hd256"] = total.pop("spec_verify_attention")
+    log(f"phase 9 (9b-9c, {cfg.num_layers} layers) in "
+        f"{time.perf_counter() - t0:.1f} s; launches {dict(total)}; RG-LRU "
+        f"forward launches by (B, T) {dict(shapes)}  [{card}]")
+    return entries, total, shapes
 
 
 def phase_cli(card):
@@ -2180,7 +2484,8 @@ def phase_cli(card):
                        "--rounds", "2"]),
             ("serve", ["--arch", "qwen2-1.5b", "--continuous"]),
             ("serve", ["--arch", "recurrentgemma-9b", "--rounds", "2"]),
-            ("train", ["--arch", "qwen2-1.5b", "--steps", "2"])):
+            ("train", ["--arch", "qwen2-1.5b", "--steps", "2"]),
+            ("train", ["--arch", "recurrentgemma-9b", "--steps", "2"])):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", f"repro_torch.launch.{mod}", "--smoke",
@@ -2216,7 +2521,7 @@ def main() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    sources = ["spec_verify", "suffix_match", "rglru"]
+    sources = ["spec_verify", "suffix_match", "rglru", "rglru_bwd"]
     _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc sm_90a, parallel)  "
         f"[{card}]")
@@ -2241,9 +2546,10 @@ def main() -> None:
         rglru_shapes.update(run["rglru_scan_by_shape"])
 
     cfg, params = full_width_model(torch, "qwen3-8b")
-    lock, flat_spy = phase_main_path(torch, np, card, cfg, params)
+    lock, flat_spy, lock_runs = phase_main_path(torch, np, card, cfg, params)
     cont, chunked_spy = phase_continuous(torch, np, card, cfg, params)
-    for run in (lock, cont["chunked"], cont["flat"]):
+    micro = phase_micro(torch, np, card, cfg, params, lock_runs)
+    for run in (lock, cont["chunked"], cont["flat"], micro):
         add(run)
     # the drafting kernels at the path's own shapes (phases 4 and 5)
     for spy, name in ((flat_spy, "suffix_match_propose"),
@@ -2256,22 +2562,17 @@ def main() -> None:
     # phase 7: RecurrentGemma-9B, whose main path runs the RG-LRU kernel
     # and spec-verify at head_dim 256 (lock-step and continuous runs)
     cfg, params = full_width_model(torch, "recurrentgemma-9b")
-    hybrid, _ = phase_main_path(torch, np, card, cfg, params)
+    hybrid, _, hybrid_runs = phase_main_path(torch, np, card, cfg, params)
     cont, _ = phase_continuous(torch, np, card, cfg, params,
                                layouts=("chunked",))
-    for run in (hybrid, cont["chunked"]):
+    hmicro = phase_micro(torch, np, card, cfg, params, hybrid_runs)
+    for run in (hybrid, cont["chunked"], hmicro):
         add(run, skip=("spec_verify_attention",))
-    launches["spec_verify_attention_hd256"] = (
-        hybrid["spec_verify_attention"]
-        + cont["chunked"]["spec_verify_attention"])
+        launches["spec_verify_attention_hd256"] += run["spec_verify_attention"]
     del params
     torch.cuda.empty_cache()
-    # the scan's launches by shape class (phase 7), and the admission
-    # prefill shape its continuous run launched most, timed as phase 3d
-    verify_n, prefill_n = rglru_launch_split(rglru_shapes)
-    check(verify_n + prefill_n == launches["rglru_scan"],
-          f"RG-LRU launches by shape ({verify_n} verify + {prefill_n} "
-          f"prefill) differ from the total {launches['rglru_scan']}")
+    # the admission prefill shape phase 7's continuous run launched most,
+    # timed as phase 3d
     admissions = Counter({bt: n for bt, n in
                           cont["chunked"]["rglru_scan_by_shape"].items()
                           if bt[1] != VERIFY_T})
@@ -2284,13 +2585,30 @@ def main() -> None:
     rglru_case(torch, np, timer, card, "admission", aB, aT, cfg.rnn_width,
                "bucket pads", 80)
     del timer
-    kernels["rglru_scan"]["launches"] = verify_n
-    kernels["rglru_scan_prefill"]["launches"] = prefill_n
     # phase 8: the RL loop on Qwen2-1.5B at its published config
     timer = Timer(torch)
     rl = phase_rl(torch, np, timer, card)
     del timer
     launches.update(rl)
+    # phase 9: RecurrentGemma-9B training (the scan's backward kernel)
+    timer = Timer(torch)
+    entries, l9, shapes9 = phase_hybrid_train(torch, np, timer, card)
+    del timer
+    kernels.update({k["name"]: k for k in entries})
+    launches.update(l9)
+    rglru_shapes.update(shapes9)
+    # the scan's launches by shape class (phases 7 and 9)
+    verify_n, prefill_n = rglru_launch_split(rglru_shapes)
+    long_n = rglru_long_launches(rglru_shapes)
+    check(verify_n + prefill_n == launches["rglru_scan"],
+          f"RG-LRU launches by shape ({verify_n} verify + {prefill_n} "
+          f"prefill) differ from the total {launches['rglru_scan']}")
+    log(f"RG-LRU forward launches: {verify_n} at the verify shape, "
+        f"{prefill_n - long_n} prefills below T 2048, {long_n} at T >= 2048; "
+        f"{launches['rglru_scan_bwd']} backward  [{card}]")
+    kernels["rglru_scan"]["launches"] = verify_n
+    kernels["rglru_scan_prefill"]["launches"] = prefill_n - long_n
+    kernels["rglru_scan_long"]["launches"] = long_n
     for arch in ("qwen3-8b", "recurrentgemma-9b"):
         phase_small_reference(torch, np, arch)
     phase_cli(card)

@@ -1,7 +1,6 @@
 """Fused device-resident verify rounds (draft → verify → accept in one
 round function over device tensors) — the port's counterpart of
-``repro.core.fused_round`` (R = 1; the R-round micro-loop is not ported
-yet).
+``repro.core.fused_round``, with its R-round micro-loop (``fused_micro``).
 
 One round:
 
@@ -18,6 +17,14 @@ rounds. The host uploads one (B,) budget vector per round and downloads
 one packed (B, K+5) result: ``[cand tokens | accepted | n_take | alive |
 n_prop]``. Where the reference donates the cache and state buffers to its
 jitted round, the port updates them in place.
+
+The micro-loop (``fused_micro``, R > 1; lock-step ``generate``) enqueues
+R rounds per dispatch with no host read between them. PyTorch eager has
+no device-side ``while``, so the reference's early exit becomes a device
+flag: round i acts only while ``go`` holds (some row active, no row's
+``active`` changed since the dispatch began, i < R), and a round past the
+exit runs its kernels over no row and changes nothing. The host downloads
+the (R, B, K+5) rounds and the live count ``n_done`` in one transfer.
 """
 
 from __future__ import annotations
@@ -112,18 +119,21 @@ def fused_round(
     state: RoundState, roots: torch.Tensor, budgets: torch.Tensor, *,
     K: int, temperature: float, eos_token: int, min_match: int,
     generator: Optional[torch.Generator] = None,
+    go: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One fused round over device tensors: propose → verify → commit →
     state. ``forest`` is a ``PackedForest`` (roots are node ids) or a
     ``ChunkedForest`` (roots are tree ordinals); ``propose_device``
     routes on its type. ``cache`` and ``state`` are updated in place. Returns ``out``
     (B, K+5) int32 = ``[cand (K+1) | accepted | n_take | alive | n_prop]``;
-    rows outside ``state.active`` carry zeros in the bookkeeping columns
-    and leave cache/state untouched."""
+    the round acts on the rows of ``state.active`` (ANDed with the 0-d
+    bool ``go`` when given): the others carry zeros in the bookkeeping
+    columns and leave cache and state untouched (the attention ring's
+    trash slot, which nothing reads, takes their block's K/V)."""
     B, m = state.tails.shape
     dev = state.tails.device
     i32 = torch.int32
-    active = state.active.clone()
+    active = state.active.clone() if go is None else state.active & go
     if K > 0:
         # Rows without a packed tree (root < 0) or without budget propose
         # nothing and take a plain AR step — as in the unfused path.
@@ -159,7 +169,7 @@ def fused_round(
     fed_tails = comb.gather(1, idx.long())
     state.head.copy_(torch.where(alive, next_tok, state.head))
     state.tails.copy_(torch.where(alive[:, None], fed_tails, state.tails))
-    state.active.copy_(alive)
+    state.active.copy_(torch.where(active, alive, state.active))
     state.emitted += n_take_eff
     return torch.cat(
         [
@@ -171,6 +181,58 @@ def fused_round(
         ],
         dim=1,
     )
+
+
+def fused_micro(
+    params, cfg, forest, cache: M.Cache,
+    state: RoundState, roots: torch.Tensor, budgets: torch.Tensor, *,
+    R: int, K: int, temperature: float, eos_token: int, min_match: int,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Up to R fused rounds in one dispatch, the counterpart of the
+    reference's ``fused_micro`` (``lax.while_loop``): round i runs while
+    some row is active, no row's ``active`` changed since the dispatch
+    began, and i < R; each round re-clamps the host's budgets to the
+    rows' remaining tokens, ``min(budgets, max(max_new - emitted - 1,
+    0))``. All R rounds are enqueued with no host read between them: a
+    device flag ``go`` gates the rows each round acts on, so a round past
+    the exit launches its kernels over no row and changes nothing.
+
+    Returns one int32 tensor on the device: the R rounds' (B, K+5)
+    results, flattened, then ``n_done``, the rounds that ran (rows past
+    ``n_done`` are the dead rounds' and carry zeros in the bookkeeping
+    columns) — the host reads both in one transfer (``unpack_micro_out``).
+
+    At T > 0 every round draws from ``generator`` what an R = 1 round of
+    the same K draws, in the same order (``verify_block``'s (B, K)
+    uniforms, then its (B, V) Gumbel noise), live or not: a dispatch
+    draws R rounds' worth, so the same seed gives the same tokens from
+    run to run, but not the R = 1 stream (the reference folds the round
+    index into its key instead)."""
+    kw = dict(K=K, temperature=temperature, eos_token=eos_token,
+              min_match=min_match, generator=generator)
+    if R == 1:
+        out = fused_round(params, cfg, forest, cache, state, roots, budgets,
+                          **kw)
+        one = torch.ones(1, dtype=torch.int32, device=out.device)
+        return torch.cat([out.reshape(-1), one])
+    active0 = state.active.clone()
+    go = active0.any()
+    n_done = torch.zeros((), dtype=torch.int32, device=active0.device)
+    outs = []
+    for _ in range(R):
+        b_i = torch.minimum(
+            budgets, (state.max_new - state.emitted - 1).clamp(min=0))
+        outs.append(fused_round(params, cfg, forest, cache, state, roots,
+                                b_i, go=go, **kw))
+        n_done += go.to(torch.int32)
+        go = go & state.active.any() & (state.active == active0).all()
+    return torch.cat([torch.stack(outs).reshape(-1), n_done.reshape(1)])
+
+
+def unpack_micro_out(flat: np.ndarray, R: int, B: int, K: int):
+    """(outs (R, B, K+5), n_done) from ``fused_micro``'s download."""
+    return flat[:-1].reshape(R, B, K + 5), int(flat[-1])
 
 
 def unpack_round_out(out_row: np.ndarray, K: int):

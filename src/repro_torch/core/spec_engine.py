@@ -32,8 +32,12 @@ Two serving modes share the round primitives:
   finished rollouts and pre-solves round *t+1* budgets; the round's
   result is downloaded only when the next dispatch needs it.
 
-Not ported yet: the R-round micro-loop, telemetry, the flight recorder,
-the journal, drain and the watchdog (``serve`` raises when given them).
+Lock-step ``generate`` can run up to R fused rounds a dispatch
+(``EngineConfig.micro_rounds``; ``fused_round.fused_micro``), syncing
+host bookkeeping once per dispatch instead of once per round.
+
+Not ported yet: telemetry, the flight recorder, the journal, drain and
+the watchdog (``serve`` raises when given them).
 """
 
 from __future__ import annotations
@@ -52,8 +56,10 @@ from repro_torch.core.budget import LatencyModel, solve_budgets
 from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
 from repro_torch.core.fused_round import (
     RoundState,
+    fused_micro,
     fused_round,
     make_state,
+    unpack_micro_out,
     unpack_round_out,
     verify_step,
 )
@@ -82,7 +88,8 @@ class EngineConfig:
     # whenever the batched device drafter is active; "off" keeps the
     # unfused loop; "on" forces fusion where the drafter supports it.
     fuse_rounds: str = "auto"
-    # R-round device micro-loop: only R = 1 is ported.
+    # R-round device micro-loop (lock-step ``generate``, fused rounds):
+    # up to R rounds a dispatch, leaving early once any row finishes.
     micro_rounds: int = 1
 
     def __post_init__(self) -> None:
@@ -100,11 +107,6 @@ class EngineConfig:
             raise ValueError(
                 f"micro_rounds must be >= 1, got {self.micro_rounds}"
             )
-        if self.micro_rounds > 1:
-            raise NotImplementedError(
-                "micro_rounds > 1 (the R-round device micro-loop) is not "
-                "ported yet"
-            )
 
 
 @dataclass
@@ -121,6 +123,11 @@ class RolloutStats:
     host_time_s: float = 0.0
     n_h2d: int = 0
     n_d2h: int = 0
+    # fused lock-step dispatches (one result download each), and the
+    # micro-rounds they enqueued past the loop's exit (``micro_rounds``
+    # > 1: such a round launches every kernel and changes nothing)
+    n_dispatches: int = 0
+    n_idle_rounds: int = 0
     per_row_rounds: Optional[np.ndarray] = None
     per_row_emitted: Optional[np.ndarray] = None
     effective_batch: List[int] = field(default_factory=list)
@@ -511,11 +518,15 @@ class SpecEngine:
         self, bds, cache, generator, problem_ids, outputs, active, emitted,
         max_new_arr, head, rounds_per_row, stats, collect_effective_batch,
     ) -> None:
-        """Lock-step round loop on the fused device-resident round: per
-        round the host solves budgets, uploads ONE (B,) vector and
-        downloads ONE packed per-row result; head/tails/emitted live on
-        the device between rounds (``RoundState``)."""
+        """Lock-step round loop on the fused device-resident rounds: per
+        dispatch the host solves budgets, uploads ONE (B,) vector and
+        downloads ONE packed result of up to R = ``micro_rounds`` rounds
+        (``fused_micro``: the loop leaves once any row finishes), then
+        consumes the rounds that ran in order; head/tails/emitted live on
+        the device between dispatches (``RoundState``)."""
         e = self.engine
+        B = len(outputs)
+        R = int(e.micro_rounds)
         bds.prewarm()  # pack every open row's tree before round one
         state = make_state(
             head, bds.tails_matrix(), active, emitted, max_new_arr,
@@ -543,38 +554,44 @@ class SpecEngine:
             budgets_dev = self._upload(budgets_np, np.int32)
             stats.host_time_s += time.perf_counter() - t_h
             stats.n_h2d += 1  # the (B,) budget vector
-            out = fused_round(
+            flat = fused_micro(
                 self.params, self.cfg, forest, cache, state, roots_dev,
-                budgets_dev, K=K, temperature=e.temperature,
+                budgets_dev, R=R, K=K, temperature=e.temperature,
                 eos_token=e.eos_token, min_match=self.drafter.cfg.min_match,
                 generator=generator,
             ).cpu().numpy()
-            stats.n_d2h += 2
-            if K > 0 and len(rows) > 0:
-                self.drafter.stats["batched_proposes"] += 1
+            outs, n_done = unpack_micro_out(flat, R, B, K)
+            stats.n_d2h += 2  # the rounds and n_done, as the reference
+            stats.n_dispatches += 1
+            stats.n_idle_rounds += R - n_done
+            if K > 0 and len(rows) > 0:  # each micro-round proposed
+                self.drafter.stats["batched_proposes"] += n_done
             t_h = time.perf_counter()
-            cand, acc, n_take, alive, n_prop = unpack_round_out(out, K)
-            mask = active.copy()
-            stats.n_rounds += 1
-            stats.n_fwd += 1
-            stats.n_toks_proposed += int((1 + n_prop[mask]).sum())
-            stats.n_drafted += int(n_prop[mask].sum())
-            stats.n_accepted += int(acc[mask].sum())
-            stats.round_accepts.append(
-                float(acc[mask].mean()) if mask.any() else 0.0
-            )
-            if collect_effective_batch:
-                stats.effective_batch.append(int(mask.sum()))
-            rounds_per_row[mask] += 1
-            tel = np.nonzero(mask & (n_prop > 0))[0]
-            if tel.size:  # per-prompt accept telemetry
-                self.drafter.note_draft_rows(
-                    [problem_ids[b] for b in tel], n_prop[tel], acc[tel],
+            for r in range(n_done):
+                cand, acc, n_take, alive, n_prop = unpack_round_out(
+                    outs[r], K)
+                mask = active.copy()
+                stats.n_rounds += 1
+                stats.n_fwd += 1
+                stats.n_toks_proposed += int((1 + n_prop[mask]).sum())
+                stats.n_drafted += int(n_prop[mask].sum())
+                stats.n_accepted += int(acc[mask].sum())
+                stats.round_accepts.append(
+                    float(acc[mask].mean()) if mask.any() else 0.0
                 )
-            for b in np.nonzero(mask & (n_take > 0))[0]:
-                outputs[b].extend(cand[b, : n_take[b]].tolist())
-            emitted[mask] += n_take[mask]
-            active &= alive
+                if collect_effective_batch:
+                    stats.effective_batch.append(int(mask.sum()))
+                rounds_per_row[mask] += 1
+                tel = np.nonzero(mask & (n_prop > 0))[0]
+                if tel.size:  # per-prompt accept telemetry
+                    self.drafter.note_draft_rows(
+                        [problem_ids[b] for b in tel], n_prop[tel],
+                        acc[tel],
+                    )
+                for b in np.nonzero(mask & (n_take > 0))[0]:
+                    outputs[b].extend(cand[b, : n_take[b]].tolist())
+                emitted[mask] += n_take[mask]
+                active &= alive
             stats.host_time_s += time.perf_counter() - t_h
 
     # -- continuous-batching mode --------------------------------------------

@@ -3,6 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --smoke --device cpu --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma-9b --smoke
+
+Every registered architecture trains: the dense decoders and the hybrid
+RecurrentGemma (its RG-LRU scan differentiates through the scan's
+backward kernel).
 
 ``--smoke`` trains the reduced variant (``smoke_variant``, the task
 tokenizer's vocabulary) on the synthetic pattern task; without it the

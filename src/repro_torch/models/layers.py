@@ -19,9 +19,9 @@ Attention has two modes, as in the reference:
     for CUDA tensors, its plain version for CPU tensors.
 
 The RG-LRU block's recurrence always goes through
-``kernels.rglru.ops.rglru_scan`` in the same way, prefill and verify
-alike. The CUDA scan has no backward, so ``apply_rglru`` refuses to run
-under autograd (training a recurrent model is not ported yet).
+``kernels.rglru.ops.rglru_scan`` in the same way, prefill, verify and
+training alike; under autograd its backward is the scan's backward
+kernel (its plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -423,18 +423,6 @@ def init_rglru(cfg: ModelConfig, gen: torch.Generator,
     return nn.ParameterDict({k: _param(v) for k, v in p.items()})
 
 
-def _refuse_autograd(*, tensors) -> None:
-    """The reference trains through a differentiable ``lax.scan``; the
-    port's scan is a CUDA kernel with no backward, so under autograd every
-    parameter upstream of it would get no gradient, silently. Refuse."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "apply_rglru under autograd: the RG-LRU scan kernel "
-            "(kernels/rglru) has no backward, so training a recurrent "
-            "model is not ported yet"
-        )
-
-
 def apply_rglru(
     p: Mapping,
     x: torch.Tensor,
@@ -460,7 +448,6 @@ def apply_rglru(
             "apply_rglru's commit_upto (dual-carry) branch is not ported; "
             "verify with collect=True and commit_staged_cache"
         )
-    _refuse_autograd(tensors=(x, *p.values()))
     B, T, _ = x.shape
     W, cw = cfg.rnn_width, cfg.conv_width
     gate_in = torch.einsum("btd,dw->btw", x, p["wy"])

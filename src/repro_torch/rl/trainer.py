@@ -15,7 +15,9 @@ generator's state, loader cursor and step/epoch cursor.
 ``load_checkpoint`` therefore resumes with warm suffix trees and warm
 length priors, and a resumed run draws what the uninterrupted one drew.
 
-Not ported yet (they raise ``NotImplementedError``): the multi-worker
+It trains every model the port runs, the hybrid RecurrentGemma included
+(the RG-LRU scan's gradient is its backward kernel). Not ported yet
+(they raise ``NotImplementedError``): the multi-worker
 rollout over the history service (``n_workers > 1``), the shard
 supervisor (``fault_tolerant``), the write-ahead journal
 (``journal_dir``) and the flight recorder (``flight_recorder``).

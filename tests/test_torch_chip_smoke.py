@@ -5,7 +5,9 @@ kernels' row core reads (``walk_needed_reads``); the walk must compute
 the same outputs as the plain version, or the count would not be of the
 kernel's work. Integers only: bit-identical. The RG-LRU scan's bound
 counts the bytes of the steps its mask updates, counted here by hand;
-its launches split by shape into the JSON line's two entries.
+its launches split by shape into the JSON line's entries. The scan's
+backward bound counts x, r, i and h_{t-1} at the updated steps and the
+rest at every step.
 """
 
 import importlib.util
@@ -114,3 +116,35 @@ def test_rglru_masks(kind):
     assert all(m[b, T - int(n):].all() for b, n in enumerate(lens))
     lo = {"left pads": 64, "bucket pads": T - 15, "all kept": T}[kind]
     assert int(lens.min()) == lo and int(lens.max()) == T
+
+
+def test_rglru_long_launches_are_a_part_of_the_prefill_count():
+    """Phase 9's forwards at T >= 2048 (the GRPO step, long prefills) get
+    their own JSON entry, taken out of the prefill count."""
+    cs = _chip_smoke()
+    by_shape = Counter({(8, 17): 40, (8, 256): 26, (4, 2208): 8,
+                        (4, 2272): 12, (1, 2047): 3})
+    verify, prefill = cs.rglru_launch_split(by_shape)
+    long_n = cs.rglru_long_launches(by_shape)
+    assert (verify, prefill, long_n) == (40, 49, 20)
+    assert cs.rglru_long_launches(Counter()) == 0
+
+
+def test_rglru_bwd_bound_counts_the_updated_steps_bytes():
+    """B 2, T 3, W 5: without a mask 32 bytes a (b, t, w), then h0,
+    dh_final and dh0 (3 x B x W) and Λ, dΛ (2 x W) in float32; with a mask
+    that updates 2 steps, x, r, i and h_{t-1} at those 2 only, and the 6
+    mask bytes."""
+    cs = _chip_smoke()
+    want = 4 * (8 * 6 * 5 + 3 * 2 * 5 + 2 * 5)  # 1,360
+    assert cs.rglru_bwd_bytes(2, 3, 5, None) == (want, 6)
+    ms, by = cs.rglru_bwd_bound_ms(2, 3, 5, None)
+    assert by == "bytes" and ms == pytest.approx(want / 3.35e12 * 1e3)
+    mask = torch.tensor([[False, True, True], [False, False, False]])
+    want = 4 * (4 * 2 * 5 + 4 * 6 * 5 + 3 * 2 * 5 + 2 * 5) + 6  # 806
+    assert cs.rglru_bwd_bytes(2, 3, 5, mask) == (want, 2)
+    # the training shape: 32 bytes a (b, t, w), 1.19 GB, 0.36 ms
+    nbytes, _ = cs.rglru_bwd_bytes(4, 2272, 4096, None)
+    assert 1.19e9 < nbytes < 1.20e9
+    assert cs.rglru_bwd_bound_ms(4, 2272, 4096, None)[0] == pytest.approx(
+        nbytes / 3.35e12 * 1e3)

@@ -12,8 +12,7 @@ JAX package's ``custom_vjp`` one on the same numpy inputs, float32:
 at B 2, S 2304 (so the q and kv chunks both pad), 4/2 heads, hd 16,
 windows 0 and 257, with no key mask and with a left-pad mask. Then a
 2,100-token prefill (every layer through the flash path) against JAX's
-``prefill``, and the RG-LRU block's refusal to run under autograd (its
-CUDA scan has no backward).
+``prefill``.
 """
 
 import dataclasses
@@ -159,19 +158,3 @@ def test_long_prefill_matches_jax():
     np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast),
                                **PREFILL_TOL)
     _compare_caches(jcache, tcache, cfg, PREFILL_TOL)
-
-
-def test_rglru_refuses_autograd():
-    from repro_torch.configs import get_config, smoke_variant
-
-    cfg = smoke_variant(get_config("recurrentgemma-9b"))
-    params = TM.init_params(cfg, seed=0, device="cpu")
-    toks = torch.randint(2, cfg.vocab_size, (1, 8))
-    with torch.no_grad():  # frozen and under no_grad: runs
-        TM.forward(params, cfg, toks)
-    TM.set_trainable(params)
-    with pytest.raises(NotImplementedError, match="RG-LRU scan.*no backward"):
-        TM.forward(params, cfg, toks)
-    with torch.inference_mode():  # the engine's rollouts still run
-        logits, _ = TM.forward(params, cfg, toks)
-    assert torch.isfinite(logits).all()

@@ -1,8 +1,10 @@
 """The port's RL loop end to end, on the CPU:
 
 * ``Trainer`` parity with the JAX package at temperature 0: the same
-  weights (JAX ``init_params`` through numpy), the smoke qwen2-1.5b on
-  the pattern task, 2 SFT warmup steps then 3 GRPO steps; every rollout
+  weights (JAX ``init_params`` through numpy), the smoke qwen2-1.5b and
+  the smoke hybrid (RecurrentGemma-9B's pattern at the same width: its
+  learner's gradient runs through the RG-LRU scan's backward) on the
+  pattern task, 2 SFT warmup steps then 3 GRPO steps; every rollout
   equal token for token, ``reward_mean`` equal, the SFT loss within
   rtol 1e-4, ``loss`` and ``grad_norm`` within rtol 1e-3, atol 1e-5
   (float32; XLA and PyTorch sum in other orders, and Adam's first steps
@@ -11,11 +13,12 @@
   trainer resumed from the step-2 checkpoint has the drafter's windows
   and cursor back, and its rollouts, metrics and final weights equal the
   uninterrupted run's — at temperature 0 and, since the sidecar carries
-  the generator's state, at temperature 0.7 as well;
+  the generator's state, at temperature 0.7 as well (and for the hybrid
+  at 0.7);
 * ``RolloutWorker`` at T = 0: the JAX worker's batch, the port's
   lock-step one and its continuous one (2 slots) are equal;
 * ``python -m repro_torch.launch.train --smoke --device cpu`` prints a
-  JSON line a step; without ``--device cpu`` and no card it raises;
+  JSON line a step, for qwen2-1.5b and recurrentgemma-9b; without ``--device cpu`` and no card it raises;
   ``--dry-run`` exits non-zero naming the missing module; the
   unported trainer branches raise.
 """
@@ -55,6 +58,10 @@ JCFG = jax_smoke_variant(jax_get_config("qwen2-1.5b")).replace(
     d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
     vocab_size=TOKENIZER.vocab_size, vocab_pad_multiple=8)
 CFG = ModelConfig(**dataclasses.asdict(JCFG))
+JCFG_HYBRID = jax_smoke_variant(jax_get_config("recurrentgemma-9b")).replace(
+    d_model=64, num_heads=4, num_kv_heads=1, head_dim=16, d_ff=128,
+    rnn_width=64, vocab_size=TOKENIZER.vocab_size, vocab_pad_multiple=8)
+CFG_HYBRID = ModelConfig(**dataclasses.asdict(JCFG_HYBRID))
 
 
 def _kw(path, steps, temperature=0.0, **over):
@@ -78,9 +85,9 @@ def _capture(tr, log):
     tr.worker.rollout = wrapped
 
 
-def _port_trainer(path, steps, params=None, **kw):
+def _port_trainer(path, steps, params=None, cfg=CFG, **kw):
     return Trainer(
-        CFG, PatternTask(n_problems=4, mean_len=8.0, sigma=0.3, max_len=12,
+        cfg, PatternTask(n_problems=4, mean_len=8.0, sigma=0.3, max_len=12,
                          seed=0),
         TrainerConfig(
             optim=AdamWConfig(lr=1e-3),
@@ -91,10 +98,10 @@ def _port_trainer(path, steps, params=None, **kw):
         params=params, device="cpu")
 
 
-def test_trainer_matches_jax_at_t0(tmp_path):
-    jparams = make_params(JCFG, seed=3)
+def _trainer_matches_jax_at_t0(tmp_path, jcfg, cfg):
+    jparams = make_params(jcfg, seed=3)
     jtr = JTrainer(
-        JCFG, JPatternTask(n_problems=4, mean_len=8.0, sigma=0.3, max_len=12,
+        jcfg, JPatternTask(n_problems=4, mean_len=8.0, sigma=0.3, max_len=12,
                            seed=0),
         JTrainerConfig(
             optim=JAdamWConfig(lr=1e-3),
@@ -103,9 +110,9 @@ def test_trainer_matches_jax_at_t0(tmp_path):
                                    min_match=1),
             **_kw(tmp_path / "j", 3, ckpt_every=0)),
         params=jparams)
-    tr = _port_trainer(tmp_path / "t", 3, ckpt_every=0,
+    tr = _port_trainer(tmp_path / "t", 3, ckpt_every=0, cfg=cfg,
                        params=params_from_numpy(
-                           jax.tree.map(np.asarray, jparams), CFG, "cpu"))
+                           jax.tree.map(np.asarray, jparams), cfg, "cpu"))
     jrolls, rolls = [], []
     _capture(jtr, jrolls)
     _capture(tr, rolls)
@@ -125,16 +132,23 @@ def test_trainer_matches_jax_at_t0(tmp_path):
                                        err_msg=k)
 
 
-@pytest.mark.parametrize("temperature", [0.0, 0.7])
-def test_resume_is_token_identical(tmp_path, temperature):
-    tr_a = _port_trainer(tmp_path / "a", 4, temperature=temperature)
+def test_trainer_matches_jax_at_t0(tmp_path):
+    _trainer_matches_jax_at_t0(tmp_path, JCFG, CFG)
+
+
+def test_trainer_matches_jax_at_t0_hybrid(tmp_path):
+    _trainer_matches_jax_at_t0(tmp_path, JCFG_HYBRID, CFG_HYBRID)
+
+
+def _resume_is_token_identical(tmp_path, temperature, cfg):
+    tr_a = _port_trainer(tmp_path / "a", 4, temperature=temperature, cfg=cfg)
     rolls_a = []
     _capture(tr_a, rolls_a)
     hist_a = tr_a.run()
     tr_a.close()
     assert len(hist_a) == 4
 
-    tr_b = _port_trainer(tmp_path / "a", 4, temperature=temperature)
+    tr_b = _port_trainer(tmp_path / "a", 4, temperature=temperature, cfg=cfg)
     tr_b.load_checkpoint(str(tmp_path / "a" / "step2.npz"))
     assert tr_b._step == 2 and len(tr_b.history) == 2
     # the resumed drafter is warm: persisted windows, rebuilt trees
@@ -154,6 +168,15 @@ def test_resume_is_token_identical(tmp_path, temperature):
     for (n, a), (_, b) in zip(tr_a.params.named_parameters(),
                               tr_b.params.named_parameters()):
         assert torch.equal(a, b), n
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_resume_is_token_identical(tmp_path, temperature):
+    _resume_is_token_identical(tmp_path, temperature, CFG)
+
+
+def test_resume_is_token_identical_hybrid(tmp_path):
+    _resume_is_token_identical(tmp_path, 0.7, CFG_HYBRID)
 
 
 def test_rollout_worker_matches_jax_lockstep_and_continuous():
@@ -211,20 +234,33 @@ def test_unported_trainer_branches_raise(tmp_path):
 
 
 def _cli(*args):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # One OpenMP thread: beside the suite's other workers, each with a
+    # thread a core, a child with a thread a core waits in every parallel
+    # region on threads that are off the CPU (a 5 s smoke run took over
+    # 100 s beside six busy workers on 8 cores).
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
 
 
-def test_train_cli_smoke_on_cpu():
-    proc = _cli("--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
+def _train_cli_smoke_on_cpu(arch):
+    proc = _cli("--arch", arch, "--smoke", "--device", "cpu",
                 "--steps", "2")
     assert proc.returncode == 0, proc.stderr[-2000:]
     lines = [json.loads(ln) for ln in proc.stdout.strip().splitlines()]
     assert [ln["step"] for ln in lines] == [0, 1]
     assert all(np.isfinite(ln["loss"]) and ln["grad_norm"] > 0
                for ln in lines)
+
+
+def test_train_cli_smoke_on_cpu():
+    _train_cli_smoke_on_cpu("qwen2-1.5b")
+
+
+def test_train_cli_smoke_on_cpu_hybrid():
+    _train_cli_smoke_on_cpu("recurrentgemma-9b")
 
 
 def test_train_cli_needs_a_card_or_cpu():
