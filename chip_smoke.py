@@ -106,7 +106,9 @@ non-zero; no phase's error is caught):
 9. RecurrentGemma-9B training at its published widths, depth cut to 6
    layers (two (rglru, rglru, local_attn) triples, 2.23 B parameters:
    all 38 layers' weights, gradients and moments would take ~102 GB):
-   9a. the RG-LRU scan's backward kernel against its plain version on
+   9a. the RG-LRU scan's backward kernel: its ptxas report and its
+       resident CTAs a SM at the training shape (the occupancy query;
+       one wave is the design's aim), then against its plain version on
        the forward kernel's hs at the GRPO step's shape (B 4, T 2272, W
        4096), with left pads, a ragged width and a width not a multiple
        of 4: dx, dr, di and dh0 bit for bit, dΛ within
@@ -2343,6 +2345,29 @@ RGLRU_BWD_CASES = [("train", 4, TRAIN_S, 4096, None),
 # dΛ sums B · T products a lane; the kernel repeats the plain version's
 # order, and dΛ is held to this tolerance (its bits are reported)
 RGLRU_DLAM_TOL = dict(atol=1e-5, rtol=1e-5)
+# The backward kernel's tiling (csrc/rglru_bwd.cu): a CTA owns 32 lanes of
+# a row and walks chunks of 32 steps through a ring of 2 stages, each six
+# 32 x 32 float32 tiles (x, r, i, h_{t-1}, dhs / d, a / the dΛ term) and
+# the chunk's 32 mask bytes.
+RGLRU_BWD_LANES = 32
+RGLRU_BWD_CHUNK = 32
+RGLRU_BWD_STAGES = 2
+RGLRU_BWD_STAGE_BYTES = 6 * RGLRU_BWD_CHUNK * RGLRU_BWD_LANES * 4 + 32
+
+
+def rglru_bwd_smem_bytes(T):
+    """The backward kernel's dynamic shared memory a CTA at length T: a
+    stage a chunk, at most RGLRU_BWD_STAGES."""
+    chunks = -(-T // RGLRU_BWD_CHUNK)
+    return min(chunks, RGLRU_BWD_STAGES) * RGLRU_BWD_STAGE_BYTES
+
+
+def rglru_bwd_waves(B, W, ctas_per_sm, n_sm):
+    """Waves of the backward kernel's B * ceil(W / 32) CTAs with
+    ``ctas_per_sm`` resident on each of ``n_sm`` SMs: each CTA walks all
+    of T, so a second wave doubles the kernel's time."""
+    ctas = B * -(-W // RGLRU_BWD_LANES)
+    return -(-ctas // (ctas_per_sm * n_sm))
 
 
 def rglru_bwd_bytes(B, T, W, mask):
@@ -2415,11 +2440,29 @@ def rglru_bwd_case(torch, np, timer, card, label, B, T, W, mk, seed):
 
 
 def phase_rglru_bwd(torch, np, timer, card):
-    """9a: the backward kernel at RGLRU_BWD_CASES after the timer's floor,
-    and the forward kernel timed at the training shape. Returns the kernels
-    JSON line's entries ``rglru_scan_bwd`` and ``rglru_scan_long`` (the
-    forward at T >= 2048), launches set after phase 9."""
+    """9a: the backward kernel's ptxas report and resident CTAs a SM at
+    the training shape, then the kernel at RGLRU_BWD_CASES after the
+    timer's floor, and the forward kernel timed at the training shape.
+    Returns the kernels JSON line's entries ``rglru_scan_bwd`` and
+    ``rglru_scan_long`` (the forward at T >= 2048), launches set after
+    phase 9."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rglru import ops as rg_ops
+
     timer_floor(torch, np, timer, card)
+    for ln in _build.ptxas_lines("rglru_bwd"):
+        log(f"  [rglru_bwd] {ln}")
+    _, B, T, W, _ = RGLRU_BWD_CASES[0]  # the training shape
+    ctas, smem = rg_ops.rglru_scan_bwd_residency(T)
+    check(smem == rglru_bwd_smem_bytes(T), f"rglru_scan_bwd: the kernel "
+          f"takes {smem} B of shared memory a CTA, not "
+          f"{rglru_bwd_smem_bytes(T)}")
+    check(ctas > 0, "rglru_scan_bwd: no CTA fits an SM")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"rglru_scan_bwd at the training shape (B={B} T={T} W={W}): "
+        f"{B * -(-W // RGLRU_BWD_LANES)} CTAs, {smem} B of dynamic shared "
+        f"memory a CTA, {ctas} resident a SM on {n_sm} SMs: "
+        f"{rglru_bwd_waves(B, W, ctas, n_sm)} wave(s)  [{card}]")
     res = {label: rglru_bwd_case(torch, np, timer, card, label, B, T, W, mk,
                                  90 + 4 * ci)
            for ci, (label, B, T, W, mk) in enumerate(RGLRU_BWD_CASES)}

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Builds of the RG-LRU scan kernel, timed in turns in one call.
+"""Builds of the RG-LRU scan kernel or of its backward, timed in turns in
+one call.
 
     python3 scripts/rglru_ab.py OLD.cu [OTHER.cu ...] [--unchecked X.cu ...]
         [--admission B,T] [--out FILE]
+    python3 scripts/rglru_ab.py --bwd OLD.cu [OTHER.cu ...] [--out FILE]
 
 Needs one CUDA card. ``OLD.cu`` (and any ``OTHER.cu``) is another version
 of ``src/repro_torch/csrc/rglru.cu`` with the same C entry (for example
@@ -29,6 +31,18 @@ before each launch):
 
 ``--unchecked`` builds (say, a build that only copies, to see the copy
 pattern's own time) are timed in the same turns without the check.
+With ``--bwd`` the sources are versions of
+``src/repro_torch/csrc/rglru_bwd.cu`` with the same C entry (``git show
+HEAD~1:src/repro_torch/csrc/rglru_bwd.cu > build/ab/rglru_bwd_old.cu``),
+and the cases are ``chip_smoke.py``'s ``RGLRU_BWD_CASES`` (the GRPO
+step's shape (B 4, T 2272, W 4096), with left pads, a ragged width and a
+width not a multiple of 4) on the forward kernel's hs: every build's dx,
+dr, di, dΛ and dh0 bit-identical to ``rglru_scan_bwd_ref``, the builds
+timed in turns after the same floor, beside a bandwidth yardstick of the
+same 32 bytes a (b, t, w) (``Tensor.copy_`` of four (B, T, W) float32
+arrays into four others), and each build's resident CTAs a SM at the
+training shape where it has the occupancy query.
+
 Prints a line per case with the card line and, last, one JSON object of
 every time (ms), also written to ``--out``.
 """
@@ -52,17 +66,21 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.rglru import ops as rg_ops  # noqa: E402
-from repro_torch.kernels.rglru.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rglru.ref import (  # noqa: E402
+    rglru_scan_bwd_ref,
+    rglru_scan_ref,
+)
 
 REPS = 50  # launches timed per turn
 
 
-def build(src: Path, tag: str):
+def build(src: Path, tag: str, name: str = "rglru",
+          signatures=rg_ops._SIGNATURES):
     """``src`` built with the wrapper's flags and loaded behind its C
-    signature; returns (library, compiler log)."""
+    signatures; returns (library, compiler log)."""
     text = src.read_bytes()
     h = hashlib.sha256(text + " ".join(_build.NVCC_FLAGS).encode())
-    out = _build.BUILD_DIR / f"rglru_{tag}-{h.hexdigest()[:16]}.so"
+    out = _build.BUILD_DIR / f"{name}_{tag}-{h.hexdigest()[:16]}.so"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
@@ -71,38 +89,129 @@ def build(src: Path, tag: str):
     if proc.returncode != 0:
         raise _build.KernelBuildError(f"nvcc failed for {src}:\n{log}")
     lib = ctypes.CDLL(str(out))
-    for fn, argtypes in rg_ops._SIGNATURES.items():
+    for fn, argtypes in signatures.items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
     return lib, log
 
 
-def turns(timer, builds, fn):
+def turns(timer, builds, fn, name="rglru"):
     """Each build timed twice, in the order a, b, ..., b, a; returns the
     turns and each build's mean."""
     tags = list(builds)
     got = []
     for tag in tags + tags[::-1]:
-        _build._LIBS["rglru"] = builds[tag]
+        _build._LIBS[name] = builds[tag]
         got.append((tag, timer.ms(fn, REPS)))
     return got, {t: sum(v for u, v in got if u == t) / 2 for t in tags}
+
+
+def main_bwd(a, card) -> dict:
+    """The backward's builds at RGLRU_BWD_CASES (see the module's text)."""
+    name, sigs = "rglru_bwd", rg_ops._BWD_SIGNATURES
+    builds = {}
+    for j, src in enumerate(a.others):
+        tag = "old" if j == 0 else src.stem
+        builds[tag], _build.BUILD_LOG[f"{name}_{tag}"] = build(
+            src, tag, name, sigs)
+        for ln in _build.ptxas_lines(f"{name}_{tag}"):
+            cs.log(f"  [{tag}] {ln}")
+    builds["new"] = _build.load(name, sigs)
+    for ln in _build.ptxas_lines(name):
+        cs.log(f"  [new] {ln}")
+    _, B, T, W, _ = cs.RGLRU_BWD_CASES[0]  # the training shape
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    residency = {}
+    for tag, lib in builds.items():
+        if hasattr(lib, rg_ops._BWD_RESIDENCY[0]):
+            _build._LIBS[name] = lib
+            ctas, smem = rg_ops.rglru_scan_bwd_residency(T)
+            residency[tag] = dict(ctas_per_sm=ctas, smem_bytes=smem,
+                                  waves=cs.rglru_bwd_waves(B, W, ctas, n_sm))
+            cs.log(f"[{tag}] at (B={B} T={T} W={W}): {smem} B of dynamic "
+                   f"shared memory a CTA, {ctas} CTAs resident a SM on "
+                   f"{n_sm} SMs: {residency[tag]['waves']} wave(s)")
+    timer = cs.Timer(torch)
+    result = {"card": card, "reps": REPS, "residency": residency,
+              "cases": {}}
+    empty = timer.ms(lambda: torch.cuda._sleep(0), REPS)
+    tiny = cs.rglru_inputs(torch, np, 1, 1, 1, 0)
+    tiny_hs, _ = rg_ops.rglru_scan_cuda(*tiny)
+    tiny_args = (*tiny, tiny_hs, tiny_hs.clone(), tiny[4].clone())
+    got, ms = turns(timer, builds,
+                    lambda: rg_ops.rglru_scan_bwd_cuda(*tiny_args), name)
+    result["floor"] = dict(empty_kernel_ms=empty, bwd_1x1x1_ms=ms,
+                           turns=got)
+    cs.log(f"timer floor: empty kernel {empty * 1e3:.2f} us; backward at "
+           "(1, 1, 1) " + ", ".join(f"{t} {v * 1e3:.2f} us"
+                                    for t, v in ms.items()) + f"  [{card}]")
+    for ci, (label, B, T, W, mk) in enumerate(cs.RGLRU_BWD_CASES):
+        seed = 90 + 4 * ci
+        x, r, i, lam, h0 = cs.rglru_inputs(torch, np, B, T, W, seed)
+        mask = cs.rglru_mask(torch, np, mk, B, T)
+        hs, _ = rg_ops.rglru_scan_cuda(x, r, i, lam, h0, mask)
+        rng = np.random.default_rng(seed + 1)
+        dhs = torch.tensor(rng.normal(size=(B, T, W)), dtype=torch.float32,
+                           device="cuda")
+        dhf = torch.tensor(rng.normal(size=(B, W)), dtype=torch.float32,
+                           device="cuda")
+        args = (x, r, i, lam, h0, hs, dhs, dhf, mask)
+        want = rglru_scan_bwd_ref(*args)
+        for tag, lib in builds.items():
+            _build._LIBS[name] = lib
+            out = rg_ops.rglru_scan_bwd_cuda(*args)
+            torch.cuda.synchronize()
+            for what, g, w in zip(("dx", "dr", "di", "dlam", "dh0"), out,
+                                  want):
+                cs.check(torch.equal(g, w), f"{label}: the {tag} build's "
+                         f"{what} is not bit-identical to the plain version "
+                         f"(max |err| {float((g - w).abs().max())})")
+        got, ms = turns(timer, builds,
+                        lambda: rg_ops.rglru_scan_bwd_cuda(*args), name)
+        src = torch.randn(4, B, T, W, device="cuda")
+        dst = torch.empty_like(src)
+        yard = timer.ms(lambda: dst.copy_(src), REPS)
+        del src, dst
+        bound_ms, bound_by = cs.rglru_bwd_bound_ms(B, T, W, mask)
+        result["cases"][label] = dict(
+            B=B, T=T, W=W, mask=mk, ms=ms, turns=got, copy_32B_ms=yard,
+            bound_ms=bound_ms, bound_by=bound_by)
+        cs.log(f"{label} (B={B} T={T} W={W}, mask: {mk}): every build's "
+               "dx, dr, di, dΛ, dh0 bit-identical to the plain version; "
+               + ", ".join(f"{t} {v * 1e3:.2f} us" for t, v in ms.items())
+               + f" (old / new {ms['old'] / ms['new']:.2f}x; turns "
+               + ", ".join(f"{t} {v * 1e3:.2f}" for t, v in got)
+               + f"), 32-byte copy {yard * 1e3:.2f} us, bound "
+               f"{bound_ms * 1e3:.2f} us ({bound_by})  [{card}]")
+    _build._LIBS[name] = builds["new"]
+    return result
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("others", type=Path, nargs="+")
+    ap.add_argument("--bwd", action="store_true",
+                    help="builds of csrc/rglru_bwd.cu (the backward)")
     ap.add_argument("--unchecked", type=Path, nargs="*", default=[])
     ap.add_argument("--admission", default="1,256",
                     help="B,T of phase 7's most frequent admission prefill")
-    ap.add_argument("--out", type=Path,
-                    default=ROOT / "build" / "rglru_ab.json")
+    ap.add_argument("--out", type=Path)
     a = ap.parse_args()
+    if a.out is None:
+        a.out = ROOT / "build" / ("rglru_bwd_ab.json" if a.bwd
+                                  else "rglru_ab.json")
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: needs a CUDA card")
     card = cs.card_line()
     cs.log(f"card: {card} | torch {torch.__version__} cuda "
            f"{torch.version.cuda}")
+    if a.bwd:
+        result = main_bwd(a, card)
+        a.out.parent.mkdir(parents=True, exist_ok=True)
+        a.out.write_text(json.dumps(result, indent=1))
+        cs.log(json.dumps(result))
+        return
     builds = {}
     for j, src in enumerate(a.others + a.unchecked):
         tag = "old" if j == 0 else src.stem

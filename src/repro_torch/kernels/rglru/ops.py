@@ -41,6 +41,10 @@ _I = ctypes.c_int
 _SIGNATURES = {"rglru_scan_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _P)}
 _BWD_SIGNATURES = {"rglru_scan_bwd_f32": (_P,) * 15 + (_I, _I, _I, _P)}
+# The backward kernel's occupancy query (bound on first use, so that a
+# build without it still loads behind ``_BWD_SIGNATURES``).
+_BWD_RESIDENCY = ("rglru_scan_bwd_residency",
+                  (_I, ctypes.POINTER(_I), ctypes.POINTER(_I)))
 
 
 def _check(x, r, i, lam, h0, mask, what="rglru_scan", **more) -> None:
@@ -123,6 +127,21 @@ def rglru_scan_bwd_cuda(x, r, i, lam, h0, hs, dhs, dh_final,
     BWD_LAUNCHES += 1
     BWD_LAUNCHES_BY_SHAPE[(B, T)] += 1
     return dx, dr, di, dlam, dh0
+
+
+def rglru_scan_bwd_residency(T: int) -> Tuple[int, int]:
+    """(CTAs of the backward kernel resident on one SM, dynamic shared
+    memory a CTA in bytes) at sequence length ``T``: the CUDA runtime's
+    occupancy query (needs a card)."""
+    lib = _build.load("rglru_bwd", _BWD_SIGNATURES)
+    name, argtypes = _BWD_RESIDENCY
+    fn = getattr(lib, name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    ctas, smem = _I(), _I()
+    _build.check(fn(T, ctypes.byref(ctas), ctypes.byref(smem)),
+                 "rglru_scan_bwd residency query")
+    return ctas.value, smem.value
 
 
 def rglru_scan_bwd(x, r, i, lam, h0, hs, dhs, dh_final,

@@ -148,3 +148,27 @@ def test_rglru_bwd_bound_counts_the_updated_steps_bytes():
     assert 1.19e9 < nbytes < 1.20e9
     assert cs.rglru_bwd_bound_ms(4, 2272, 4096, None)[0] == pytest.approx(
         nbytes / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("T,want", [(0, 0), (1, 24_608), (32, 24_608),
+                                    (33, 49_216), (2272, 49_216)])
+def test_rglru_bwd_smem_is_a_stage_a_chunk_up_to_two(T, want):
+    """A stage is six 32 x 32 float32 tiles and 32 mask bytes; the ring
+    holds two (one for a single chunk). Two stages stay under the 56 KB
+    a CTA that four CTAs an SM allow."""
+    cs = _chip_smoke()
+    assert cs.RGLRU_BWD_STAGE_BYTES == 6 * 4096 + 32
+    assert cs.rglru_bwd_smem_bytes(T) == want
+    assert 4 * (cs.rglru_bwd_smem_bytes(2272) + 1024) <= 228 * 1024
+
+
+def test_rglru_bwd_waves():
+    """The training shape's 4 x 128 = 512 CTAs fill one wave at four CTAs
+    an SM on 132 SMs and need two at three; a ragged width rounds its
+    last CTA up."""
+    cs = _chip_smoke()
+    assert cs.rglru_bwd_waves(4, 4096, 4, 132) == 1
+    assert cs.rglru_bwd_waves(4, 4096, 3, 132) == 2
+    assert cs.rglru_bwd_waves(8, 4096, 4, 132) == 2
+    assert cs.rglru_bwd_waves(2, 4001, 1, 1) == 2 * 126
+    assert cs.rglru_bwd_waves(1, 1, 4, 132) == 1

@@ -19,6 +19,13 @@ the JAX package, float32, on the same numpy inputs:
 * the hybrid trains and still rolls out: with trainable parameters a
   forward under autograd reaches every RG-LRU parameter, and the
   engine's ``inference_mode`` forward runs the hybrid;
+* a model of the CUDA backward kernel's decomposition (CTAs of 32 lanes
+  of a row walking 32-step chunks from the last to the first; dhs copied
+  at every step, x, r, i and the shifted h_{t-1} tile only at updated
+  ones; a formed for the walker; the walker's chain d = dhs + λ, λ = a·d
+  writing d into the stage; outputs formed from the staged d; the dΛ
+  terms summed a lane in descending t) bit for bit against the plain
+  version, with its load counts;
 * the CUDA backward kernel against the plain version, bit for bit
   (``gpu``: skips without a card; ``chip_smoke.py`` phase 9a runs it at
   the training shape).
@@ -38,7 +45,11 @@ from repro.models import layers as JL
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru import ops as rg_ops
-from repro_torch.kernels.rglru.ref import rglru_scan_bwd_ref, rglru_scan_ref
+from repro_torch.kernels.rglru.ref import (
+    RGLRU_C,
+    rglru_scan_bwd_ref,
+    rglru_scan_ref,
+)
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models.convert import tensor_from_numpy
@@ -125,6 +136,129 @@ def test_cpu_bwd_wrapper_runs_the_plain_version_without_launching():
     assert rg_ops.BWD_LAUNCHES == before
     assert dict(rg_ops.BWD_LAUNCHES_BY_SHAPE) == shapes
     assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA backward kernel's decomposition, modelled on the CPU
+# ---------------------------------------------------------------------------
+# csrc/rglru_bwd.cu gives a CTA one row and KBW = 32 width lanes and walks
+# T in chunks of KBC = 32 steps from the last chunk to the first (chunks
+# end at T: the one that holds t = 0 is the partial one). Its workers copy
+# a chunk's tiles into a stage (dhs at every step; x, r, i and h_{t-1},
+# hs one row up or h0 at t = 0, only at an updated step) and form a there;
+# one walker thread a lane runs d = dhs + λ (written over dhs), λ = a·d
+# (λ = d at a masked step); the workers form dx, di, dr and the dΛ term
+# from the staged d and the rest of the gates, and one thread a lane sums
+# the terms in descending t. The model repeats that chunk by chunk: the
+# gates and outputs with the plain version's expressions on the tile's
+# updated rows, the two chains in numpy float32 (each sum and product
+# rounded). Unloaded stage entries are NaN, so a read of one shows.
+
+KBC, KBW = 32, 32
+TILES = ("x", "r", "i", "h", "g", "a")  # g: dhs, then d; a: a, then term
+
+
+def _bwd_kernel_model(x, r, i, lam, h0, hs, dhs, dhf, mask):
+    """(dx, dr, di, dlam, dh0, loads): the backward as the kernel's CTAs
+    compute it; ``loads[name][b, t, w]`` counts the copies of that
+    element of x, r, i, h (h_{t-1}) and dhs."""
+    B, T, W = x.shape
+    a_base = torch.log(torch.sigmoid(torch.from_numpy(lam)))
+    upd = np.ones((B, T), bool) if mask is None else mask
+    dx, dr, di = (np.full((B, T, W), np.nan, np.float32) for _ in range(3))
+    dh0 = np.full((B, W), np.nan, np.float32)
+    dab = np.full((B, W), np.nan, np.float32)
+    loads = {k: np.zeros((B, T, W), int) for k in ("x", "r", "i", "h", "dhs")}
+    t_ = torch.from_numpy
+    for b in range(B):
+        for w0 in range(0, W, KBW):  # a CTA
+            lanes = slice(w0, min(w0 + KBW, W))
+            n = lanes.stop - w0
+            ab = a_base[lanes]
+            carry = dhf[b, lanes].copy()  # the walker's λ
+            acc = np.zeros(n, np.float32)  # the summer's Σ term
+            for k in range(-(-T // KBC)):  # walk order: the last chunk first
+                tb = T - KBC * (k + 1)
+                rows = np.arange(max(0, -tb), KBC)  # rows with t >= 0
+                kept = rows[upd[b, tb + rows]]
+                kt = tb + kept
+                sg = {nm: np.full((KBC, KBW), np.nan, np.float32)
+                      for nm in TILES}
+                # the copies: dhs at every step, the rest where updated
+                sg["g"][rows, :n] = dhs[b, tb + rows, lanes]
+                loads["dhs"][b, tb + rows, lanes] += 1
+                for nm, src in (("x", x), ("r", r), ("i", i)):
+                    sg[nm][kept, :n] = src[b, kt, lanes]
+                    loads[nm][b, kt, lanes] += 1
+                sg["h"][kept, :n] = np.where(
+                    (kt == 0)[:, None], h0[b, lanes][None],
+                    hs[b, np.maximum(kt - 1, 0), lanes])
+                loads["h"][b, kt, lanes] += 1
+                # a, formed by the workers for the walker
+                if len(kept):
+                    log_a = RGLRU_C * t_(sg["r"][kept, :n]) * ab
+                    sg["a"][kept, :n] = torch.exp(log_a).numpy()
+                for j in rows[::-1]:  # the walker: t descending
+                    d = sg["g"][j, :n] + carry
+                    sg["g"][j, :n] = d
+                    carry = sg["a"][j, :n] * d if upd[b, tb + j] else d
+                # the outputs, from the staged d
+                masked = tb + rows[~upd[b, tb + rows]]
+                for out in (dx, dr, di):
+                    out[b, masked, lanes] = 0.0
+                if len(kept):
+                    d, xv, rv, iv, hv, av = (t_(sg[nm][kept, :n]) for nm in
+                                             ("g", "x", "r", "i", "h", "a"))
+                    log_a = RGLRU_C * rv * ab
+                    e2 = torch.exp(2.0 * log_a)
+                    u = 1.0 - e2
+                    mult = torch.sqrt(torch.clamp(u, 1e-9, 1.0))
+                    q = torch.where(torch.clamp(u, 1e-9, 1.0) == u,
+                                    -(e2 / mult), 0.0)
+                    dg = d * mult
+                    dla = (d * hv) * av + (d * (iv * xv)) * q
+                    dlc = dla * RGLRU_C
+                    dx[b, kt, lanes] = (dg * iv).numpy()
+                    di[b, kt, lanes] = (dg * xv).numpy()
+                    dr[b, kt, lanes] = (dlc * ab).numpy()
+                    sg["a"][kept, :n] = (dlc * rv).numpy()  # the terms
+                for j in kept[::-1]:  # the summer: t descending
+                    acc = acc + sg["a"][j, :n]
+            dh0[b, lanes] = carry
+            dab[b, lanes] = acc
+    tot = t_(dab[0])
+    for bb in range(1, B):
+        tot = tot + t_(dab[bb])
+    dlam = tot * (1.0 - torch.sigmoid(t_(lam)))
+    return dx, dr, di, dlam.numpy(), dh0, loads
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("B,T,W", CASES + [(3, 40, 4000), (2, 33, 4001),
+                                           (1, 1, 1)])
+def test_bwd_kernel_model_bit_identical_to_plain(B, T, W, masked):
+    arrs = _inputs(B, T, W)
+    cot = _cotangents(B, T, W)
+    mask = _mask(B, T) if masked else None
+    tm = None if mask is None else torch.from_numpy(mask)
+    targs = [torch.from_numpy(a) for a in arrs]
+    hs, _ = rglru_scan_ref(*targs, tm)
+    want = rglru_scan_bwd_ref(*targs, hs, *map(torch.from_numpy, cot), tm)
+    *got, loads = _bwd_kernel_model(*arrs, hs.numpy(), *cot, mask)
+    for name, g, w in zip(NAMES, got, want):
+        np.testing.assert_array_equal(g.view(np.uint32),
+                                      w.numpy().view(np.uint32),
+                                      err_msg=name)
+    # x, r, i and h_{t-1} once at an updated step and never at a masked
+    # one; dhs once at every step
+    upd = np.ones((B, T), bool) if mask is None else mask
+    for name in ("x", "r", "i", "h"):
+        np.testing.assert_array_equal(
+            loads[name], np.broadcast_to(upd[..., None], (B, T, W)),
+            err_msg=name)
+    np.testing.assert_array_equal(loads["dhs"], 1)
+    if masked and B > 2:  # a row masked for a whole chunk: only dhs loads
+        assert not upd[-1].any() and loads["x"][-1].sum() == 0
 
 
 # ---------------------------------------------------------------------------
