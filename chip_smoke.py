@@ -62,7 +62,7 @@ non-zero; no phase's error is caught):
    plain greedy's choice on its own prefix within the bf16 tolerance;
 6. the serving CLI as subprocesses (lock-step, ``--continuous``, and the
    hybrid model) and the training CLI (``--smoke``, Qwen2-1.5B and the
-   hybrid), last of all;
+   hybrid), last of all, started at once with 10d's;
 7. RecurrentGemma-9B at full width (the Qwen3-8B weights freed first):
    phase 4's lock-step traffic and phase 5's continuous traffic (chunked
    forest only), gated as there, with one RG-LRU launch per recurrent
@@ -121,16 +121,62 @@ non-zero; no phase's error is caught):
        with twice the forward launches;
    9c. 8e's ``Trainer.run`` on the cut hybrid (T = 0.6, checkpoint,
        token-identical resume), one backward launch per recurrent layer
-       per train step.
+       per train step;
+10. telemetry and durability:
+   10a. (right after phase 5, on its weights) phase 5's continuous
+       traffic, chunked forest, with one ``obs.Telemetry`` (flight
+       recorder on) and one ``RolloutJournal``: tokens, rounds and
+       ``n_d2h``/``n_h2d`` equal to phase 5's chunked run (telemetry and
+       the journal add no crossing), spec-verify and chunked-drafting
+       launches equal to its, kept launches held to the plain versions,
+       ``das_rounds_total`` and the token counters of the Prometheus text
+       equal to the stats, the journal's sessions equal to the outputs,
+       the exported trace valid, ``obs.attribute`` a component table per
+       length class; the wall a round beside phase 5's and the journal's
+       fsync times logged;
+   10b. phase 5's epoch 1 with a journal and a ``DrainController`` (a
+       virtual clock) requested by the caller once ``DRAIN_AFTER_ROUNDS``
+       rounds ran: ``serve`` returns early with the journal fsynced; a
+       fresh engine recovers it and runs ``generate_continuous(resume=
+       ...)``; ``das_resumed_tokens_total`` equal to the salvaged tokens.
+       Twice: in bf16 against phase 5's epoch 1, every journaled prefix
+       equal to it and every resumed token within 0.25 logit of plain
+       greedy's top (the shortfalls where an output departs from phase
+       5's logged), then on the same weights upcast to float32 against
+       an uninterrupted float32 run, every prefix and output equal;
+   10c. (after phase 8) ``Trainer.run`` on Qwen2-1.5B with two workers
+       over the in-process sharded history service, ``fault_tolerant``,
+       journals and the flight recorder at T = 0 on 8e's task: a shard
+       killed after its second publish (the supervisor restarts it),
+       worker 1 stalled by its watchdog mid-slice and by ``FlakyWorker``
+       on its first call, and a step-2 checkpoint with the shards' sidecar
+       from which a fresh trainer runs step 3; spec-verify once per
+       attention layer per verify round of every trainer, its kept
+       launches held to the plain version, the flat drafting kernel's
+       bit-identical over the remote packs; each slice timed. Twice: in
+       float32, every step's responses and the resumed step 3 equal to
+       the single-worker and the uninterrupted runs'; in bf16, every
+       response token of the three runs within 0.25 logit of plain
+       greedy's top under the weights it was sampled with (the shortfalls
+       where they depart logged), and the engine spans of step 3 in the
+       single- and the two-worker trainer;
+   10d. (with phase 6) the serving CLI with ``--continuous
+       --history-service --workers 2 --supervise --journal-dir D
+       --trace-out D/trace.json``: exit 0, a valid trace, only finished
+       journal sessions.
 
 The last lines are the card line, the per-kernel JSON line and the
 result line ``{"ok": true, "device": {...}}``. A kernel's ``launches``
 there sum every path that runs it, each counted from 0 (flat drafting:
-phases 4 and 7 (R = 1 and R = 4), phase 5's flat run and phases 8 and 9;
-chunked drafting: phase 5's and phase 7's chunked runs; spec-verify at hd
-128: phases 4 and 5; at hd 256 and the RG-LRU scan: phases 7 and 9; at
-Qwen2-1.5B's shape, ``spec_verify_attention_qwen2``: phase 8; the scan's
-backward: phase 9); the drafting
+phases 4 and 7 (R = 1 and R = 4), phase 5's flat run and phases 8, 9
+and 10c; chunked drafting: phase 5's and phase 7's chunked runs and
+phases 10a and 10b; spec-verify at hd 128: phases 4, 5, 10a and 10b in
+bf16; at hd 256 and the RG-LRU scan: phases 7 and 9; at Qwen2-1.5B's
+shape, ``spec_verify_attention_qwen2``: phases 8 and 10c in bf16; the
+float32 instantiation has entries of its own, timed at the shape its
+run launched most (kept launches, cycled): ``spec_verify_attention_f32``
+at Qwen3-8B's (10b) and ``spec_verify_attention_qwen2_f32`` at Qwen2-
+1.5B's (10c); the scan's backward: phase 9); the drafting
 kernels' times and bounds there are at the path's own shapes (phases
 3b and 3c are logged). The scan has an entry per shape class, split by
 the wrapper's launches by (B, T): ``rglru_scan`` at the verify shape
@@ -146,6 +192,7 @@ step beside it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -420,6 +467,79 @@ SV_PATH_FILL = (128, 513)
 SV_LONG_FILL = (2100, 2265)
 
 
+def sv_sdpa_call(torch, copies, window):
+    """The library yardstick: one SDPA call with the same boolean mask on
+    each of ``copies`` (``sv_inputs``-shaped argument tuples) in turn;
+    never called by the port."""
+    import torch.nn.functional as F
+
+    Hq, Hkv = copies[0][0].shape[2], copies[0][1].shape[2]
+    lib_in = []
+    for q, k, v, cpos, pos in copies:
+        cpm, qp = cpos[:, None, :], pos[:, :, None]
+        mask = (cpm >= 0) & (cpm <= qp)
+        if window > 0:
+            mask &= cpm > qp - window
+        lib_in.append((q.transpose(1, 2).contiguous(),
+                       k.transpose(1, 2).contiguous(),
+                       v.transpose(1, 2).contiguous(), mask[:, None]))
+    try:
+        F.scaled_dot_product_attention(*lib_in[0][:3],
+                                       attn_mask=lib_in[0][3],
+                                       enable_gqa=True)
+        sdpa_kw = {"enable_gqa": True}
+    except TypeError:  # older torch: expand the kv heads outside timing
+        sdpa_kw = {}
+        G = Hq // Hkv
+        lib_in = [(q, k.repeat_interleave(G, 1),
+                   v.repeat_interleave(G, 1), m)
+                  for q, k, v, m in lib_in]
+    li = {"i": 0}
+
+    def lib_call():
+        li["i"] += 1
+        q, k, v, m = lib_in[li["i"] % len(lib_in)]
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                              **sdpa_kw)
+
+    return lib_call
+
+
+def time_sv_path_case(torch, np, timer, card, spy, name, where):
+    """A spec-verify JSON entry at a path's own shape: the kernel, plain
+    and SDPA times over the launches ``spy`` kept of the shape it kept
+    most (cycled, so nothing stays warm), the bound on them, and the
+    largest error of every kept launch against the plain version."""
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
+
+    copies = [c[:5] for c in spy.case]
+    kw = spy.case[0][5]
+    window = kw.get("window", 0)
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] += 1
+        return copies[it["i"] % len(copies)]
+
+    ms = timer.ms(lambda: sv_ops.spec_verify_attention_cuda(*nxt(), **kw), 50)
+    plain_ms = timer.ms(lambda: spec_verify_attention_ref(*nxt(), **kw), 10)
+    library_ms = timer.ms(sv_sdpa_call(torch, copies, window), 50)
+    dtype = str(copies[0][0].dtype).replace("torch.", "")
+    bound_ms, bound_by = sv_bound_ms(np, copies[0], window, dtype)
+    q, k = copies[0][0], copies[0][1]
+    log(f"{where} path case ({dtype}, q {tuple(q.shape)}, cache "
+        f"{tuple(k.shape)}, window {window}; {len(copies)} kept launches "
+        f"cycled): kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+        f"SDPA {library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+        f"({bound_by})  [{card}]")
+    return dict(name=name, route="cuda",
+                source="src/repro_torch/csrc/spec_verify.cu",
+                replaces="src/repro/kernels/spec_verify/kernel.py:103",
+                max_abs_err=spy.worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
 def sv_main_shape(torch, np, timer, card, B, T, Hq, Hkv, hd, S1_path,
                   S1_full, window, min_len, path_fill=SV_PATH_FILL):
     """One bf16 main-path shape at the path's ring (S+1 = ``S1_path``) and
@@ -428,8 +548,6 @@ def sv_main_shape(torch, np, timer, card, B, T, Hq, Hkv, hd, S1_path,
     then kernel, plain, SDPA and bound times (the full ring's kernel
     time also without the timer's lead, once). The path fill's numbers
     are returned; the full ring's are logged."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.spec_verify import ops as sv_ops
     from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
 
@@ -479,36 +597,7 @@ def sv_main_shape(torch, np, timer, card, B, T, Hq, Hkv, hd, S1_path,
         ms = timer.ms(kern, 50)
         plain_ms = timer.ms(lambda: spec_verify_attention_ref(
             *nxt(), window=window), 10)
-        # library yardstick: one SDPA call with the same boolean mask
-        # (never called by the port)
-        lib_in = []
-        for q, k, v, cpos, pos in copies:
-            cpm, qp = cpos[:, None, :], pos[:, :, None]
-            mask = (cpm >= 0) & (cpm <= qp)
-            if window > 0:
-                mask &= cpm > qp - window
-            lib_in.append((q.transpose(1, 2).contiguous(),
-                           k.transpose(1, 2).contiguous(),
-                           v.transpose(1, 2).contiguous(), mask[:, None]))
-        try:
-            F.scaled_dot_product_attention(*lib_in[0][:3],
-                                           attn_mask=lib_in[0][3],
-                                           enable_gqa=True)
-            sdpa_kw = {"enable_gqa": True}
-        except TypeError:  # older torch: expand the kv heads outside timing
-            sdpa_kw = {}
-            G = Hq // Hkv
-            lib_in = [(q, k.repeat_interleave(G, 1),
-                       v.repeat_interleave(G, 1), m)
-                      for q, k, v, m in lib_in]
-        li = {"i": 0}
-
-        def lib_call():
-            li["i"] += 1
-            q, k, v, m = lib_in[li["i"] % len(lib_in)]
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
-                                                  **sdpa_kw)
-
+        lib_call = sv_sdpa_call(torch, copies, window)
         library_ms = timer.ms(lib_call, 50)
         bound_ms, bound_by = sv_bound_ms(np, args, window, "bfloat16")
         extra = ""
@@ -1154,7 +1243,9 @@ class SvSpy:
     """Wraps ``spec_verify_attention_cuda`` on the main path: keeps the
     inputs (the cache tensors copied) and the output of each epoch's
     first launch and of every ``EVERY``-th, to be held against the plain
-    version after the run, outside its timing. Adds no launch."""
+    version after the run, outside its timing. Adds no launch. After
+    ``check``, ``case`` holds up to four kept launches of the shape kept
+    most (``time_sv_path_case``) and ``worst`` the largest error."""
 
     EVERY = 64
 
@@ -1195,17 +1286,24 @@ class SvSpy:
               f"{where}: only {len(self.kept)} spec-verify launches kept")
         worst = 0.0
         shapes = set()
+        by_shape = {}
         for q, k, v, cpos, pos, got, kw in self.kept:
             want = spec_verify_attention_ref(q, k, v, cpos, pos, **kw)
             err = float((got.float() - want.float()).abs().max())
+            tol = SV_TOL[str(q.dtype).replace("torch.", "")]
             check(bool(torch.isfinite(got).all()) and torch.allclose(
-                got.float(), want.float(), **SV_TOL["bfloat16"]),
+                got.float(), want.float(), **tol),
                 f"{where}: a kept spec-verify launch differs from the plain "
                 f"version, max |err| {err}")
             worst = max(worst, err)
-            shapes.add((tuple(q.shape), tuple(k.shape), kw.get("window", 0)))
+            sig = (tuple(q.shape), tuple(k.shape), kw.get("window", 0))
+            shapes.add(sig)
+            by_shape.setdefault(sig, []).append((q, k, v, cpos, pos, kw))
+        # the path case: the last four kept launches of the shape kept most
+        self.case = max(by_shape.values(), key=len)[-4:]
+        self.worst = worst
         log(f"{where}: {len(self.kept)} of {self.n} spec-verify launches kept "
-            f"(each epoch's first, every {self.EVERY}th), within the bf16 "
+            f"(each epoch's first, every {self.EVERY}th), within the "
             f"tolerance of the plain version: max |err| {worst:.3e}; (q, "
             f"cache, window) {sorted(shapes)}  [{card}]")
         self.kept.clear()
@@ -1513,11 +1611,35 @@ def continuous_requests(np, vocab, n_problems=12, n_requests=24,
             [limits[i % len(limits)] for i in range(n_requests)])
 
 
+class GcTimer:
+    """Passes and seconds of Python's cyclic garbage collector while
+    active (``gc.callbacks``): host time a round loses to it."""
+
+    def __init__(self):
+        self.n, self.s, self._t0 = 0, 0.0, None
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.n += 1
+            self.s += time.perf_counter() - self._t0
+            self._t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+
+
 def serve_epochs(torch, eng, prompts, pids, max_new, slots, dev, card, tag,
-                 on_epoch=None):
+                 on_epoch=None, journal=None):
     """Two epochs of ``SpecEngine.serve`` over the same requests; returns
-    per epoch the outputs, per-request rounds and admission rounds, and
-    the stats. ``on_epoch()`` is called as each epoch begins."""
+    per epoch the outputs, per-request rounds and admission rounds, the
+    stats and the wall. ``on_epoch()`` is called as each epoch begins;
+    with a ``journal`` each request is journaled under ``e<epoch>-<i>``."""
     from repro_torch.core.scheduler import Request
     from repro_torch.core.spec_engine import RolloutStats
 
@@ -1527,27 +1649,47 @@ def serve_epochs(torch, eng, prompts, pids, max_new, slots, dev, card, tag,
         if on_epoch is not None:
             on_epoch()
         reqs = [Request(rid=i, problem_id=pids[i], prompt=list(prompts[i]),
-                        max_new_tokens=max_new[i])
+                        max_new_tokens=max_new[i], journal_key=f"e{ep}-{i}")
                 for i in range(len(prompts))]
         st = RolloutStats()
+        gc.collect()  # each epoch starts from the same collector state
         if dev == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in eng.serve(reqs, slots=slots, stats=st):
-            pass
+        with GcTimer() as gct:
+            for _ in eng.serve(reqs, slots=slots, stats=st, journal=journal):
+                pass
         if dev == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         toks = st.n_toks_emitted
         log(f"{tag} epoch {ep + 1}: makespan {st.n_rounds} rounds, wall "
             f"{wall * 1e3:.1f} ms, tokens {toks}, {toks / wall:.1f} tok/s, "
-            f"drafted {st.n_drafted}, accepted {st.n_accepted}  [{card}]")
+            f"drafted {st.n_drafted}, accepted {st.n_accepted}; host "
+            f"bookkeeping {st.host_time_s * 1e3:.1f} ms, {gct.n} collector "
+            f"passes {gct.s * 1e3:.1f} ms  [{card}]")
         runs.append(dict(outputs=[r.output for r in reqs],
                          rounds=[r.rounds for r in reqs],
                          admit=[r.admit_round for r in reqs],
                          makespan=st.n_rounds, accepted=st.n_accepted,
-                         stats=st))
+                         stats=st, wall=wall, gc_s=gct.s))
     return runs
+
+
+def serving_engine(cfg, params, dev, max_new, layout="chunked", tel=None):
+    """Phase 5's engine: fused rounds, scope ``problem``, one K bucket
+    (16), so every verify round runs one (slots, 17) block."""
+    from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
+    from repro_torch.core.spec_engine import EngineConfig, SpecEngine
+
+    return SpecEngine(
+        params, cfg,
+        EngineConfig(max_draft=16, block_buckets=(16,),
+                     max_new_tokens=max(max_new), eos_token=1,
+                     fuse_rounds="auto"),
+        drafter=SuffixDrafter(DrafterConfig(scope="problem",
+                                            forest_layout=layout)),
+        telemetry=tel, device=dev)
 
 
 def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
@@ -1559,23 +1701,11 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
     launches (by layout), the chunked run's runs, the prompts, the
     lock-step outputs of the same prompts and the chunked run's
     suffix-match spy (its second epoch's launches kept for timing)."""
-    from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
-    from repro_torch.core.spec_engine import EngineConfig, SpecEngine
-
     prompts, pids, max_new = continuous_requests(
         np, cfg.vocab_size, n_problems, n_requests, limits, prompt_len)
     result = {}
     for layout in layouts:
-        # one K bucket (16): every verify round runs one (slots, 17) block
-        eng = SpecEngine(
-            params, cfg,
-            EngineConfig(max_draft=16, block_buckets=(16,),
-                         max_new_tokens=max(limits), eos_token=1,
-                         fuse_rounds="auto"),
-            drafter=SuffixDrafter(DrafterConfig(scope="problem",
-                                                forest_layout=layout)),
-            device=dev,
-        )
+        eng = serving_engine(cfg, params, dev, max_new, layout)
         sv_spy = SvSpy()
         sm_spy = SmSpy(chunked=layout == "chunked")
 
@@ -1645,7 +1775,8 @@ def phase_continuous(torch, np, card, cfg, params,
     outputs equal lock-step ``generate`` exactly (bf16 admissions prefill
     in chunks of other sizes than the lock-step batch, so cuBLAS may round
     differently), and where those that differ diverge. Returns each run's
-    launches (by layout) and the chunked run's suffix-match spy."""
+    launches (by layout), the chunked run's suffix-match spy and the
+    chunked run's epochs (phase 10a's reference)."""
     launches, runs, prompts, lock, spy = continuous_layouts(
         torch, np, cfg, params, "cuda", card, slots=8, n_problems=12,
         n_requests=24, limits=(32, 64, 128, 256), prompt_len=(128, 256),
@@ -1660,7 +1791,7 @@ def phase_continuous(torch, np, card, cfg, params,
         {"lock-step": lock, "continuous epoch 1": runs[0]["outputs"],
          "continuous epoch 2": runs[1]["outputs"]}, card)
     torch.cuda.empty_cache()
-    return launches, spy
+    return launches, spy, runs
 
 
 # The most a bf16 engine's token may fall short of plain greedy's top
@@ -1671,34 +1802,58 @@ def phase_continuous(torch, np, card, cfg, params,
 TOL_LOGIT_BF16 = 0.25
 
 
-def plain_greedy_full_width(torch, np, cfg, params, prompts, outputs, card):
-    """Every token of every output set (name -> one output per prompt)
-    against plain greedy decoding: one full-sequence forward (no cache, no
-    kernels: the RG-LRU scan swapped for its plain version) over prompt +
-    output gives the logits at each position on the
-    output's own prefix, and the output's token must be the top or within
-    ``TOL_LOGIT_BF16`` of it. An output that is a prefix of one already
-    checked for the same prompt reuses its forward. Logs, per set, the
-    tokens checked, how many are the top, the largest shortfall, and,
-    for outputs that differ from the first set's, the first position they
-    differ at with both tokens' shortfalls there."""
+def greedy_shortfalls(torch, cfg, params, prompt, out):
+    """Plain greedy decoding's view of ``out`` after ``prompt``: one
+    full-sequence forward (no cache, no kernels: the RG-LRU scan swapped
+    for its plain version) over prompt + output gives the logits at each
+    position on the output's own prefix; returns each token's shortfall
+    from the top logit there and the top-2 gap, as numpy arrays."""
     from repro_torch.models import model as M
 
     dev = params.embed.device
+    x = torch.tensor([list(prompt) + list(out)], dtype=torch.int32,
+                     device=dev)
+    with torch.inference_mode(), plain_rglru_scan():
+        logits, _ = M.forward(params, cfg, x)
+        lg = logits[0, len(prompt) - 1:len(prompt) - 1 + len(out),
+                    :cfg.vocab_size]
+        top2 = torch.topk(lg, 2, dim=-1).values
+        chosen = lg.gather(1, torch.tensor(list(out), device=dev)[:, None])
+        sf = (top2[:, 0] - chosen[:, 0]).cpu().numpy()
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    return sf, gap
+
+
+def first_divergence(o, r, res_o, res_r, label):
+    """Where output ``o`` first differs from ``r``, with both tokens'
+    shortfalls there (``res_*``: ``greedy_shortfalls``' arrays) and the
+    reference's top-2 gap; None when equal."""
+    if o == r:
+        return None
+    j = next((j for j, (a, b) in enumerate(zip(o, r)) if a != b),
+             min(len(o), len(r)))
+    if j == min(len(o), len(r)):
+        return f"{label}: length {len(o)} vs {len(r)}"
+    return (f"{label}@{j}: {float(res_o[0][j]):.4f}/"
+            f"{float(res_r[0][j]):.4f} (top-2 gap {float(res_r[1][j]):.4f})")
+
+
+def plain_greedy_full_width(torch, np, cfg, params, prompts, outputs, card):
+    """Every token of every output set (name -> one output per prompt)
+    against plain greedy decoding (``greedy_shortfalls``): the output's
+    token must be the top or within ``TOL_LOGIT_BF16`` of it. An output
+    that is a prefix of one already checked for the same prompt reuses
+    its forward. Logs, per set, the tokens checked, how many are the top,
+    the largest shortfall, and, for outputs that differ from the first
+    set's, the first position they differ at with both tokens'
+    shortfalls there."""
     done = {}  # prompt -> list of (tokens, shortfalls, top-2 gaps)
 
     def measure(p, out):
         for toks, sf, gap in done.get(tuple(p), []):
             if toks[:len(out)] == out:
                 return sf[:len(out)], gap[:len(out)]
-        x = torch.tensor([list(p) + list(out)], dtype=torch.int32, device=dev)
-        with torch.inference_mode(), plain_rglru_scan():
-            logits, _ = M.forward(params, cfg, x)
-            lg = logits[0, len(p) - 1:len(p) - 1 + len(out), :cfg.vocab_size]
-            top2 = torch.topk(lg, 2, dim=-1).values
-            chosen = lg.gather(1, torch.tensor(out, device=dev)[:, None])
-            sf = (top2[:, 0] - chosen[:, 0]).cpu().numpy()
-            gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        sf, gap = greedy_shortfalls(torch, cfg, params, p, out)
         done.setdefault(tuple(p), []).append((list(out), sf, gap))
         return sf, gap
 
@@ -1716,19 +1871,10 @@ def plain_greedy_full_width(torch, np, cfg, params, prompts, outputs, card):
         n_top = int((sfs == 0).sum())
         mx = float(sfs.max(initial=0.0))
         worst = max(worst, mx)
-        div = []
-        for i, o in enumerate(outs):
-            r = outputs[ref_name][i]
-            if name == ref_name or o == r:
-                continue
-            j = next((j for j, (a, b) in enumerate(zip(o, r)) if a != b),
-                     min(len(o), len(r)))
-            if j < min(len(o), len(r)):
-                div.append(f"r{i}@{j}: {float(res[name][i][0][j]):.4f}/"
-                           f"{float(res[ref_name][i][0][j]):.4f} (top-2 gap "
-                           f"{float(res[ref_name][i][1][j]):.4f})")
-            else:
-                div.append(f"r{i}: length {len(o)} vs {len(r)}")
+        div = [] if name == ref_name else [
+            d for i, o in enumerate(outs) if (d := first_divergence(
+                o, outputs[ref_name][i], res[name][i], res[ref_name][i],
+                f"r{i}")) is not None]
         log(f"plain greedy ({cfg.dtype}) vs {name}: {sfs.size} tokens, "
             f"{n_top} the top logit, largest shortfall {mx:.4f} (tolerance "
             f"{TOL_LOGIT_BF16})" + (f"; first divergence from {ref_name}, "
@@ -1796,6 +1942,674 @@ def phase_small_reference(torch, np, arch, dev="cuda"):
         f"decoding; generate_continuous (2 slots, chunked) equal to "
         f"lock-step generate in both epochs (epoch 2 accepted "
         f"{st.n_accepted} lock-step, {cst.n_accepted} continuous)")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: telemetry and durability (10a and 10b after phase 5, 10c after
+# phase 8, 10d with the CLIs)
+# ---------------------------------------------------------------------------
+
+# 10b requests the drain at the first request that finishes once epoch 1
+# has dispatched this many rounds (phase 5's traffic: the first limits are
+# 32 tokens, so requests finish from about round 32 on).
+DRAIN_AFTER_ROUNDS = 48
+
+
+def prom_values(text):
+    """The unlabelled samples of a Prometheus exposition, by name."""
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            name, _, val = ln.rpartition(" ")
+            if "{" not in name:
+                out[name] = float(val)
+    return out
+
+
+def journal_summary(sess):
+    fs = [s for s in sess.values()]
+    return (f"{len(fs)} sessions, {sum(s.finished for s in fs)} finished, "
+            f"{sum(len(s.tokens) for s in fs)} tokens")
+
+
+def fsync_line(tel):
+    h = tel.registry.get("das_journal_fsync_seconds")
+    n, tot = h.count, h.sum
+    return (f"{int(n)} fsyncs, {tot * 1e3:.3f} ms in all"
+            + (f" ({tot / n * 1e6:.1f} us each)" if n else ""))
+
+
+def phase_telemetry(torch, np, card, cfg, params, ref_runs, ref_launches,
+                    dev="cuda", slots=8, n_problems=12, n_requests=24,
+                    limits=(32, 64, 128, 256), prompt_len=(128, 256)):
+    """10a: phase 5's continuous traffic (chunked forest) on a fresh
+    engine with one ``obs.Telemetry`` (flight recorder on) and one
+    ``RolloutJournal`` in a temporary directory. Gated: every token, round
+    count and host/device crossing (``n_d2h``, ``n_h2d``) of both epochs
+    equal to phase 5's chunked run (``ref_runs``), and so are the
+    spec-verify and chunked-drafting launches (``ref_launches``); the
+    kept launches held to the plain versions; the Prometheus text's
+    ``das_rounds_total`` and drafted/accepted token counters equal to the
+    stats; the journal's recovered sessions equal to the outputs, all
+    finished; the exported trace validates; the attribution report has a
+    component table for each length class. Logged: the wall a round
+    beside phase 5's and the journal's fsync times. Returns the launches
+    and the engine's telemetry."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.fault import RolloutJournal
+
+    prompts, pids, max_new = continuous_requests(
+        np, cfg.vocab_size, n_problems, n_requests, limits, prompt_len)
+    tel = obs.Telemetry()
+    tel.attach_flight(worker="w0")
+    eng = serving_engine(cfg, params, dev, max_new, tel=tel)
+    sv_spy, sm_spy = SvSpy(), SmSpy(chunked=True)
+
+    def on_epoch():
+        sv_spy.new_epoch()
+        sm_spy.new_epoch()
+
+    where = f"10a {cfg.name} continuous (telemetry, journal)"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve.wal")
+        jrnl = RolloutJournal(path, telemetry=tel)
+        reset_launches()
+        with sv_spy, sm_spy:
+            runs = serve_epochs(torch, eng, prompts, pids, max_new, slots,
+                                dev, card, where, on_epoch=on_epoch,
+                                journal=jrnl)
+        launches = read_launches()
+        jrnl.close()
+        sess = RolloutJournal.recover(path)
+        trace = obs.export_trace(os.path.join(tmp, "trace.json"), [tel])
+    for ep, (got, want) in enumerate(zip(runs, ref_runs)):
+        g, w = got["stats"], want["stats"]
+        check(got["outputs"] == want["outputs"],
+              f"{where} epoch {ep + 1}: tokens differ from phase 5's")
+        check((g.n_rounds, g.n_drafted, g.n_accepted)
+              == (w.n_rounds, w.n_drafted, w.n_accepted),
+              f"{where} epoch {ep + 1}: rounds/drafted/accepted differ")
+        check((g.n_d2h, g.n_h2d) == (w.n_d2h, w.n_h2d),
+              f"{where} epoch {ep + 1}: n_d2h/n_h2d {g.n_d2h}/{g.n_h2d}, "
+              f"phase 5's {w.n_d2h}/{w.n_h2d}: telemetry or the journal "
+              "added a crossing")
+        per = 1e3 / g.n_rounds
+        log(f"{where} epoch {ep + 1}: wall a round "
+            f"{got['wall'] * per:.2f} ms beside phase 5's "
+            f"{want['wall'] * per:.2f} ms; host bookkeeping "
+            f"{g.host_time_s * per:.2f} ms beside {w.host_time_s * per:.2f}, "
+            f"the collector {got['gc_s'] * per:.2f} ms beside "
+            f"{want['gc_s'] * per:.2f} ({g.n_rounds} rounds; n_d2h "
+            f"{g.n_d2h}, n_h2d {g.n_h2d} in both)  [{card}]")
+    if dev == "cuda":
+        for name in ("spec_verify_attention", "suffix_match_propose_chunked",
+                     "suffix_match_propose"):
+            check(launches[name] == ref_launches[name],
+                  f"{where}: {launches[name]} {name} launches, phase 5's "
+                  f"chunked run {ref_launches[name]}")
+        sv_spy.check(torch, card, where)
+        sm_spy.check(torch, card, where)
+    prom = prom_values(tel.prometheus())
+    for name, field in (("das_rounds_total", "n_rounds"),
+                        ("das_tokens_drafted_total", "n_drafted"),
+                        ("das_tokens_accepted_total", "n_accepted"),
+                        ("das_tokens_emitted_total", "n_toks_emitted"),
+                        ("das_d2h_transfers_total", "n_d2h")):
+        want = sum(getattr(r["stats"], field) for r in runs)
+        check(prom.get(name) == want,
+              f"{where}: {name} {prom.get(name)} in the Prometheus text, "
+              f"the stats {want}")
+    for ep, r in enumerate(runs):
+        for i, out in enumerate(r["outputs"]):
+            s = sess.get(f"e{ep}-{i}")
+            check(s is not None and s.finished and s.tokens == out,
+                  f"{where}: journal session e{ep}-{i} differs from its "
+                  "output")
+    problems = obs.validate_chrome_trace(trace)
+    check(not problems, f"{where}: the exported trace is invalid: "
+          f"{problems[:3]}")
+    spans = [sp.to_dict() for sp in tel.tracer.recent(4096)]
+    rep = obs.attribute(tel.flight.events(), spans)
+    check(rep["n_rollouts"] == 2 * n_requests
+          and all("components_s" in c for c in rep["classes"].values())
+          and sum(c["n"] for c in rep["classes"].values()) == 2 * n_requests,
+          f"{where}: attribution report {rep.get('n_rollouts')} rollouts, "
+          f"classes {sorted(rep.get('classes', {}))}")
+    comp = {k: {n: round(v, 3) for n, v in c["components_s"].items()}
+            for k, c in rep["classes"].items()}
+    log(f"{where}: Prometheus counters equal to the stats "
+        f"(das_rounds_total {prom['das_rounds_total']:g}, drafted "
+        f"{prom['das_tokens_drafted_total']:g}, accepted "
+        f"{prom['das_tokens_accepted_total']:g}); journal "
+        f"{journal_summary(sess)}, {fsync_line(tel)}; trace "
+        f"{len(trace['traceEvents'])} events, valid; attribution by length "
+        f"class (s): {comp}; top decile's makespan share "
+        f"{rep['top_decile']['makespan_share']:.3f}  [{card}]")
+    return launches, tel
+
+
+def phase_drain_resume(torch, np, card, cfg, params, dev="cuda",
+                       slots=8, n_problems=12, n_requests=24,
+                       limits=(32, 64, 128, 256), prompt_len=(128, 256),
+                       drain_after=DRAIN_AFTER_ROUNDS, reference=None):
+    """10b: phase 5's epoch-1 traffic with a journal and a
+    ``DrainController`` on a virtual clock. At the first request that
+    finishes once ``drain_after`` rounds were dispatched, the caller
+    requests the drain and moves the clock past its deadline: ``serve``
+    preempts the residents, stops admitting, fsyncs the journal and
+    returns. A fresh engine on the same parameters recovers the journal
+    (``RolloutJournal.recover``, ``resume_requests``) and runs
+    ``generate_continuous(resume=...)``. The reference is ``reference``
+    (phase 5's epoch-1 run: outputs and makespan) or, without one, the
+    same traffic uninterrupted on a fresh engine. Gated: the serve
+    stopped early with requests finished, preempted and queued; every
+    journaled prefix equals the reference's (the drained serve runs the
+    reference's rounds until the drain); ``das_resumed_tokens_total``
+    equals the salvaged tokens; and the resumed outputs: in float32 equal
+    to the reference token for token; in bf16, where a GEMM rounds by
+    its shapes and the re-prefill of ``prompt + salvage[:-1]`` and the
+    admissions after the drain run other shapes than the rounds they
+    stand in for, every token of both within ``TOL_LOGIT_BF16`` of plain
+    greedy's top logit on its own prefix, with both tokens' shortfalls
+    logged where an output first departs from the reference (the
+    witness that a divergence is a near-tie). Returns the launches of
+    the runs and the spec-verify spy."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.core.scheduler import Request
+    from repro_torch.core.spec_engine import RolloutStats
+    from repro_torch.fault import (
+        DrainController,
+        RolloutJournal,
+        VirtualClock,
+    )
+
+    prompts, pids, max_new = continuous_requests(
+        np, cfg.vocab_size, n_problems, n_requests, limits, prompt_len)
+    keys = [f"r{i}" for i in range(len(prompts))]
+    exact = cfg.dtype == "float32"
+    where = f"10b {cfg.name} ({cfg.dtype}) drain and resume"
+    reset_launches()
+    sv_spy, sm_spy = SvSpy(), SmSpy(chunked=True)
+    ref_rounds = 0  # verify rounds this phase ran for its reference
+    if reference is None:
+        ref = serving_engine(cfg, params, dev, max_new)
+        ref.begin_iteration(0)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        with sv_spy, sm_spy:
+            want, st0 = ref.generate_continuous(prompts, pids, slots=slots,
+                                                max_new_tokens=max_new)
+        sync(torch, dev)
+        t_ref = time.perf_counter() - t0
+        del ref
+        makespan = ref_rounds = st0.n_rounds
+        ref_line = (f"the uninterrupted reference {st0.n_rounds} rounds in "
+                    f"{t_ref:.1f} s")
+    else:
+        want, makespan = reference["outputs"], reference["makespan"]
+        ref_line = f"the reference phase 5's epoch 1 ({makespan} rounds)"
+    clk = VirtualClock()
+    drain = DrainController(deadline_s=5.0, clock=clk)
+    eng = serving_engine(cfg, params, dev, max_new)
+    eng.begin_iteration(0)
+    reqs = [Request(rid=i, problem_id=pids[i], prompt=list(prompts[i]),
+                    max_new_tokens=max_new[i], journal_key=keys[i])
+            for i in range(len(prompts))]
+    st = RolloutStats()
+    sv_spy.new_epoch()
+    sm_spy.new_epoch()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "drain.wal")
+        jrnl = RolloutJournal(path)
+        t0 = time.perf_counter()
+        with sv_spy, sm_spy:
+            for _ in eng.serve(reqs, slots=slots, stats=st, journal=jrnl,
+                               drain=drain, clock=clk):
+                if not drain.draining and st.n_rounds >= drain_after:
+                    drain.request("phase 10b")
+                    clk.advance(drain.deadline_s + 1.0)
+                    at_round = st.n_rounds
+        jrnl.close()
+        sync(torch, dev)
+        t_serve = time.perf_counter() - t0
+        del eng
+        states = Counter(r.state for r in reqs)
+        check(drain.draining and drain.expired(),
+              f"{where}: the drain was never requested")
+        check(states["finished"] > 0 and states["preempted"] > 0
+              and states["queued"] > 0 and st.n_rounds < makespan,
+              f"{where}: states {dict(states)} after {st.n_rounds} rounds "
+              f"(the reference's makespan {makespan})")
+        t0 = time.perf_counter()
+        sess = RolloutJournal.recover(path)
+        t_recover = time.perf_counter() - t0
+    for i, k in enumerate(keys):
+        s = sess[k]
+        check(s.tokens == want[i][: len(s.tokens)]
+              and (not s.finished or s.tokens == want[i]),
+              f"{where}: journaled {k} ({len(s.tokens)} tokens, finished "
+              f"{s.finished}) is not a prefix of the reference's output")
+    salvaged = sum(len(s.tokens) for s in sess.values()
+                   if s.resumable and s.tokens)
+    n_res = sum(1 for s in sess.values() if s.resumable and s.tokens)
+    tel = obs.Telemetry()
+    eng2 = serving_engine(cfg, params, dev, max_new, tel=tel)
+    eng2.begin_iteration(0)
+    t0 = time.perf_counter()
+    sv_spy.new_epoch()
+    sm_spy.new_epoch()
+    with sv_spy, sm_spy:
+        outs, st2 = eng2.generate_continuous(
+            prompts, pids, slots=slots, max_new_tokens=max_new,
+            journal_keys=keys, resume=sess)
+    sync(torch, dev)
+    t_resume = time.perf_counter() - t0
+    del eng2
+    launches = read_launches()
+    if dev == "cuda":
+        check_sv_launches(cfg, launches,
+                          ref_rounds + st.n_rounds + st2.n_rounds, where)
+        sv_spy.check(torch, card, where)
+        sm_spy.check(torch, card, where)
+    resumed = tel.registry.value("das_resumed_tokens_total")
+    same = sum(a == b for a, b in zip(outs, want))
+    log(f"{where}: {ref_line}; drain requested at round {at_round}, serve "
+        f"returned after {st.n_rounds} rounds in {t_serve:.1f} s with states "
+        f"{dict(states)}; journal recovered in {t_recover * 1e3:.1f} ms "
+        f"({journal_summary(sess)}); {n_res} resumed by prefix re-prefill "
+        f"({salvaged} salvaged tokens, das_resumed_tokens_total "
+        f"{resumed:g}), rest served in {st2.n_rounds} rounds, "
+        f"{t_resume:.1f} s; {same} / {len(want)} outputs equal the "
+        f"reference  [{card}]")
+    check(resumed == salvaged and salvaged > 0,
+          f"{where}: das_resumed_tokens_total {resumed}, salvaged "
+          f"{salvaged}")
+    for i, (o, w) in enumerate(zip(outs, want)):
+        if o != w:
+            d = next((j for j, (a, b) in enumerate(zip(o, w)) if a != b),
+                     min(len(o), len(w)))
+            log(f"{where}: request {i} ({len(sess[keys[i]].tokens)} "
+                f"journaled) diverges from the reference at token {d} of "
+                f"{len(w)}")
+    if exact:
+        check(same == len(want), f"{where}: {len(want) - same} resumed "
+              "outputs differ from the uninterrupted run's")
+    else:
+        plain_greedy_full_width(
+            torch, np, cfg, params, prompts,
+            {"10b reference": want, "10b drained and resumed": outs}, card)
+    return launches, sv_spy
+
+
+class SliceTimer:
+    """A rollout-worker proxy (as ``fault.FlakyWorker`` is one): times
+    each ``rollout`` call, a slice or a re-queued one, to the card's
+    sync, and records the trainer step, the worker, the problems, the
+    tokens it resumed, its verify rounds and how it ended."""
+
+    def __init__(self, worker, index, step, torch, dev, out):
+        self._worker, self._index, self._step = worker, index, step
+        self._torch, self._dev, self._out = torch, dev, out
+
+    def __getattr__(self, name):
+        return getattr(self._worker, name)
+
+    def rollout(self, problems, *a, resume=None, **k):
+        t0 = time.perf_counter()
+        rec = dict(step=self._step() + 1, worker=self._index,
+                   problems=len(problems),
+                   resumed=sum(len(x.tokens) for x in (resume or {}).values()))
+        try:
+            part = self._worker.rollout(problems, *a, resume=resume, **k)
+        except Exception as exc:
+            rec.update(end=type(exc).__name__, rounds=None)
+            raise
+        else:
+            rec.update(end="ok", rounds=part.stats.n_rounds)
+            return part
+        finally:
+            sync(self._torch, self._dev)
+            rec["s"] = time.perf_counter() - t0
+            self._out.append(rec)
+
+
+class StackSampler:
+    """A sampling profiler of the calling thread: a daemon thread reads
+    its stack every ``interval_s`` (``sys._current_frames``) and counts
+    the innermost frame of the repository's code and the innermost frame
+    of all; ``top()`` gives each count's share of the samples. The
+    service's shard threads are not sampled."""
+
+    def __init__(self, interval_s=0.005):
+        import threading
+
+        self.interval_s = interval_s
+        self.ident = threading.get_ident()
+        self.ours, self.leaf = Counter(), Counter()
+        self.n = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(self.interval_s):
+            f = sys._current_frames().get(self.ident)
+            if f is None:
+                continue
+            self.n += 1
+            self.leaf[f"{f.f_code.co_name} "
+                      f"({os.path.basename(f.f_code.co_filename)})"] += 1
+            while f is not None and "repro_torch" not in f.f_code.co_filename:
+                f = f.f_back
+            if f is not None:
+                self.ours[f"{f.f_code.co_name} "
+                          f"({os.path.basename(f.f_code.co_filename)}:"
+                          f"{f.f_lineno})"] += 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def top(self, counter, k=6):
+        return "; ".join(f"{name} {c / max(self.n, 1):.0%}"
+                         for name, c in counter.most_common(k))
+
+
+def span_profile(tracer, t_a, t_b):
+    """The engine's spans (``obs`` tracer) that began in [t_a, t_b], by
+    name: total ms and count, the outermost (depth 0) first; and their
+    sum beside the window."""
+    agg = {}
+    for sp in tracer.recent():
+        if t_a <= sp.t0 <= t_b:
+            a = agg.setdefault((sp.depth, sp.name), [0.0, 0])
+            a[0] += sp.dur_s
+            a[1] += 1
+    top = sum(v[0] for (d, _), v in agg.items() if d == 0)
+    return (f"{(t_b - t_a) * 1e3:.1f} ms, of it {top * 1e3:.1f} ms in "
+            "outermost spans; " + "; ".join(
+                f"{n} (depth {d}) {v[0] * 1e3:.1f} ms x{v[1]}"
+                for (d, n), v in sorted(agg.items(),
+                                        key=lambda kv: (kv[0][0],
+                                                        -kv[1][0]))))
+
+
+def phase_multiworker(torch, np, card, cfg=None, dev="cuda", tag="10c",
+                      steps=3, n_problems=8, max_new_tokens=32,
+                      resume=True):
+    """10c: ``Trainer.run`` with two workers over the in-process sharded
+    history service (2 shards), ``fault_tolerant``, ``journal_dir`` and
+    ``flight_recorder``, at T = 0 on 8e's pattern task (no SFT), with a
+    seeded ``FaultPlan``: shard 1 killed by its hook after its second
+    publish, worker 1's watchdog stalled (a virtual clock) at its third
+    check and ``FlakyWorker`` stalling worker 1 on its first call; with
+    ``resume``, a checkpoint after step 2, from which a fresh two-worker
+    trainer (the shards' states in its sidecar) runs step 3. Before it, a
+    single-worker run of the same steps. Gated: the supervisor restarted
+    the shard; ``plan.fired`` lists the kill and the stall; two worker
+    failures re-queued with salvage; handoff and resume flight events;
+    spec-verify once per attention layer per verify round of every
+    trainer (``das_rounds_total``, failed slices included) and its kept
+    launches within the tolerance of the plain version; the flat drafting
+    kernel's kept launches bit-identical to its plain version, and it
+    drafted from the remote packs; and the responses: in float32 every
+    step's equal to the single-worker run's and the resumed step 3 equal
+    to the uninterrupted one (with ``resume``); in bf16, where a slice
+    verifies half the
+    rows (other GEMM shapes than the single worker's) and a re-queued
+    slice re-prefills, every response token of every run within
+    ``TOL_LOGIT_BF16`` of plain greedy's top logit on its own prefix
+    under the weights it was sampled with, and where a response first
+    departs from the other run's both tokens' shortfalls are logged (at
+    step 1 and for the resumed step 3 the two runs' weights are the
+    same). Logged: each slice's wall, rounds and end, the rollout time a
+    step beside the single-worker run's, the shard restart time, the
+    peak memory, and the last step's rollout in the single- and the
+    two-worker run: its engine spans (``span_profile``), collector passes
+    and the stack samples of the host loop (``StackSampler``). Returns
+    the launches and the spec-verify spy."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.drafter import DrafterConfig
+    from repro_torch.core.spec_engine import EngineConfig
+    from repro_torch.data.tasks import PatternTask
+    from repro_torch.fault import FaultPlan, FlakyWorker, RolloutWatchdog
+    from repro_torch.fault import VirtualClock
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.rl.trainer import Trainer, TrainerConfig
+
+    cfg = cfg or get_config("qwen2-1.5b")
+    exact = cfg.dtype == "float32"
+    where = f"{cfg.name} ({cfg.dtype}) {tag}"
+
+    def trainer(n_workers, **over):
+        return Trainer(
+            cfg, PatternTask(n_problems=n_problems),
+            TrainerConfig(
+                steps=steps, prompts_per_step=4, group_size=2,
+                max_new_tokens=max_new_tokens, temperature=0.0, seed=0,
+                sft_warmup_steps=0, optim=AdamWConfig(lr=STEP_LR,
+                                                      warmup_steps=2),
+                engine=EngineConfig(max_draft=16, block_buckets=(16,),
+                                    eos_token=1),
+                drafter=DrafterConfig(scope="problem"),
+                n_workers=n_workers, history_shards=2,
+                supervise_interval_s=0.5, **over),
+            telemetry=obs.Telemetry(), device=dev)
+
+    client_stats = Counter()
+    rounds = []  # das_rounds_total of each trainer
+
+    def run(tr, profile=False):
+        """Every step's responses and, in bf16, their shortfalls under
+        the weights they were sampled with; the history."""
+        rolls, short = [], []
+        orig = tr.worker.rollout
+
+        def wrapped(*a, **k):
+            if profile and tr._step + 1 == steps:
+                tr.telemetry.tracer.recent()  # fold the earlier spans
+                t_a = time.perf_counter()
+                with StackSampler() as smp, GcTimer() as gct:
+                    batch = orig(*a, **k)
+                    sync(torch, dev)
+                spans = span_profile(tr.telemetry.tracer, t_a,
+                                     time.perf_counter())
+                log(f"{where} step {steps} rollout with "
+                    f"{len(tr.engines)} worker(s), its spans: {spans}; "
+                    f"{gct.n} collector passes {gct.s * 1e3:.1f} ms; "
+                    f"{smp.n} stack samples, innermost repro_torch frame: "
+                    f"{smp.top(smp.ours)}; innermost frame: "
+                    f"{smp.top(smp.leaf)}  [{card}]")
+            else:
+                batch = orig(*a, **k)
+            resp = [list(r) for r in batch.responses]
+            rolls.append(resp)
+            if not exact:
+                short.append([greedy_shortfalls(
+                    torch, cfg, tr.params, p.prompt, r) if r else
+                    (np.zeros(0), np.zeros(0))
+                    for p, r in zip(batch.problems, resp)])
+            return batch
+
+        tr.worker.rollout = wrapped
+        try:
+            hist = tr.run()
+            for c in tr._clients:
+                client_stats.update(c.stats)
+            rounds.append(tr.telemetry.registry.value("das_rounds_total"))
+        finally:
+            tr.close()
+        return rolls, short, hist
+
+    reset_launches()
+    sv_spy, sm_spy = SvSpy(), SmSpy(chunked=False)
+    with sv_spy, sm_spy:
+        want, want_sf, hist1 = run(trainer(1), profile=True)
+    sync(torch, dev)
+    gc.collect()  # a trainer's engines and telemetry form cycles
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = trainer(2, fault_tolerant=True, flight_recorder=True,
+                     journal_dir=os.path.join(tmp, "jrnl"), ckpt_path=tmp,
+                     ckpt_every=2 if resume else 0)
+        plan = FaultPlan(seed=0, telemetry=tr.telemetry).kill_shard(
+            1, op="publish", at=2)
+        for i, srv in enumerate(tr.service.servers):
+            srv.fault_hook = plan.server_hook(i)
+        mw = tr.worker
+        w1 = mw.workers[1]
+        w1.watchdog = plan.stall_watchdog(
+            RolloutWatchdog(60.0, clock=VirtualClock(),
+                            flight=tr.telemetry.flight), at_check=3)
+        mw.workers[1] = FlakyWorker(w1, fail_calls=(0,))
+        slices = []
+        mw.workers = [SliceTimer(w, i, lambda: tr._step, torch, dev, slices)
+                      for i, w in enumerate(mw.workers)]
+        sup = tr.supervisor
+        restarts = []
+        orig_respawn = tr.service.respawn_shard
+
+        def timed_respawn(i, *a, **k):
+            t0 = time.perf_counter()
+            out = orig_respawn(i, *a, **k)
+            restarts.append(time.perf_counter() - t0)
+            return out
+
+        tr.service.respawn_shard = timed_respawn
+        flushes = []  # the epoch barrier after each slice, timed
+        orig_flush = mw._flush_worker
+
+        def timed_flush(worker):
+            t0 = time.perf_counter()
+            orig_flush(worker)
+            flushes.append(time.perf_counter() - t0)
+
+        mw._flush_worker = timed_flush
+        flight = tr.telemetry.flight
+        with sv_spy, sm_spy:
+            got, got_sf, hist2 = run(tr, profile=True)
+        sync(torch, dev)
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if dev == "cuda" else 0.0)
+        fired = sorted(f["kind"] for f in plan.fired)
+        stats = dict(mw.stats)
+        felt = {k: client_stats[k] for k in (
+            "published_batches", "publish_failures", "rpc_timeouts",
+            "sync_failures", "backoff_skips", "shard_restarts", "reconnects",
+            "packs_applied")}
+        kinds = Counter(e["kind"] for e in flight.events())
+        fired_log, n_restarts = list(plan.fired), sup.stats["restarts"]
+        # the plan and the flight recorder reach the engines through the
+        # telemetry's registry
+        del tr, mw, w1, plan, flight, sup, orig_respawn, timed_respawn, \
+            orig_flush, timed_flush
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        resumed, resumed_sf, load_line = None, [], ""
+        if resume:
+            tr = trainer(2)
+            t0 = time.perf_counter()
+            tr.load_checkpoint(os.path.join(tmp, "step2.npz"))
+            load_line = (f"step-2 checkpoint with the shards' sidecar "
+                         f"loaded in {time.perf_counter() - t0:.1f} s; ")
+            check(tr._step == 2 and tr.service is not None,
+                  f"{where}: the resumed trainer's cursor {tr._step}")
+            with sv_spy, sm_spy:
+                resumed, resumed_sf, _ = run(tr)
+    launches = read_launches()
+    check(len(got) == len(want) == steps
+          and (resumed is None or len(resumed) == 1),
+          f"{where}: {len(want)} and {len(got)} rollouts, resumed "
+          f"{resumed and len(resumed)}")
+    check(fired == ["shard", "watchdog"], f"{where}: plan.fired {fired}")
+    check(n_restarts >= 1, f"{where}: no shard was restarted")
+    check(stats.get("worker_failures") == 2
+          and stats.get("salvaged_tokens", 0) > 0,
+          f"{where}: multi-worker stats {stats}")
+    check(kinds["handoff"] >= 1 and kinds["resume"] >= 1,
+          f"{where}: flight events {dict(kinds)}")
+    if dev == "cuda":
+        check(launches["suffix_match_propose"] > 0
+              and launches["suffix_match_propose_chunked"] == 0
+              and launches["rglru_scan"] == 0
+              and launches["rglru_scan_bwd"] == 0,
+              f"{where}: launches {launches}")
+        check_sv_launches(cfg, launches, int(sum(rounds)), where)
+        sv_spy.check(torch, card, where)
+        sm_spy.check(torch, card, where)
+    same = [sum(a == b for a, b in zip(g, w)) for g, w in zip(got, want)]
+    n_tok = sum(len(r) for rs in got for r in rs)
+    if exact:
+        check(got == want, f"{where}: the two-worker fault-tolerant run's "
+              "responses differ from the single-worker run's")
+        check(resumed is None or resumed == got[2:],
+              f"{where}: the resumed step 3 differs")
+        verdict = (f"{steps} steps token-identical to the single-worker run "
+                   f"({n_tok} tokens)" + (", step 3 resumed token-identical"
+                                          if resumed else ""))
+    else:
+        div, worst = [], 0.0
+        for s_i, (g, w, gs, ws) in enumerate(zip(got, want, got_sf,
+                                                 want_sf)):
+            div += [d for i, (a, b) in enumerate(zip(g, w)) if (
+                d := first_divergence(a, b, gs[i], ws[i],
+                                      f"s{s_i + 1}r{i}")) is not None]
+        res_line = ""
+        if resumed:
+            res_div = [d for i, (a, b) in enumerate(zip(resumed[0], got[2]))
+                       if (d := first_divergence(a, b, resumed_sf[0][i],
+                                                 got_sf[2][i], f"r{i}"))
+                       is not None]
+            res_line = (f"; the resumed step 3's equal to the "
+                        f"uninterrupted one's "
+                        f"{sum(a == b for a, b in zip(resumed[0], got[2]))} "
+                        f"of {len(got[2])}, first divergence: "
+                        f"{'; '.join(res_div) or 'none'}")
+        for sfs in (want_sf, got_sf, resumed_sf):
+            for step in sfs:
+                for sf, _ in step:
+                    worst = max(worst, float(sf.max(initial=0.0)))
+        check(worst <= TOL_LOGIT_BF16,
+              f"{where}: a response token falls {worst:.4f} short of plain "
+              f"greedy's top logit (tolerance {TOL_LOGIT_BF16})")
+        verdict = (f"responses equal to the single-worker run's by step "
+                   f"{same} of {len(want[0])}; every token of the runs "
+                   f"({n_tok} in the two-worker run) within {worst:.4f} of "
+                   f"plain greedy's top logit (tolerance {TOL_LOGIT_BF16}); "
+                   f"first divergence from the single-worker run, shortfall "
+                   f"this/that: {'; '.join(div) or 'none'}{res_line}")
+    log(f"{where}: {verdict}; faults fired {fired_log}; supervisor restarts "
+        f"{n_restarts} ({', '.join(f'{t * 1e3:.1f} ms' for t in restarts)}); "
+        f"publish flushes after each slice "
+        f"({', '.join(f'{t * 1e3:.1f}' for t in flushes)}) ms; "
+        f"multi-worker stats {stats}; the clients' {felt}; flight events "
+        f"{dict(kinds)}; verify rounds by trainer {[int(r) for r in rounds]}; "
+        f"{load_line}peak memory {peak:.2f} GiB  [{card}]")
+    log(f"{where} slices: " + "; ".join(
+        f"step {r['step']} worker {r['worker']} {r['problems']} problems"
+        + (f" resuming {r['resumed']} tokens" if r["resumed"] else "")
+        + f": {r['s'] * 1e3:.1f} ms, {r['rounds']} rounds, {r['end']}"
+        for r in slices) + f"  [{card}]")
+    for a, b in zip(hist1, hist2):
+        log(f"{where} step {a['step'] + 1}: rollout {b['gen_time_s']:.3f} s "
+            f"with two workers and faults, {a['gen_time_s']:.3f} s single "
+            f"worker; accept/round {b['accept_per_round']:.3f} vs "
+            f"{a['accept_per_round']:.3f}; train step "
+            f"{b['train_time_s']:.3f} s  [{card}]")
+    return launches, sv_spy
 
 
 # ---------------------------------------------------------------------------
@@ -2487,8 +3301,8 @@ def phase_hybrid_train(torch, np, timer, card):
     """Phase 9: 9a (the backward kernel), then RecurrentGemma-9B at its
     published widths cut to HYBRID_TRAIN_LAYERS layers: 9b, long-prompt
     rollouts (phase 8b's traffic) and one GRPO step at S >= 2048 on them,
-    with the remat check; 9c, ``Trainer.run`` with a checkpoint and a
-    token-identical resume. Returns the JSON entries of 9a, the launches
+    with the remat check; 9c, ``Trainer.run``. Returns the JSON entries of
+    9a, the launches
     of 9b and 9c and their forward scan launches by (B, T)."""
     entries = phase_rglru_bwd(torch, np, timer, card)
     t0 = time.perf_counter()
@@ -2520,25 +3334,105 @@ def phase_hybrid_train(torch, np, timer, card):
     return entries, total, shapes
 
 
+def run_concurrently(cmds, env, timeout_s=600):
+    """Start every command at once (their output to temporary files, so
+    no pipe fills) and wait for all; returns per command its exit code,
+    the last three lines of its output and the seconds from the start to
+    its exit. A command past ``timeout_s`` is killed, and so is every
+    other still running if this raises."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    runs = []
+    try:
+        for cmd in cmds:
+            out = tempfile.TemporaryFile(mode="w+")
+            runs.append((subprocess.Popen(cmd, cwd=str(ROOT), env=env,
+                                          stdout=out,
+                                          stderr=subprocess.STDOUT,
+                                          text=True), out))
+        done = {}
+        while len(done) < len(runs):
+            for i, (p, _) in enumerate(runs):
+                if i in done:
+                    continue
+                try:
+                    p.wait(timeout=0.05)
+                except subprocess.TimeoutExpired:
+                    if time.perf_counter() - t0 > timeout_s:
+                        p.kill()
+                        p.wait()
+                        done[i] = time.perf_counter() - t0
+                    continue
+                done[i] = time.perf_counter() - t0
+        res = []
+        for i, (p, out) in enumerate(runs):
+            out.seek(0)
+            tail = out.read().strip().splitlines()[-3:]
+            res.append((p.returncode, tail, done[i]))
+        return res
+    finally:
+        for p, out in runs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+
+
 def phase_cli(card):
+    """Phase 6's CLIs and 10d, all started at once (each is small; run
+    one after another they took ~95 s): the serving CLI with two workers
+    over the history service (shards as ``python -m
+    repro_torch.history.service`` subprocesses, supervised), continuous
+    serving, journals and a trace, whose trace must validate and whose
+    journals must hold only finished sessions."""
+    import tempfile
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch import obs
+    from repro_torch.fault import RolloutJournal
+
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    for mod, args in (
-            ("serve", ["--arch", "qwen3-8b", "--scope", "problem",
-                       "--rounds", "2"]),
-            ("serve", ["--arch", "qwen2-1.5b", "--continuous"]),
-            ("serve", ["--arch", "recurrentgemma-9b", "--rounds", "2"]),
-            ("train", ["--arch", "qwen2-1.5b", "--steps", "2"]),
-            ("train", ["--arch", "recurrentgemma-9b", "--steps", "2"])):
+    cli = [("serve", ["--arch", "qwen3-8b", "--scope", "problem",
+                      "--rounds", "2"]),
+           ("serve", ["--arch", "qwen2-1.5b", "--continuous"]),
+           ("serve", ["--arch", "recurrentgemma-9b", "--rounds", "2"]),
+           ("train", ["--arch", "qwen2-1.5b", "--steps", "2"]),
+           ("train", ["--arch", "recurrentgemma-9b", "--steps", "2"])]
+    with tempfile.TemporaryDirectory() as d:
+        args10d = ["--arch", "qwen2-1.5b", "--smoke", "--continuous",
+                   "--history-service", "--workers", "2", "--supervise",
+                   "--scope", "problem", "--journal-dir", d, "--trace-out",
+                   os.path.join(d, "trace.json")]
+        cmds = [[sys.executable, "-m", f"repro_torch.launch.{mod}",
+                 "--smoke", *args] for mod, args in cli]
+        cmds.append([sys.executable, "-m", "repro_torch.launch.serve",
+                     *args10d])
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", f"repro_torch.launch.{mod}", "--smoke",
-             *args], cwd=str(ROOT), env=env, capture_output=True, text=True,
-            timeout=600)
-        tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
-        check(proc.returncode == 0, f"{mod} CLI {' '.join(args)} exited "
-              f"{proc.returncode}: {' | '.join(tail)}")
-        log(f"{mod} CLI {' '.join(args)} ok in "
-            f"{time.perf_counter() - t0:.1f} s [{card}]: {' | '.join(tail)}")
+        res = run_concurrently(cmds, env)
+        for (mod, args), (rc, tail, t) in zip(cli, res):
+            check(rc == 0, f"{mod} CLI {' '.join(args)} exited {rc}: "
+                  f"{' | '.join(tail)}")
+            log(f"{mod} CLI {' '.join(args)} ok in {t:.1f} s [{card}]: "
+                f"{' | '.join(tail)}")
+        rc, tail, t = res[-1]
+        check(rc == 0, f"10d serve CLI exited {rc}: {' | '.join(tail)}")
+        with open(os.path.join(d, "trace.json")) as f:
+            doc = json.load(f)
+        problems = obs.validate_chrome_trace(doc)
+        check(not problems and doc["traceEvents"],
+              f"10d: the CLI's trace is invalid: {problems[:3]}")
+        sess = {}
+        for w in range(2):
+            sess.update(RolloutJournal.recover(os.path.join(d, f"w{w}.wal")))
+        check(sess and all(s.finished for s in sess.values()),
+              f"10d: the CLI's journals hold {len(sess)} sessions, "
+              f"{sum(not s.finished for s in sess.values())} unfinished")
+        log(f"10d serve CLI {' '.join(args10d[:-4])} ok in {t:.1f} s "
+            f"[{card}]: trace of {len(doc['traceEvents'])} events valid, "
+            f"journals {journal_summary(sess)}: {' | '.join(tail)}")
+    log(f"the six CLIs, started at once, in {time.perf_counter() - t0:.1f} "
+        f"s  [{card}]")
 
 
 def main() -> None:
@@ -2589,11 +3483,40 @@ def main() -> None:
         rglru_shapes.update(run["rglru_scan_by_shape"])
 
     cfg, params = full_width_model(torch, "qwen3-8b")
+    def stamp(what):
+        log(f"{what} done at {time.perf_counter() - t_start:.1f} s")
+
+    stamp("phases 1-3")
     lock, flat_spy, lock_runs = phase_main_path(torch, np, card, cfg, params)
-    cont, chunked_spy = phase_continuous(torch, np, card, cfg, params)
+    cont, chunked_spy, cont_runs = phase_continuous(torch, np, card, cfg,
+                                                    params)
+    # phase 10a/10b: phase 5's traffic with telemetry and the journal, and
+    # a drain with a journal resume, on the same weights
+    stamp("phases 4-5")
+    l10a, _ = phase_telemetry(torch, np, card, cfg, params, cont_runs,
+                              cont["chunked"])
+    stamp("phase 10a")
+    torch.cuda.empty_cache()
     micro = phase_micro(torch, np, card, cfg, params, lock_runs)
-    for run in (lock, cont["chunked"], cont["flat"], micro):
+    # 10b on the same weights: in bf16 against phase 5's epoch 1 with the
+    # plain-greedy witness, then upcast to float32 in place, exactly
+    # against an uninterrupted float32 run (see there)
+    l10b16, _ = phase_drain_resume(torch, np, card, cfg, params,
+                                   reference=cont_runs[0])
+    torch.cuda.empty_cache()
+    params.float()
+    params.cfg = cfg = cfg.replace(dtype="float32")
+    l10b, sv10b = phase_drain_resume(torch, np, card, cfg, params)
+    stamp("phase 10b")
+    for run in (lock, cont["chunked"], cont["flat"], micro, l10a, l10b16):
         add(run)
+    # the float32 instantiation of spec-verify, at 10b's shape
+    add(l10b, skip=("spec_verify_attention",))
+    launches["spec_verify_attention_f32"] += l10b["spec_verify_attention"]
+    kernels["spec_verify_attention_f32"] = time_sv_path_case(
+        torch, np, timer, card, sv10b, "spec_verify_attention_f32",
+        f"10b {cfg.name}")
+    del sv10b
     # the drafting kernels at the path's own shapes (phases 4 and 5)
     for spy, name in ((flat_spy, "suffix_match_propose"),
                       (chunked_spy, "suffix_match_propose_chunked")):
@@ -2606,8 +3529,8 @@ def main() -> None:
     # and spec-verify at head_dim 256 (lock-step and continuous runs)
     cfg, params = full_width_model(torch, "recurrentgemma-9b")
     hybrid, _, hybrid_runs = phase_main_path(torch, np, card, cfg, params)
-    cont, _ = phase_continuous(torch, np, card, cfg, params,
-                               layouts=("chunked",))
+    cont, _, _ = phase_continuous(torch, np, card, cfg, params,
+                                  layouts=("chunked",))
     hmicro = phase_micro(torch, np, card, cfg, params, hybrid_runs)
     for run in (hybrid, cont["chunked"], hmicro):
         add(run, skip=("spec_verify_attention",))
@@ -2630,12 +3553,42 @@ def main() -> None:
     del timer
     # phase 8: the RL loop on Qwen2-1.5B at its published config
     timer = Timer(torch)
+    stamp("phase 7")
     rl = phase_rl(torch, np, timer, card)
     del timer
     launches.update(rl)
+    # phase 10c: two workers over the history service with faults, in
+    # float32 (exact against one worker, and the checkpoint resume) and in
+    # bf16 (the plain-greedy witness; no checkpoint, for the script's time:
+    # 8e resumes a bf16 checkpoint and the float32 run this sidecar); step
+    # 3 profiled in both, the float32 run's after its checkpoint save
+    from repro_torch.configs import get_config
+
+    qwen2 = get_config("qwen2-1.5b")
+    l10c, sv10c = phase_multiworker(torch, np, card,
+                                    cfg=qwen2.replace(dtype="float32"))
+    timer = Timer(torch)
+    kernels["spec_verify_attention_qwen2_f32"] = time_sv_path_case(
+        torch, np, timer, card, sv10c, "spec_verify_attention_qwen2_f32",
+        f"10c {qwen2.name}")
+    del sv10c, timer
+    # the trainers, engines and telemetries reference one another: their
+    # card memory returns only once the collector has run
+    gc.collect()
+    torch.cuda.empty_cache()
+    l10c16, _ = phase_multiworker(torch, np, card, cfg=qwen2, resume=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("phase 10c")
+    launches["spec_verify_attention_qwen2_f32"] += \
+        l10c["spec_verify_attention"]
+    launches["spec_verify_attention_qwen2"] += l10c16["spec_verify_attention"]
+    launches["suffix_match_propose"] += (l10c["suffix_match_propose"]
+                                         + l10c16["suffix_match_propose"])
     # phase 9: RecurrentGemma-9B training (the scan's backward kernel)
     timer = Timer(torch)
     entries, l9, shapes9 = phase_hybrid_train(torch, np, timer, card)
+    stamp("phase 9")
     del timer
     kernels.update({k["name"]: k for k in entries})
     launches.update(l9)
@@ -2654,6 +3607,7 @@ def main() -> None:
     kernels["rglru_scan_long"]["launches"] = long_n
     for arch in ("qwen3-8b", "recurrentgemma-9b"):
         phase_small_reference(torch, np, arch)
+    stamp("small references")
     phase_cli(card)
     log(f"launches on every path: {dict(launches)}  [{card}]")
     kernels = list(kernels.values())

@@ -22,7 +22,10 @@ table) or chunked (one row per tree) — and proposes for the whole batch
 in one ``kernels/suffix_match`` call: a CUDA kernel on the card, its
 plain version on the CPU.
 
-Not ported yet: the remote (history-service) backing.
+With ``remote`` set (a ``history.client.HistoryClient``) the drafter is
+backed by the sharded cross-worker history service: rollouts are
+published and drafting packs the client's replicated
+``SuffixTree.pack()`` deltas into the same device forest.
 """
 
 from __future__ import annotations
@@ -252,6 +255,13 @@ class BatchedDraftSessions:
         from repro_torch.kernels.suffix_match import ops as sm_ops
 
         drafter = self.drafter
+        if drafter.remote is not None:
+            # Cold start only: a key with no replicated pack yet forces
+            # one sync; warm keys ride the overlap-window syncs
+            # (``prewarm``) so the dispatch path stays RPC-free.
+            drafter.remote.sync_if_missing(
+                {k for k in need_keys if k is not None}
+            )
         changed = False
         for key in need_keys:
             pk = drafter.pack_for(key)
@@ -328,10 +338,15 @@ class BatchedDraftSessions:
         return "flat"
 
     def prewarm(self) -> None:
-        """Refresh packs/forest for every open row's tree now (before the
-        first round)."""
+        """Refresh packs/forest for every open row's tree now. The engine
+        calls this in the overlap window (and before the first round), so
+        a repack runs while the device executes the round in flight."""
         if not self.device:
             return
+        # Remote-backed drafters pull replicated deltas here: prewarm runs
+        # in the overlap window, so the shard RPC (like the repack it
+        # delivers) hides behind the round in flight.
+        self.drafter.sync_remote()
         keys = {self._keys[b] for b in range(self.n_rows) if self._open[b]}
         if keys:
             self._refresh_forest(keys)
@@ -468,8 +483,15 @@ _GLOBAL_KEY = "__global__"
 
 
 class SuffixDrafter:
-    """Store-backed collection of incrementally maintained speculators
-    (local store only; ``remote`` backing is not ported yet)."""
+    """Store-backed collection of incrementally maintained speculators.
+
+    With ``remote`` set (a ``history.client.HistoryClient``) the drafter is
+    backed by the sharded cross-worker history service instead of its
+    local store: observed rollouts and accept telemetry are published
+    (async) and drafting consumes the client's replicated
+    ``SuffixTree.pack()`` deltas. Remote mode requires a tree-only scope
+    (problem / global): per-request host trees never leave the process.
+    """
 
     def __init__(
         self,
@@ -480,11 +502,14 @@ class SuffixDrafter:
         from repro_torch.history.incremental import IncrementalIndex
         from repro_torch.history.store import RolloutHistoryStore
 
-        if remote is not None:
-            raise NotImplementedError(
-                "remote-backed drafting (history service) is not ported yet"
-            )
         self.cfg = cfg or DrafterConfig()
+        self.remote = remote
+        if remote is not None and self.cfg.scope == "problem+request":
+            raise ValueError(
+                "remote-backed drafting needs a tree-only scope "
+                "(problem or global); problem+request keeps per-row "
+                "host sessions that cannot draft from replicated packs"
+            )
         self._window_size = self.cfg.window_size
         self.store = (
             store if store is not None
@@ -493,7 +518,33 @@ class SuffixDrafter:
         self.index = IncrementalIndex(epoch_decay=self.cfg.epoch_decay)
         self._trie = PrefixTrie() if self.cfg.use_prefix_trie else None
         self.epoch = self.store.epoch
-        self.stats: collections.Counter = collections.Counter()
+        # Degraded-drafting fallback (remote mode, built lazily): while a
+        # key's owning shard is DOWN, this worker's own rollouts also land
+        # in a local store/index pair, so drafting keeps adapting instead
+        # of freezing on a stale replica. Tokens never change.
+        self._fb_store = None
+        self._fb_index = None
+        # Counter-shaped stats; with telemetry attached the same writes
+        # feed ``das_drafter_stat_total{key=...}``.
+        from repro_torch import obs
+
+        self.telemetry = obs.NULL
+        self.stats = obs.MirroredCounter()
+        if remote is not None:
+            # the local store becomes a telemetry mirror: pooled accept
+            # counters merge into it on sync
+            remote.attach(store=self.store)
+
+    def attach_telemetry(self, telemetry) -> None:
+        """Route the stat bag into ``telemetry``'s registry and propagate
+        to the remote history client when present. Idempotent."""
+        self.telemetry = telemetry
+        sink = telemetry.mirror_sink(
+            "das_drafter_stat_total", "SuffixDrafter counters by key"
+        )
+        self.stats.set_sink(sink)
+        if self.remote is not None and hasattr(self.remote, "attach_telemetry"):
+            self.remote.attach_telemetry(telemetry)
 
     # -- window / lifecycle ------------------------------------------------
     def _key(self, problem_id) -> object:
@@ -509,16 +560,30 @@ class SuffixDrafter:
         tokens: Sequence[int],
         epoch: Optional[int] = None,
         response_len: Optional[int] = None,
+        trace: Optional[str] = None,
     ) -> None:
         """Record one completed rollout: append to the history store,
         extend the live tree online and retire any rollout that just slid
-        out of the window."""
+        out of the window. ``trace`` (flight-recorder trace ID) rides the
+        remote publish so the owning shard stamps its ``publish`` event on
+        the same trace."""
         from repro_torch.history.incremental import apply_rollout
 
         ep = self.epoch if epoch is None else int(epoch)
         key = self._key(problem_id)
         toks = [int(t) for t in tokens]
         self.stats["rollouts_observed"] += 1
+        if self.remote is not None:
+            # The owning shard maintains store+index with the same
+            # apply_rollout routine; the pack comes back on the next sync.
+            # The client outbox resends across outages (deduped
+            # shard-side).
+            self.remote.publish_rollout(
+                key, toks, ep, response_len=response_len, trace=trace
+            )
+            if self._remote_down(key):
+                self._fb_apply(key, toks, ep)
+            return
         apply_rollout(
             self.store, self.index, key, toks, ep,
             response_len=response_len, rebuild_epoch=self.epoch,
@@ -528,6 +593,9 @@ class SuffixDrafter:
         """Per-problem acceptance telemetry (fed by the engine)."""
         self.stats["toks_drafted"] += int(drafted)
         self.stats["toks_accepted"] += int(accepted)
+        if self.remote is not None:
+            self.remote.note_draft(self._key(problem_id), drafted, accepted)
+            return
         self.store.record_draft(self._key(problem_id), drafted, accepted)
 
     def note_draft_rows(self, problem_ids, drafted, accepted) -> None:
@@ -545,7 +613,10 @@ class SuffixDrafter:
                 cur[0] += int(d)
                 cur[1] += int(a)
         for key, (d, a) in agg.items():
-            self.store.record_draft(key, d, a)
+            if self.remote is not None:
+                self.remote.note_draft(key, d, a)
+            else:
+                self.store.record_draft(key, d, a)
 
     def _rebuild(self, key) -> SuffixTree:
         """Reference path: fresh tree from the store window."""
@@ -579,8 +650,17 @@ class SuffixDrafter:
         """Advance the epoch cursor and reconcile windows (incremental):
         advance the decay reference, apply window adaptation (larger
         updates shrink the window, paper §4.1.2), compact corpora whose
-        retired text dominates."""
+        retired text dominates.
+
+        Remote mode delegates: the epoch advance is published to every
+        shard and a sync pulls what the fleet produced since; window
+        adaptation stays server-side config there."""
         self.epoch = int(epoch)
+        if self.remote is not None:
+            self.remote.begin_epoch(self.epoch)
+            self.remote.sync()
+            self.stats["iterations"] += 1
+            return
         self.store.begin_iteration(self.epoch)
         if self.cfg.adapt_window_to_updates and update_norm is not None:
             w = int(round(self.cfg.window_size / (1.0 + self.cfg.window_gamma * float(update_norm))))
@@ -599,7 +679,10 @@ class SuffixDrafter:
     def new_session(
         self, problem_id=None, prompt: Optional[Sequence[int]] = None
     ) -> DraftSession:
-        """Create the per-request host draft session; feeds the prompt."""
+        """Create the per-request host draft session; feeds the prompt.
+        A remote-backed drafter has no local trees to walk: its host
+        session proposes nothing (remote drafting flows through
+        ``batched_sessions`` / ``pack_for``)."""
         if problem_id is None and self._trie is not None and prompt is not None:
             problem_id = self._trie.route(prompt)
         key = self._key(problem_id)
@@ -626,17 +709,85 @@ class SuffixDrafter:
         return BatchedDraftSessions(self, n_rows, device=device,
                                     tensor_device=tensor_device)
 
-    # -- pack source -------------------------------------------------------
+    # -- degraded drafting (remote mode, owning shard DOWN) ----------------
+    def _remote_down(self, key) -> bool:
+        fn = getattr(self.remote, "degraded_for", None)
+        return bool(fn(key)) if fn is not None else False
+
+    def _fb_apply(self, key, toks: List[int], ep: int) -> None:
+        """Feed one of this worker's own rollouts into the fallback
+        store/index while the owning shard is DOWN."""
+        from repro_torch.history.incremental import (
+            IncrementalIndex,
+            apply_rollout,
+        )
+        from repro_torch.history.store import RolloutHistoryStore
+
+        if self._fb_store is None:
+            self._fb_store = RolloutHistoryStore(window_size=self._window_size)
+            self._fb_index = IncrementalIndex(epoch_decay=self.cfg.epoch_decay)
+        apply_rollout(self._fb_store, self._fb_index, key, toks, ep,
+                      rebuild_epoch=ep)
+        self.stats["degraded_rollouts"] += 1
+
+    def _fb_pack(self, key):
+        """Fallback pack for ``key`` during an outage, or None. On
+        recovery only the fallback tree drops (lazily, here); the store
+        log stays, so a later outage re-warms the fallback window."""
+        if self._fb_index is None:
+            return None
+        if not self._remote_down(key):
+            self._fb_index.drop(key)
+            return None
+        tree = self._fb_index.tree(key)
+        if tree is None and self._fb_store.window(key):
+            tree = self._fb_index.rebuild(
+                key, self._fb_store.window(key), epoch=self.epoch
+            )
+        if tree is None:
+            return None
+        self.stats["degraded_packs"] += 1
+        return tree.pack()
+
+    # -- pack source (local trees or replicated remote packs) --------------
     def pack_for(self, key):
-        """Current ``PackedSuffixTree`` for ``key`` (version-gated cache
-        inside ``SuffixTree.pack``, identity-stable until the tree
-        changes)."""
+        """Current ``PackedSuffixTree`` for ``key``, the one pack source
+        ``BatchedDraftSessions`` drafts from: the live tree's pack
+        (version-gated cache inside ``SuffixTree.pack``) locally, the
+        client's latest replicated pack remotely. Both are identity-stable
+        until the tree changes, and identity keys the forest rebuild.
+        While a key's owning shard is DOWN the fallback tree takes
+        precedence over the frozen replica."""
+        if self.remote is not None:
+            pk = self._fb_pack(key)
+            return pk if pk is not None else self.remote.pack_for(key)
         tree = self.index.tree(key)
         if tree is None and self.store.window(key):
             tree = self._rebuild(key)
         return None if tree is None else tree.pack()
 
     def live_tokens_for(self, key) -> int:
-        """Live-corpus size estimate for forest bucket floors."""
+        """Live-corpus size estimate for forest bucket floors. Remote packs
+        report their full corpus length (an overestimate, so floors only
+        get safer)."""
+        if self.remote is not None:
+            pk = self.pack_for(key)
+            return 0 if pk is None else int(len(pk.corpus))
         tree = self.index.tree(key)
         return 0 if tree is None else tree.n_live_tokens
+
+    def sync_remote(self) -> None:
+        """Pull replicated deltas and pooled telemetry now (no-op for a
+        local drafter). The engine calls this from its overlap windows,
+        so the RPC hides behind the round in flight."""
+        if self.remote is not None:
+            self.remote.sync()
+
+    # -- introspection -----------------------------------------------------
+    def tree_tokens(self, problem_id=None) -> int:
+        return self.live_tokens_for(self._key(problem_id))
+
+    def n_trees(self) -> int:
+        if self.remote is not None:
+            return self.remote.n_packs()
+        return len(self.index)

@@ -23,7 +23,7 @@ Requests move through an explicit lifecycle::
       └──────expire──────► EXPIRED
 
 FINISHED / CANCELLED / EXPIRED are terminal; PREEMPTED is
-terminal-until-resubmitted (the engine keeps the victim's progress
+terminal-until-resubmitted (the engine journals the victim's progress
 and re-queues it with remaining-length priority, enabling pool
 oversubscription). Non-FINISHED terminals keep their partial
 ``Request.output`` — at T=0 that prefix is exactly what an
@@ -45,6 +45,8 @@ import itertools
 from dataclasses import dataclass, field
 from typing import Any, List, Optional
 
+from repro_torch.obs.flight import new_trace_id
+
 QUEUED = "queued"
 RUNNING = "running"
 FINISHED = "finished"
@@ -58,7 +60,7 @@ TERMINAL = frozenset({FINISHED, CANCELLED, EXPIRED})
 _LEGAL = frozenset({
     (QUEUED, RUNNING),      # admission
     (RUNNING, FINISHED),    # release
-    (RUNNING, PREEMPTED),   # preempt (slot evicted, progress kept)
+    (RUNNING, PREEMPTED),   # preempt (slot evicted, progress journaled)
     (RUNNING, CANCELLED),
     (RUNNING, EXPIRED),     # per-request deadline passed while resident
     (QUEUED, CANCELLED),
@@ -87,10 +89,15 @@ class Request:
     max_new_tokens: int = 256
     predicted_len: Optional[float] = None  # admission-priority override
     deadline_s: Optional[float] = None  # absolute, on the pool's Clock
-    # Salvaged output prefix (preemption): the engine
+    journal_key: Optional[str] = None  # WAL session key (default: rid)
+    # Salvaged output prefix (journal recovery / preemption): the engine
     # re-admits via prefix re-prefill of prompt + resume_tokens[:-1],
     # head = resume_tokens[-1] — token-identical at T=0.
     resume_tokens: Optional[List[int]] = None
+    # Fleet-unique flight-recorder trace ID (repro_torch.obs.flight): minted
+    # at admission and carried across journal resumes / watchdog
+    # handoffs, so one rollout is one trace fleet-wide.
+    trace: Optional[str] = None
 
     # -- runtime state -----------------------------------------------------
     state: str = QUEUED
@@ -109,7 +116,7 @@ class Request:
 @dataclass
 class PreemptionPolicy:
     """When the engine may evict a resident rollout (progress is
-    kept, the victim re-queues with remaining-length priority).
+    journaled, the victim re-queues with remaining-length priority).
 
     * ``max_resident_rounds`` — with requests waiting, a resident that
       has held its slot for this many verify rounds is evicted (bounded
@@ -214,6 +221,10 @@ class SlotScheduler:
                 f"request {req.rid}: cannot submit from state "
                 f"{req.state!r}"
             )
+        if req.trace is None:
+            # scheduler-level guarantee: every request entering the pool
+            # carries a fleet-unique trace (re-submits keep theirs)
+            req.trace = new_trace_id()
         heapq.heappush(self._queue, (-self.priority(req), next(self._seq), req))
         self._enqueued.add(id(req))
         self.n_submitted += 1
@@ -249,7 +260,7 @@ class SlotScheduler:
 
     def preempt(self, req: Request) -> int:
         """Evict a RUNNING request (slot freed, partial output kept).
-        The caller keeps its progress and usually re-``submit``s it
+        The caller journals its progress and usually re-``submit``s it
         with remaining-length priority."""
         slot = self._evict_slot(req)
         self._transition(req, PREEMPTED)

@@ -1,6 +1,4 @@
-"""Unified telemetry: metrics registry, round-phase tracer, event log
-(copy of ``repro.obs``, without its ``attrib`` and ``perfetto`` report
-modules, which nothing in the port uses yet).
+"""Unified telemetry: metrics registry, round-phase tracer, event log.
 
 One :class:`Telemetry` object bundles the three stores plus exporter
 shortcuts.  The process default is :data:`NULL` — a shared
@@ -83,6 +81,12 @@ __all__ = [
     "EVENT_KINDS",
     "new_trace_id",
     "merge_events",
+    "attribute",
+    "attribute_journals",
+    "render_report",
+    "export_trace",
+    "to_chrome_trace",
+    "validate_chrome_trace",
     "MetricsServer",
     "to_prometheus",
     "parse_prometheus",
@@ -93,6 +97,32 @@ __all__ = [
     "TIME_BUCKETS",
     "TOKEN_BUCKETS",
 ]
+
+# attrib/perfetto re-exports resolve lazily (PEP 562): both modules are
+# also `python -m` CLIs, and an eager import here would double-import
+# them under runpy (RuntimeWarning on every CLI invocation).
+_LAZY_EXPORTS = {
+    "attribute": "attrib",
+    "attribute_journals": "attrib",
+    "render_report": "attrib",
+    "export_trace": "perfetto",
+    "to_chrome_trace": "perfetto",
+    "validate_chrome_trace": "perfetto",
+}
+
+
+def __getattr__(name: str):
+    mod = _LAZY_EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}"
+        )
+    import importlib
+
+    val = getattr(importlib.import_module(f".{mod}", __name__), name)
+    globals()[name] = val
+    return val
+
 
 class Telemetry:
     """Live telemetry: real registry, tracer, and event log."""

@@ -16,14 +16,15 @@ generator's state, loader cursor and step/epoch cursor.
 length priors, and a resumed run draws what the uninterrupted one drew.
 
 It trains every model the port runs, the hybrid RecurrentGemma included
-(the RG-LRU scan's gradient is its backward kernel). Not ported yet
-(they raise ``NotImplementedError``): the multi-worker
-rollout over the history service (``n_workers > 1``), the shard
-supervisor (``fault_tolerant``), the write-ahead journal
-(``journal_dir``) and the flight recorder (``flight_recorder``).
-Graceful drain is ported: with ``graceful_drain`` (the default),
-SIGTERM/SIGINT make ``run()`` finish the step in flight, checkpoint
-(``ckpt_path`` permitting) and return.
+(the RG-LRU scan's gradient is its backward kernel). With ``n_workers >
+1`` the rollout runs over N engines (one shared parameter object, a KV
+pool each) whose drafters share an in-process sharded history service;
+``fault_tolerant`` adds the shard supervisor and per-worker watchdogs,
+``journal_dir`` per-worker write-ahead journals, ``flight_recorder`` the
+per-rollout flight recorder. A multi-worker checkpoint carries every
+shard's state. With ``graceful_drain`` (the default), SIGTERM/SIGINT make
+``run()`` finish the step in flight, checkpoint (``ckpt_path``
+permitting) and return.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from repro_torch.rl.grpo import (
     make_sft_step,
     make_train_step,
 )
-from repro_torch.rl.rollout import RolloutWorker
+from repro_torch.rl.rollout import MultiWorkerRollout, RolloutWorker
 
 
 @dataclass
@@ -74,34 +75,34 @@ class TrainerConfig:
     # post-trains; 0 disables.
     sft_warmup_steps: int = 0
     sft_lr: float = 3e-3
-    # Multi-worker rollout over the history service and its fault
-    # tolerance (not ported yet: n_workers > 1 and fault_tolerant raise;
-    # the reference's history_shards, watchdog_deadline_s and
-    # supervise_interval_s tune only those paths and are left out).
+    # Multi-worker rollout phase: n_workers > 1 runs the rollout over N
+    # engines whose drafters share a sharded cross-worker history
+    # service (history.service, shards as in-process threads) — every
+    # worker drafts from every worker's rollouts. history_shards sets the
+    # shard count.
     n_workers: int = 1
+    history_shards: int = 2
+    # Fault tolerance (n_workers > 1): a ShardSupervisor restarts dead
+    # shards, per-worker watchdogs deadline stuck verify rounds (the
+    # deadline covers a first round that builds the kernels), and
+    # MultiWorkerRollout re-queues an expired worker's slice to survivors
+    # (token-identical at T=0).
     fault_tolerant: bool = False
-    # Durability: journal_dir (not ported yet: non-empty raises).
-    # graceful_drain installs SIGTERM/SIGINT handlers in run(): the step
-    # in flight finishes, a checkpoint is written (ckpt_path permitting),
-    # and run() returns instead of dying mid-update.
+    watchdog_deadline_s: float = 60.0
+    # Background supervision poll interval; 0 disables the thread (the
+    # rollout layer still polls once per step and on every failure).
+    supervise_interval_s: float = 1.0
+    # Durability: journal_dir enables per-worker write-ahead token
+    # journals — a crashed worker's in-flight rollouts are salvaged
+    # token-identically (T=0) by survivors. graceful_drain installs
+    # SIGTERM/SIGINT handlers in run(): the step in flight finishes, a
+    # checkpoint is written (ckpt_path permitting), and run() returns.
     journal_dir: str = ""
     graceful_drain: bool = True
     drain_deadline_s: float = 30.0
-    # Flight recorder (not ported yet: True raises).
+    # Flight recorder: per-rollout lifecycle tracing on the trainer's
+    # telemetry (needs an enabled telemetry to record).
     flight_recorder: bool = False
-
-
-def _refuse_unported(tcfg: TrainerConfig) -> None:
-    for what, on in (
-            ("n_workers > 1 (the multi-worker rollout over the history "
-             "service)", tcfg.n_workers > 1),
-            ("fault_tolerant (the shard supervisor)", tcfg.fault_tolerant),
-            ("journal_dir (the write-ahead rollout journal)",
-             bool(tcfg.journal_dir)),
-            ("flight_recorder", tcfg.flight_recorder)):
-        if on:
-            raise NotImplementedError(
-                f"TrainerConfig {what} is not ported to repro_torch yet")
 
 
 class Trainer:
@@ -116,7 +117,6 @@ class Trainer:
     ) -> None:
         from repro_torch import obs
 
-        _refuse_unported(tcfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.task = task
@@ -124,6 +124,11 @@ class Trainer:
         self.telemetry = (
             telemetry if telemetry is not None else obs.get_telemetry()
         )
+        if tcfg.flight_recorder and self.telemetry.enabled:
+            # One recorder for the whole in-process fleet: the engines
+            # share this telemetry; cross-worker moves stay visible
+            # through the handoff events' from/to worker fields.
+            self.telemetry.attach_flight(worker="trainer")
         if params is None:
             params = M.init_params(cfg, seed=tcfg.seed, device=self.device)
         self.params = M.set_trainable(params)
@@ -131,13 +136,11 @@ class Trainer:
         tcfg.engine.temperature = tcfg.temperature
         tcfg.engine.max_new_tokens = tcfg.max_new_tokens
         self.drain = None  # DrainController, installed by run()
-        self.engine = SpecEngine(
-            self.params, cfg, tcfg.engine,
-            drafter=SuffixDrafter(tcfg.drafter),
-            length_policy=LengthPolicy(),
-            device=self.device,
-        )
-        self.worker = RolloutWorker(self.engine, self.task, tcfg.group_size)
+        self.service = None  # sharded history service (n_workers > 1)
+        self.supervisor = None  # shard supervisor (fault_tolerant)
+        self._clients = []
+        self._journals = []  # per-worker write-ahead journals
+        self._build_workers()
         self.loader = PromptLoader(task, tcfg.prompts_per_step, seed=tcfg.seed)
         gcfg = GRPOConfig(
             clip_eps=tcfg.grpo.clip_eps, kl_coef=tcfg.grpo.kl_coef,
@@ -156,9 +159,155 @@ class Trainer:
         self._epoch_begun = -1  # last epoch begin_iteration ran for
         self._epoch_batches = None  # (epoch, [batches]) shuffle cache
 
+    # -- worker/engine construction ---------------------------------------
+    def _build_workers(self, service_states=None) -> None:
+        """(Re)build engines and rollout worker(s).
+
+        Single worker: one engine with a local history store.
+        ``n_workers > 1``: an in-process sharded history service plus one
+        engine per worker (all on the one parameter object), each with a
+        remote-backed drafter. ``service_states`` restores the shards from
+        a checkpoint sidecar."""
+        tcfg, cfg = self.tcfg, self.cfg
+        if self.service is not None:
+            self.close()
+        if tcfg.n_workers <= 1:
+            self.engines = [SpecEngine(
+                self.params, cfg, tcfg.engine,
+                drafter=SuffixDrafter(tcfg.drafter),
+                length_policy=LengthPolicy(),
+                telemetry=self.telemetry, device=self.device,
+            )]
+            self.engine = self.engines[0]
+            self.worker = RolloutWorker(
+                self.engine, self.task, tcfg.group_size,
+                journal=self._worker_journal(0),
+            )
+            return
+        from repro_torch.history.client import HistoryClient
+        from repro_torch.history.service import HistoryService
+
+        self.service = HistoryService.spawn_in_process(
+            n_shards=tcfg.history_shards,
+            window_size=tcfg.drafter.window_size,
+            epoch_decay=tcfg.drafter.epoch_decay,
+            states=service_states,
+            n_problems=len(self.task.problems()),
+        )
+        if self.telemetry.enabled:
+            self.service.attach_telemetry(self.telemetry)
+        warm_lengths = []
+        if service_states is not None:
+            # Pooled warm priors, extracted once from the restored shard
+            # snapshots.
+            warm_lengths = [
+                (key, d["lengths"])
+                for st in service_states
+                for key, d in st["store"]["problems"]
+                if d["lengths"]
+            ]
+        if tcfg.fault_tolerant:
+            from repro_torch.fault import ShardSupervisor
+
+            self.supervisor = ShardSupervisor(
+                self.service, seed=tcfg.seed, telemetry=self.telemetry
+            )
+            if tcfg.supervise_interval_s > 0:
+                self.supervisor.start(tcfg.supervise_interval_s)
+        self.engines = []
+        self._clients = []
+        for w in range(tcfg.n_workers):
+            client = HistoryClient(
+                # the service's live AddressBook: a supervisor restart
+                # republishes the new shard address to every client
+                self.service.book, worker_id=f"w{w}",
+                n_problems=self.service.n_problems,
+                # warm_lengths already carries the fleet's telemetry
+                skip_initial_telemetry=service_states is not None,
+            )
+            if self.telemetry.enabled:
+                client.attach_telemetry(self.telemetry)
+            eng = SpecEngine(
+                self.params, cfg, tcfg.engine,
+                drafter=SuffixDrafter(tcfg.drafter, remote=client),
+                length_policy=LengthPolicy(),
+                telemetry=self.telemetry, device=self.device,
+            )
+            for key, lens in warm_lengths:
+                eng.length_policy.observe_many(key, lens)
+            if service_states is not None:
+                client.sync()  # replicate the restored packs now
+            self._clients.append(client)
+            self.engines.append(eng)
+        self.engine = self.engines[0]
+        if tcfg.fault_tolerant:
+            from repro_torch.fault import RolloutWatchdog
+
+            workers = [
+                RolloutWorker(
+                    e, self.task, tcfg.group_size,
+                    watchdog=RolloutWatchdog(
+                        tcfg.watchdog_deadline_s,
+                        flight=self.telemetry.flight,
+                    ),
+                    journal=self._worker_journal(w),
+                )
+                for w, e in enumerate(self.engines)
+            ]
+            self.worker = MultiWorkerRollout(
+                workers, fault_tolerant=True, supervisor=self.supervisor,
+                telemetry=self.telemetry,
+            )
+        else:
+            self.worker = MultiWorkerRollout(
+                [
+                    RolloutWorker(e, self.task, tcfg.group_size,
+                                  journal=self._worker_journal(w))
+                    for w, e in enumerate(self.engines)
+                ],
+                telemetry=self.telemetry,
+            )
+
+    def _worker_journal(self, w: int):
+        """Write-ahead journal for worker ``w`` (None unless
+        ``journal_dir`` is set)."""
+        if not self.tcfg.journal_dir:
+            return None
+        import os
+
+        from repro_torch.fault.journal import RolloutJournal
+
+        os.makedirs(self.tcfg.journal_dir, exist_ok=True)
+        j = RolloutJournal(
+            os.path.join(self.tcfg.journal_dir, f"w{w}.wal"),
+            telemetry=self.telemetry,
+        )
+        self._journals.append(j)
+        return j
+
     def close(self) -> None:
-        """Uninstall the drain handlers (nothing else is held open on the
-        single-worker path)."""
+        """Stop the supervisor, the history service and its clients,
+        close the journals and uninstall the drain handlers."""
+        if self.supervisor is not None:
+            # stand down before the service stops: a supervisor racing
+            # shutdown would restart deliberately stopped shards
+            self.supervisor.stop()
+            self.supervisor = None
+        for c in self._clients:
+            try:
+                c.close()
+            except Exception:  # dascheck: disable=DAS303 -- best-effort client close during shutdown; the service stop below is what matters
+                pass
+        self._clients = []
+        for j in self._journals:
+            try:
+                j.close()
+            except Exception:  # dascheck: disable=DAS303 -- best-effort journal close during shutdown; the WAL is already durable per round
+                pass
+        self._journals = []
+        if self.service is not None:
+            self.service.stop()
+            self.service = None
         if self.drain is not None:
             self.drain.uninstall()
             self.drain = None
@@ -193,7 +342,8 @@ class Trainer:
             self.params, opt, m = sft_step(self.params, opt, batch)
             loss = float(m["sft_loss"])
             self.sft_losses.append(loss)
-        self.engine.set_params(self.params)
+        for eng in self.engines:
+            eng.set_params(self.params)
         return loss
 
     def run(self, steps: Optional[int] = None) -> List[Dict[str, Any]]:
@@ -219,7 +369,8 @@ class Trainer:
                 # Once per epoch — a mid-epoch resume must not re-run
                 # the refresh the uninterrupted run did once (the
                 # checkpointed store already reflects it).
-                self.engine.begin_iteration(self._epoch, self._update_norm)
+                for eng in self.engines:
+                    eng.begin_iteration(self._epoch, self._update_norm)
                 self._epoch_begun = self._epoch
             resume_at = self._batch_idx
             epoch_done = True
@@ -263,7 +414,8 @@ class Trainer:
                 loss = float(metrics["loss"])  # waits for the step
                 train_time = time.perf_counter() - t0
                 self._update_norm = float(metrics["update_norm"])
-                self.engine.set_params(self.params)
+                for eng in self.engines:
+                    eng.set_params(self.params)
                 rec = {
                     "step": self._step,
                     "epoch": self._epoch,
@@ -301,6 +453,8 @@ class Trainer:
                     self.save_checkpoint(
                         f"{tcfg.ckpt_path}/drain_step{self._step}.npz"
                     )
+                for j in self._journals:
+                    j.sync()
                 break
         return self.history
 
@@ -339,7 +493,13 @@ class Trainer:
 
         sidecar = {
             "history": persist.engine_state(self.engine),
-            "history_service": None,  # no multi-worker path yet
+            # Multi-worker runs: the authoritative history lives in the
+            # service — persist every shard so a resume restores the
+            # pooled fleet state (history/persist.py shard schema).
+            "history_service": (
+                None if self.service is None
+                else {"shards": self.service.state_dicts()}
+            ),
             "cursor": {
                 "step": self._step,
                 "epoch": self._epoch,
@@ -379,13 +539,33 @@ class Trainer:
         self.params = tree["params"]
         self.opt_state = tree["opt"]
         sc = load_sidecar(path)
-        if sc.get("history_service") is not None:
-            raise NotImplementedError(
-                f"{path}: a multi-worker checkpoint (history service "
-                "shards) cannot be resumed by repro_torch yet"
+        svc_blob = sc.get("history_service")
+        if svc_blob is not None and self.tcfg.n_workers > 1:
+            # Multi-worker checkpoint: rebuild the service from the
+            # persisted shard snapshots and fresh clients (workers
+            # full-resync their pack replicas).
+            self._build_workers(service_states=svc_blob["shards"])
+        elif svc_blob is not None:
+            # Multi-worker checkpoint resumed single-worker: merge every
+            # shard's store into the local drafter.
+            from repro_torch.history.service import merge_store_states
+            from repro_torch.history.store import RolloutHistoryStore
+
+            store = RolloutHistoryStore.from_state(
+                merge_store_states(svc_blob["shards"])
             )
-        persist.restore_engine(self.engine, sc["history"])
-        self.engine.set_params(self.params)
+            self.engine.drafter.load_store(store)
+            self.engine.drafter.warm_trees()
+            store.warm_length_policy(self.engine.length_policy)
+            self.engine.epoch = self.engine.drafter.epoch = store.epoch
+        elif self.tcfg.n_workers > 1:
+            # Single-worker checkpoint resumed multi-worker: seed the
+            # service shards from the single store (resharded by key).
+            self._build_workers(service_states=[sc["history"]])
+        else:
+            persist.restore_engine(self.engine, sc["history"])
+        for eng in self.engines:
+            eng.set_params(self.params)
         cur = sc["cursor"]
         self._step = int(cur["step"])
         self._epoch = int(cur["epoch"])

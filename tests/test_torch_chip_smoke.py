@@ -172,3 +172,132 @@ def test_rglru_bwd_waves():
     assert cs.rglru_bwd_waves(8, 4096, 4, 132) == 2
     assert cs.rglru_bwd_waves(2, 4001, 1, 1) == 2 * 126
     assert cs.rglru_bwd_waves(1, 1, 4, 132) == 1
+
+
+# ---------------------------------------------------------------------------
+# phase 10's helpers rehearsed on the CPU at small widths
+# ---------------------------------------------------------------------------
+
+def _small_qwen3():
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import model as M
+
+    cfg = smoke_variant(get_config("qwen3-8b")).replace(
+        d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128)
+    return cfg, M.init_params(cfg, seed=0, device="cpu")
+
+
+_TRAFFIC = dict(slots=3, n_problems=4, n_requests=8, limits=(6, 10, 14, 18),
+                prompt_len=(6, 10))
+
+
+def test_phase10a_telemetry_and_10b_drain_resume_on_cpu():
+    """10a: phase 5's traffic with telemetry and a journal equals the
+    plain run (tokens, rounds, crossings; counters, journal, trace and
+    attribution gated); 10b: the drain stops the serve early with
+    finished, preempted and queued requests, and the recovered journal
+    resumes to the uninterrupted run's outputs."""
+    cs = _chip_smoke()
+    cfg, params = _small_qwen3()
+    _, runs, _, _, _ = cs.continuous_layouts(
+        torch, np, cfg, params, "cpu", "cpu", layouts=("chunked",),
+        **_TRAFFIC)
+    assert runs[1]["accepted"] > 0
+    _, tel = cs.phase_telemetry(torch, np, "cpu", cfg, params, runs, {},
+                                dev="cpu", **_TRAFFIC)
+    assert tel.registry.value("das_journal_appends_total") > 0
+    cs.phase_drain_resume(torch, np, "cpu", cfg, params, dev="cpu",
+                          drain_after=8, **_TRAFFIC)
+
+
+def test_phase10_checks_fail_loudly():
+    """A telemetry check that does not hold stops the run (a phase's
+    error is never caught): the Prometheus parser reads what the check
+    compares."""
+    from repro_torch import obs
+
+    cs = _chip_smoke()
+    tel = obs.Telemetry()
+    tel.counter("das_rounds_total", "rounds").inc(3)
+    assert cs.prom_values(tel.prometheus())["das_rounds_total"] == 3.0
+    with pytest.raises(SystemExit):
+        cs.check(False, "10a: injected")
+
+
+def test_phase10c_multiworker_on_cpu():
+    """10c at a small width: two workers with a killed shard, a watchdog
+    stall and a flaky call, token-identical to one worker, and a step-2
+    checkpoint that resumes."""
+    from repro_torch.configs import get_config, smoke_variant
+
+    cs = _chip_smoke()
+    cfg = smoke_variant(get_config("qwen2-1.5b")).replace(
+        d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128)
+    cs.phase_multiworker(torch, np, "cpu", cfg=cfg, dev="cpu",
+                         max_new_tokens=12)
+
+
+def test_phase10_bf16_witness_on_cpu():
+    """10b and 10c in bf16, as ``main`` runs them beside the float32
+    ones: the drain and resume against a continuous run's epoch 1 and the
+    two-worker trainer against one worker, each gated by plain greedy's
+    shortfalls (``TOL_LOGIT_BF16``) instead of token equality, with the
+    engine spans and stack samples of step 3 in both trainers, and no
+    checkpoint."""
+    from repro_torch.configs import get_config, smoke_variant
+
+    from repro_torch.models import model as M
+
+    cs = _chip_smoke()
+    cfg = _small_qwen3()[0].replace(dtype="bfloat16")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    _, runs, _, _, _ = cs.continuous_layouts(
+        torch, np, cfg, params, "cpu", "cpu", layouts=("chunked",),
+        **_TRAFFIC)
+    cs.phase_drain_resume(torch, np, "cpu", cfg, params, dev="cpu",
+                          drain_after=8, reference=runs[0], **_TRAFFIC)
+    cfg2 = smoke_variant(get_config("qwen2-1.5b")).replace(
+        d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
+        dtype="bfloat16")
+    cs.phase_multiworker(torch, np, "cpu", cfg=cfg2, dev="cpu",
+                         max_new_tokens=12, resume=False)
+
+
+def test_greedy_shortfalls_and_first_divergence():
+    """The witness's arithmetic: the top token falls 0 short, another
+    token by the logit gap; a divergence names the position and both
+    shortfalls."""
+    cs = _chip_smoke()
+    cfg, params = _small_qwen3()
+    prompt = [5, 6, 7, 8]
+    sf, gap = cs.greedy_shortfalls(torch, cfg, params, prompt, [9, 10, 11])
+    assert sf.shape == gap.shape == (3,) and (sf >= 0).all()
+    assert (gap >= 0).all()
+    res = (np.array([0.0, 0.5]), np.array([0.1, 0.2]))
+    ref = (np.array([0.0, 0.0]), np.array([0.1, 0.3]))
+    assert cs.first_divergence([1, 2], [1, 2], res, ref, "r0") is None
+    d = cs.first_divergence([1, 3], [1, 2], res, ref, "r0")
+    assert d == "r0@1: 0.5000/0.0000 (top-2 gap 0.3000)"
+    assert cs.first_divergence([1], [1, 2], res, ref, "r1") == \
+        "r1: length 1 vs 2"
+
+
+def test_cli_commands_run_concurrently_and_none_outlives_the_phase():
+    """Phase 6's CLIs start at once: each command's exit code, output
+    tail and time come back in order, and a command past the time limit
+    is killed."""
+    import os
+    import sys
+
+    cs = _chip_smoke()
+    py = sys.executable
+    res = cs.run_concurrently(
+        [[py, "-c", "print('a'); print('b')"],
+         [py, "-c", "import sys; print('x'); sys.exit(3)"]],
+        dict(os.environ))
+    assert [(rc, tail) for rc, tail, _ in res] == [(0, ["a", "b"]),
+                                                   (3, ["x"])]
+    (rc, _, t), = cs.run_concurrently(
+        [[py, "-c", "import time; time.sleep(30)"]], dict(os.environ),
+        timeout_s=0.5)
+    assert rc != 0 and t < 10

@@ -337,9 +337,23 @@ def test_sampled_serve_is_reproducible_from_the_generator(weights):
     assert outs[0] == outs[1]
 
 
-def test_unported_serve_options_raise(weights):
-    eng = _port_engine(weights)
-    with pytest.raises(NotImplementedError, match="journal"):
-        list(eng.serve(_requests(MAX_NEW), journal=object()))
-    with pytest.raises(NotImplementedError, match="resume"):
-        eng.generate_continuous(_prompts(), PIDS, resume={"0": [3]})
+def test_unported_serve_options_raise(weights, tmp_path):
+    """The serve options that used to raise are ported: a journal leaves
+    the outputs as they were and records them, and ``resume`` from the
+    journaled prefixes gives the same outputs again."""
+    from repro_torch.fault import RolloutJournal
+
+    want, _ = _port_engine(weights).generate_continuous(
+        _prompts(), PIDS, slots=SLOTS, max_new_tokens=MAX_NEW)
+    j = RolloutJournal(str(tmp_path / "s.wal"))
+    reqs = _requests(MAX_NEW)
+    list(_port_engine(weights).serve(reqs, slots=SLOTS, journal=j))
+    j.close()
+    assert [r.output for r in reqs] == want
+    sess = RolloutJournal.recover(str(tmp_path / "s.wal"))
+    assert [sess[str(r.rid)].tokens for r in reqs] == want
+    salvage = {str(i): o[: len(o) // 2] for i, o in enumerate(want) if o}
+    got, _ = _port_engine(weights).generate_continuous(
+        _prompts(), PIDS, slots=SLOTS, max_new_tokens=MAX_NEW,
+        journal_keys=[str(i) for i in range(len(PIDS))], resume=salvage)
+    assert got == want

@@ -19,8 +19,9 @@
   lock-step one and its continuous one (2 slots) are equal;
 * ``python -m repro_torch.launch.train --smoke --device cpu`` prints a
   JSON line a step, for qwen2-1.5b and recurrentgemma-9b; without ``--device cpu`` and no card it raises;
-  ``--dry-run`` exits non-zero naming the missing module; the
-  unported trainer branches raise.
+  ``--dry-run`` exits non-zero naming the missing module; the trainer
+  branches that once raised (multi-worker, fault tolerance, journals,
+  flight recorder) build and close.
 """
 
 import dataclasses
@@ -214,23 +215,58 @@ def test_rollout_worker_matches_jax_lockstep_and_continuous():
         np.testing.assert_array_equal(got.advantages, want.advantages)
         np.testing.assert_array_equal(got.tokens, want.tokens)
         np.testing.assert_array_equal(got.resp_mask, want.resp_mask)
-    with pytest.raises(NotImplementedError, match="resume"):
-        w.rollout(task.problems(), resume={})
-    for kw in (dict(watchdog=object()), dict(journal=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            RolloutWorker(w.engine, task, 2, **kw)
+    # The worker options once refused are ported: a watchdog and a
+    # journal leave the batch as it was, and a one-worker
+    # MultiWorkerRollout hands it back unchanged.
+    import tempfile
+
+    from repro_torch.fault import RolloutJournal, RolloutWatchdog
     from repro_torch.rl.rollout import MultiWorkerRollout
 
-    with pytest.raises(NotImplementedError, match="MultiWorkerRollout"):
-        MultiWorkerRollout([w])
+    with tempfile.TemporaryDirectory() as d:
+        jw2 = RolloutWorker(w.engine, task, 2, continuous=True, slots=2,
+                            watchdog=RolloutWatchdog(600.0),
+                            journal=RolloutJournal(f"{d}/w.wal"))
+        got = jw2.rollout(task.problems())
+        jw2.journal.close()
+        assert got.responses == [list(r) for r in want.responses]
+        sess = RolloutJournal.recover(f"{d}/w.wal")
+        assert sorted(sess) == sorted(f"{p.pid}#{g}" for p in task.problems()
+                                      for g in range(2))
+        assert all(s.finished for s in sess.values())
+    got = MultiWorkerRollout([w]).rollout(task.problems())
+    assert got.responses == [list(r) for r in want.responses]
 
 
 def test_unported_trainer_branches_raise(tmp_path):
-    for over in (dict(n_workers=2), dict(fault_tolerant=True),
-                 dict(journal_dir=str(tmp_path)),
+    """The trainer branches that used to raise build now: two workers
+    over the history service (with the supervisor, the journals and the
+    flight recorder), and each is closed again."""
+    from repro_torch import obs
+    from repro_torch.rl.rollout import MultiWorkerRollout
+
+    for over in (dict(n_workers=2), dict(n_workers=2, fault_tolerant=True),
+                 dict(journal_dir=str(tmp_path / "j")),
                  dict(flight_recorder=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            _port_trainer(tmp_path, 1, **over)
+        tr = Trainer(
+            CFG, PatternTask(n_problems=4, mean_len=8.0, max_len=12, seed=0),
+            TrainerConfig(**dict(_kw(tmp_path, 1), **over)),
+            telemetry=obs.Telemetry(), device="cpu")
+        try:
+            if over.get("n_workers"):
+                assert isinstance(tr.worker, MultiWorkerRollout)
+                assert len(tr.engines) == 2 and tr.service is not None
+                assert all(e.drafter.remote is not None for e in tr.engines)
+                assert all(e.params is tr.params for e in tr.engines)
+                assert (tr.supervisor is not None) == bool(
+                    over.get("fault_tolerant"))
+            if over.get("journal_dir"):
+                assert tr.worker.journal is not None
+            if over.get("flight_recorder"):
+                assert tr.telemetry.flight.enabled
+        finally:
+            tr.close()
+        assert tr.service is None and tr.supervisor is None
 
 
 def _cli(*args):
