@@ -18,8 +18,15 @@ non-zero; no phase's error is caught):
    with the full ring,
    with its split plan and ptxas report, one call under the sync-debug
    mode "error", and bf16 edge cases (T = 1, rows that see nothing, one
-   live split, hd 64 and 32, softcap, G = 6); float32 at head_dim 64
-   and 256; suffix-match flat and chunked (a warp a row, 33-way edge
+   live split, hd 64 and 32, softcap, G = 6); the float32 kernel at
+   edge cases within the float32 tolerance (a window with a softcap, T =
+   1, rows that see nothing, hd 32 with G = 16, hd 64, hd 256 with a
+   window and 16/1 heads, G = 6, G = 16, softcap 30, a ring of 20,000
+   slots), its batch invariance bit for bit at 10b's shape (a B-8 launch
+   against two B-4 launches and 17 T-1 launches; a row against redrawn
+   other rows) and its timing at 10b's and 10c's shapes (path fill and a
+   full ring: kernel, plain, SDPA, bound, plan and ptxas report);
+   suffix-match flat and chunked (a warp a row, 33-way edge
    search from staged splitters) bit-identical, the chunked kernel also
    against the flat one over the same trees, at a forest larger than
    L2, and both at edge tables of 2^26 entries (their 64-bit search); 3d: the RG-LRU scan bit-identical (and within 1e-5) at
@@ -335,18 +342,22 @@ def sv_bound_ms(np, args, window, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sv_plan_line(torch, B, T, Hq, Hkv, hd, S1):
-    """The bf16 kernel's split plan for a shape, and the ptxas report of
-    the instantiation it launches (registers, shared memory, spills)."""
+def sv_plan_line(torch, B, T, Hq, Hkv, hd, S1, dtype="bfloat16"):
+    """A kernel's split plan for a shape (``split_plan`` in bf16,
+    ``f32_split_plan`` in float32), and the ptxas report of the
+    instantiation it launches (registers, shared memory, spills)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.spec_verify import ops as sv_ops
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = sv_ops.split_plan(B, T, Hq, Hkv, S1, hd, n_sm)
+    f32 = dtype == "float32"
+    plan = (sv_ops.f32_split_plan if f32 else sv_ops.split_plan)(
+        B, T, Hq, Hkv, S1, hd, n_sm)
     TG = T * (Hq // Hkv)
     part_mb = plan.partial_floats(B, Hkv, TG, hd) * 4 / 1e6
-    kv_mb = 2 * B * S1 * Hkv * hd * 2 / 1e6
-    inst = f"spec_verify_tc_kernelILi{max(hd, 64)}ELi{plan.tile}E"
+    kv_mb = 2 * B * S1 * Hkv * hd * (4 if f32 else 2) / 1e6
+    inst = (f"spec_verify_f32_kernelILi{hd}ELi{plan.tile}E" if f32 else
+            f"spec_verify_tc_kernelILi{max(hd, 64)}ELi{plan.tile}E")
     lines = _build.ptxas_lines("spec_verify")
     at = next((i for i, ln in enumerate(lines) if inst in ln), None)
     rep = ("; ".join(ln.split("ptxas info    : ")[-1] for ln in
@@ -359,29 +370,51 @@ def sv_plan_line(torch, B, T, Hq, Hkv, hd, S1):
             f"{kv_mb:.2f} MB; ptxas ({inst}): {rep}")
 
 
-# bf16 edge cases held against the plain version: (label, B, T, Hq, Hkv,
-# hd, S+1, window, softcap, cache lengths [lo, hi), seed)
+# Edge cases held against the plain version: (label, B, T, Hq, Hkv, hd,
+# S+1, window, softcap, cache lengths [lo, hi) (hi None: a full ring),
+# seed, dtype)
 SV_EDGE_CASES = [
-    ("T=1", 8, 1, 32, 8, 128, 577, 0, 0.0, (128, 560), 31),
-    ("rows that see nothing", 4, 5, 8, 2, 128, 300, 0, 0.0, (20, 290), 32),
+    ("T=1", 8, 1, 32, 8, 128, 577, 0, 0.0, (128, 560), 31, "bfloat16"),
+    ("rows that see nothing", 4, 5, 8, 2, 128, 300, 0, 0.0, (20, 290), 32,
+     "bfloat16"),
     ("every split but one empty", 8, 17, 16, 1, 256, 2113, 2048, 0.0,
-     (1, 16), 33),
-    ("hd 64", 2, 9, 8, 2, 64, 257, 0, 0.0, (1, 240), 34),
-    ("hd 32", 1, 2, 16, 1, 32, 70, 0, 0.0, (1, 60), 35),
-    ("softcap 30", 2, 17, 8, 4, 128, 513, 0, 30.0, (1, 490), 36),
-    ("G=6, window 100", 2, 4, 12, 2, 64, 300, 100, 0.0, (1, 290), 37),
+     (1, 16), 33, "bfloat16"),
+    ("hd 64", 2, 9, 8, 2, 64, 257, 0, 0.0, (1, 240), 34, "bfloat16"),
+    ("hd 32", 1, 2, 16, 1, 32, 70, 0, 0.0, (1, 60), 35, "bfloat16"),
+    ("softcap 30", 2, 17, 8, 4, 128, 513, 0, 30.0, (1, 490), 36, "bfloat16"),
+    ("G=6, window 100", 2, 4, 12, 2, 64, 300, 100, 0.0, (1, 290), 37,
+     "bfloat16"),
+    ("window 48, softcap 30", 2, 5, 8, 2, 64, 130, 48, 30.0, (20, None), 1,
+     "float32"),
+    ("T=1", 8, 1, 32, 8, 128, 577, 0, 0.0, (128, 560), 41, "float32"),
+    ("rows that see nothing", 4, 5, 8, 2, 128, 300, 0, 0.0, (20, 290), 42,
+     "float32"),
+    ("hd 32, G=16", 1, 2, 16, 1, 32, 70, 0, 0.0, (1, 60), 43, "float32"),
+    ("hd 64", 2, 9, 8, 2, 64, 257, 0, 0.0, (1, 240), 44, "float32"),
+    ("hd 256, window 160, 16/1 heads", 2, 5, 16, 1, 256, 300, 160, 0.0,
+     (100, None), 2, "float32"),
+    ("hd 256, window 2048, 16/1 heads, every split but one empty", 8, 17,
+     16, 1, 256, 2113, 2048, 0.0, (1, 16), 45, "float32"),
+    ("G=6, window 100", 2, 4, 12, 2, 64, 300, 100, 0.0, (1, 290), 46,
+     "float32"),
+    ("G=16", 2, 17, 16, 1, 128, 577, 0, 0.0, (100, 560), 47, "float32"),
+    ("softcap 30", 2, 17, 8, 4, 128, 513, 0, 30.0, (1, 490), 48, "float32"),
+    ("ring of 20,000 slots", 1, 17, 32, 8, 128, 20000, 0, 0.0, (15000, None),
+     49, "float32"),
 ]
 
 
 def phase_sv_edge_cases(torch, np, card):
+    """Every ``SV_EDGE_CASES`` row against the plain version within its
+    type's tolerance; returns the largest error of each type."""
     from repro_torch.kernels.spec_verify import ops as sv_ops
     from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
 
-    worst = 0.0
-    for (label, B, T, Hq, Hkv, hd, S1, window, softcap, (lo, hi),
-         seed) in SV_EDGE_CASES:
-        args = sv_inputs(torch, np, B, T, Hq, Hkv, hd, S1, "bfloat16", seed,
-                         lo, hi)
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for (label, B, T, Hq, Hkv, hd, S1, window, softcap, (lo, hi), seed,
+         dtype) in SV_EDGE_CASES:
+        args = sv_inputs(torch, np, B, T, Hq, Hkv, hd, S1, dtype, seed, lo,
+                         hi)
         blind = []  # (b, t) query rows that see no slot
         if label == "rows that see nothing":
             args[4][1, 0] = -1  # one query of row 1
@@ -392,48 +425,83 @@ def phase_sv_edge_cases(torch, np, card):
         want = spec_verify_attention_ref(*args, window=window,
                                          softcap=softcap)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()),
-              f"spec_verify bf16 {label}: non-finite output")
+        what = f"spec_verify {dtype} {label}"
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
         err = float((got.float() - want.float()).abs().max())
-        check(torch.allclose(got.float(), want.float(), **SV_TOL["bfloat16"]),
-              f"spec_verify bf16 {label}: max |err| {err}")
+        check(torch.allclose(got.float(), want.float(), **SV_TOL[dtype]),
+              f"{what}: max |err| {err}")
         for b, t in blind:
             check(bool((got[b, t] == 0).all()),
-                  f"spec_verify bf16 {label}: a row that sees nothing is "
-                  "not 0")
-        worst = max(worst, err)
-        log(f"spec_verify bf16 edge case {label} (B={B} T={T} Hq={Hq} "
+                  f"{what}: a row that sees nothing is not 0")
+        worst[dtype] = max(worst[dtype], err)
+        log(f"spec_verify {dtype} edge case {label} (B={B} T={T} Hq={Hq} "
             f"Hkv={Hkv} hd={hd} S+1={S1} window={window} softcap={softcap}, "
-            f"lengths [{lo}, {hi})): max |err| {err:.3e}  ok; "
-            f"{sv_plan_line(torch, B, T, Hq, Hkv, hd, S1)}  [{card}]")
+            f"lengths [{lo}, {S1 - 1 - T if hi is None else hi})): max |err| "
+            f"{err:.3e}  ok; "
+            f"{sv_plan_line(torch, B, T, Hq, Hkv, hd, S1, dtype)}  [{card}]")
     return worst
 
 
-def phase_spec_verify(torch, np, timer, card):
+def phase_sv_invariance(torch, np, card):
+    """The float32 kernel's batch invariance, bit for bit, at 10b's shape
+    (B 8, T 17, 32/8 heads, hd 128, S+1 577, the path's fill): a B-8 launch
+    equals the same rows launched as two B-4 launches and as T = 1 launches
+    of each query; and a row's output is unchanged when the other queries
+    and positions of its batch are redrawn."""
     from repro_torch.kernels.spec_verify import ops as sv_ops
-    from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
 
-    # small float32 case with a window and a softcap
-    small = sv_inputs(torch, np, 2, 5, 8, 2, 64, 130, "float32", 1, 20)
-    got = sv_ops.spec_verify_attention_cuda(*small, window=48, softcap=30.0)
-    want = spec_verify_attention_ref(*small, window=48, softcap=30.0)
+    B, T, Hq, Hkv, hd, S1 = 8, 17, 32, 8, 128, 577
+    run = sv_ops.spec_verify_attention_cuda
+    q, k, v, cpos, pos = sv_inputs(torch, np, B, T, Hq, Hkv, hd, S1,
+                                   "float32", 60, *SV_PATH_FILL)
+    full = run(q, k, v, cpos, pos)
+    halves = torch.cat([run(q[i:i + 4], k[i:i + 4], v[i:i + 4],
+                            cpos[i:i + 4], pos[i:i + 4]) for i in (0, 4)])
+    singles = torch.cat([run(q[:, t:t + 1].contiguous(), k, v, cpos,
+                             pos[:, t:t + 1].contiguous())
+                         for t in range(T)], dim=1)
+    rng = np.random.default_rng(61)
+    q2, pos2 = q.clone(), pos.clone()
+    q2[:, 1:] = torch.from_numpy(rng.normal(size=(B, T - 1, Hq, hd)).astype(
+        np.float32)).cuda()
+    pos2[:, 1:] = pos[:, 1:].flip(1) - 7
+    redrawn = run(q2, k, v, cpos, pos2)
     torch.cuda.synchronize()
-    err_small = float((got - want).abs().max())
-    check(torch.allclose(got, want, **SV_TOL["float32"]),
-          f"spec_verify f32 window/softcap: max |err| {err_small}")
-    log(f"spec_verify f32 (B=2 T=5 Hq=8 Hkv=2 hd=64 S+1=130 window=48 "
-        f"softcap=30): max |err| {err_small:.3e}  ok")
-    # float32 at hd 256 (MQA 16/1, a window): each thread owns two columns
-    small = sv_inputs(torch, np, 2, 5, 16, 1, 256, 300, "float32", 2, 100)
-    got = sv_ops.spec_verify_attention_cuda(*small, window=160)
-    want = spec_verify_attention_ref(*small, window=160)
-    torch.cuda.synchronize()
-    err_small = float((got - want).abs().max())
-    check(torch.allclose(got, want, **SV_TOL["float32"]),
-          f"spec_verify f32 hd=256: max |err| {err_small}")
-    log(f"spec_verify f32 (B=2 T=5 Hq=16 Hkv=1 hd=256 S+1=300 window=160): "
-        f"max |err| {err_small:.3e}  ok")
+    check(torch.equal(full, halves), "spec_verify float32: a B-8 launch "
+          "differs from the same rows as two B-4 launches")
+    check(torch.equal(full, singles), "spec_verify float32: a T-17 launch "
+          "differs from the same queries launched one at a time")
+    check(torch.equal(full[:, 0], redrawn[:, 0]), "spec_verify float32: a "
+          "row's output moved when the other rows were redrawn")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {(b, t): sv_ops.f32_split_plan(b, t, Hq, Hkv, S1, hd, n_sm)
+             for b, t in ((8, 17), (4, 17), (8, 1))}
+    log("spec_verify float32 batch invariance at (B=8 T=17 Hq=32 Hkv=8 "
+        "hd=128 S+1=577): bit-identical as two B-4 launches, as 17 T-1 "
+        "launches and with the other rows redrawn; row blocks x rows "
+        + ", ".join(f"{p.row_blocks} x {p.cta_rows} at (B {b}, T {t})"
+                    for (b, t), p in plans.items())
+        + f", the same {plans[8, 17].n_split} splits  [{card}]")
+
+
+def phase_spec_verify(torch, np, timer, card):
+    """Phase 3a: the edge cases of both kernels, the float32 kernel's
+    batch invariance and its shapes, then the bf16 main-path shapes.
+    Returns the bf16 JSON entries and the largest float32 error."""
     edge_err = phase_sv_edge_cases(torch, np, card)
+    phase_sv_invariance(torch, np, card)
+    # float32 at the shapes 10b's and 10c's float32 runs launch: Qwen3-8B's
+    # (B 8, T 17, GQA 32/8, S+1 577) at the path's fill and with a full
+    # ring, Qwen2-1.5B's (B 4, T 17, GQA 12/2: 102 query rows a kv head,
+    # S+1 129) with short prompts and with a full ring (logged; the JSON
+    # entries are timed on the runs' own launches)
+    f32_err = edge_err["float32"]
+    for B, Hq, Hkv, S1, min_len, fill in (
+            (8, 32, 8, 577, 128, SV_PATH_FILL),
+            (4, 12, 2, 129, 8, SV_QWEN2_F32_FILL)):
+        e = sv_main_shape(torch, np, timer, card, B, 17, Hq, Hkv, 128, S1,
+                          S1, 0, min_len, fill, "float32")
+        f32_err = max(f32_err, e["max_abs_err"])
 
     # main-path shapes, bf16: Qwen3-8B's (hd 128, GQA 32/8) and
     # RecurrentGemma-9B's local attention (hd 256, MQA 16/1, window 2048),
@@ -454,9 +522,9 @@ def phase_spec_verify(torch, np, timer, card):
              (4, 12, 2, 128, 2305, 2305, 0, 2100, SV_LONG_FILL))):
         e = sv_main_shape(torch, np, timer, card, B, 17, Hq, Hkv, hd,
                           S1_path, S1_full, window, min_len, fill)
-        e["max_abs_err"] = max(e["max_abs_err"], edge_err)
+        e["max_abs_err"] = max(e["max_abs_err"], edge_err["bfloat16"])
         entries.append(dict(name=name, **e))
-    return entries
+    return entries, f32_err
 
 
 # The path's fill: prompts of 128-256 tokens and up to 256 generated
@@ -465,6 +533,9 @@ SV_PATH_FILL = (128, 513)
 # Phase 8b's fill: prompts of 2,100 and 2,200 tokens and up to 64
 # generated, so a block's first position lies in [2100, 2264].
 SV_LONG_FILL = (2100, 2265)
+# 10c's fill: the pattern task's short prompts and 32 generated tokens in
+# a ring of 128 (+1) slots.
+SV_QWEN2_F32_FILL = (8, 80)
 
 
 def sv_sdpa_call(torch, copies, window):
@@ -505,11 +576,13 @@ def sv_sdpa_call(torch, copies, window):
     return lib_call
 
 
-def time_sv_path_case(torch, np, timer, card, spy, name, where):
+def time_sv_path_case(torch, np, timer, card, spy, name, where,
+                      err_3a=0.0):
     """A spec-verify JSON entry at a path's own shape: the kernel, plain
     and SDPA times over the launches ``spy`` kept of the shape it kept
     most (cycled, so nothing stays warm), the bound on them, and the
-    largest error of every kept launch against the plain version."""
+    largest error of every kept launch against the plain version (and of
+    phase 3a's launches of that type, ``err_3a``)."""
     from repro_torch.kernels.spec_verify import ops as sv_ops
     from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
 
@@ -536,15 +609,17 @@ def time_sv_path_case(torch, np, timer, card, spy, name, where):
     return dict(name=name, route="cuda",
                 source="src/repro_torch/csrc/spec_verify.cu",
                 replaces="src/repro/kernels/spec_verify/kernel.py:103",
-                max_abs_err=spy.worst, ms=ms, plain_ms=plain_ms,
+                max_abs_err=max(spy.worst, err_3a), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def sv_main_shape(torch, np, timer, card, B, T, Hq, Hkv, hd, S1_path,
-                  S1_full, window, min_len, path_fill=SV_PATH_FILL):
-    """One bf16 main-path shape at the path's ring (S+1 = ``S1_path``) and
-    fill (``path_fill``) and with a full ring of ``S1_full`` slots
-    (lengths from ``min_len``): the kernel against the plain version,
+                  S1_full, window, min_len, path_fill=SV_PATH_FILL,
+                  dtype="bfloat16"):
+    """One main-path shape (bf16 unless ``dtype``) at the path's ring
+    (S+1 = ``S1_path``) and fill (``path_fill``) and with a full ring of
+    ``S1_full`` slots (lengths from ``min_len``): the kernel against the
+    plain version,
     then kernel, plain, SDPA and bound times (the full ring's kernel
     time also without the timer's lead, once). The path fill's numbers
     are returned; the full ring's are logged."""
@@ -555,21 +630,21 @@ def sv_main_shape(torch, np, timer, card, B, T, Hq, Hkv, hd, S1_path,
     for fill, S1, (lo, hi), seed in (
             ("path fill", S1_path, path_fill, 20),
             ("full ring", S1_full, (min_len, None), 10)):
-        log(f"spec_verify bf16 hd={hd} S+1={S1} "
-            f"{sv_plan_line(torch, B, T, Hq, Hkv, hd, S1)}  [{card}]")
-        copies = [sv_inputs(torch, np, B, T, Hq, Hkv, hd, S1, "bfloat16",
+        log(f"spec_verify {dtype} hd={hd} S+1={S1} "
+            f"{sv_plan_line(torch, B, T, Hq, Hkv, hd, S1, dtype)}  [{card}]")
+        copies = [sv_inputs(torch, np, B, T, Hq, Hkv, hd, S1, dtype,
                             seed + i, lo, hi) for i in range(4)]
         args = copies[0]
         got = sv_ops.spec_verify_attention_cuda(*args, window=window)
         want = spec_verify_attention_ref(*args, window=window)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()),
-              "spec_verify bf16: non-finite output")
+              f"spec_verify {dtype}: non-finite output")
         err = float((got.float() - want.float()).abs().max())
-        check(torch.allclose(got.float(), want.float(), **SV_TOL["bfloat16"]),
-              f"spec_verify bf16 hd={hd} {fill}: max |err| {err}")
+        check(torch.allclose(got.float(), want.float(), **SV_TOL[dtype]),
+              f"spec_verify {dtype} hd={hd} {fill}: max |err| {err}")
         cp = args[3].cpu().numpy()
-        log(f"spec_verify bf16 (B={B} T={T} Hq={Hq} Hkv={Hkv} hd={hd} "
+        log(f"spec_verify {dtype} (B={B} T={T} Hq={Hq} Hkv={Hkv} hd={hd} "
             f"S+1={S1} window={window}, {fill}: lengths [{lo}, "
             f"{S1 - 1 - T if hi is None else hi}), {int((cp >= 0).sum())} of "
             f"{cp.size} slots filled): max |err| {err:.3e}  ok")
@@ -581,7 +656,7 @@ def sv_main_shape(torch, np, timer, card, B, T, Hq, Hkv, hd, S1_path,
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
-            log(f"spec_verify bf16 hd={hd}: one call under "
+            log(f"spec_verify {dtype} hd={hd}: one call under "
                 "torch.cuda.set_sync_debug_mode('error') raised nothing")
 
         # timing: cycle 4 input sets so nothing stays warm
@@ -599,13 +674,13 @@ def sv_main_shape(torch, np, timer, card, B, T, Hq, Hkv, hd, S1_path,
             *nxt(), window=window), 10)
         lib_call = sv_sdpa_call(torch, copies, window)
         library_ms = timer.ms(lib_call, 50)
-        bound_ms, bound_by = sv_bound_ms(np, args, window, "bfloat16")
+        bound_ms, bound_by = sv_bound_ms(np, args, window, dtype)
         extra = ""
         if fill == "full ring":  # the timer's lead, on and off, once
             extra = (f"; without the timer's lead: kernel "
                      f"{timer.ms(kern, 50, lead=False) * 1e3:.1f} us, SDPA "
                      f"{timer.ms(lib_call, 50, lead=False) * 1e3:.1f} us")
-        log(f"spec_verify bf16 hd={hd} {fill} timing: kernel {ms * 1e3:.1f} "
+        log(f"spec_verify {dtype} hd={hd} {fill} timing: kernel {ms * 1e3:.1f} "
             f"us, plain {plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} "
             f"us, bound {bound_ms * 1e3:.2f} us ({bound_by}){extra}  [{card}]")
         res[fill] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -3467,8 +3542,9 @@ def main() -> None:
             log(f"  [{name}] {ln}")
 
     timer = Timer(torch)
+    sv_entries, sv_f32_err = phase_spec_verify(torch, np, timer, card)
     kernels = {k["name"]: k for k in (
-        *phase_spec_verify(torch, np, timer, card),
+        *sv_entries,
         phase_suffix_match(torch, np, timer, card),
         phase_suffix_match_chunked(torch, np, timer, card),
         *phase_rglru(torch, np, timer, card))}
@@ -3515,7 +3591,7 @@ def main() -> None:
     launches["spec_verify_attention_f32"] += l10b["spec_verify_attention"]
     kernels["spec_verify_attention_f32"] = time_sv_path_case(
         torch, np, timer, card, sv10b, "spec_verify_attention_f32",
-        f"10b {cfg.name}")
+        f"10b {cfg.name}", sv_f32_err)
     del sv10b
     # the drafting kernels at the path's own shapes (phases 4 and 5)
     for spy, name in ((flat_spy, "suffix_match_propose"),
@@ -3570,7 +3646,7 @@ def main() -> None:
     timer = Timer(torch)
     kernels["spec_verify_attention_qwen2_f32"] = time_sv_path_case(
         torch, np, timer, card, sv10c, "spec_verify_attention_qwen2_f32",
-        f"10c {qwen2.name}")
+        f"10c {qwen2.name}", sv_f32_err)
     del sv10c, timer
     # the trainers, engines and telemetries reference one another: their
     # card memory returns only once the collector has run

@@ -53,12 +53,37 @@
 // next to the query rows); hd 32 is read as 64 columns, the upper half
 // zero-filled by TMA's bounds handling.
 //
-// float32 inputs (tests, small models) take a CUDA-core kernel: one block
-// per (batch, kv head, 16 query rows), 64-slot tiles staged with plain
-// loads, register-tiled 2x4 score micro-tiles, the softmax through shared
-// memory. hd must be 32, 64, 128 or 256 (the wrapper checks); the f32
-// kernel is compiled for hd <= 128 and for hd = 256 (two output columns
-// a thread).
+// float32 inputs (the exact gate: resumes, re-sliced batches, small
+// models) take spec_verify_f32_kernel, full float32 fused multiply-adds on
+// CUDA cores (no TF32). What bounds it: operations (4 flops a visible
+// (row, slot) pair and head dim, against 67 TFLOP/s), and before them
+// shared memory, which returns 128 bytes a clock an SM: a CUDA-core
+// product must reuse each loaded float across several multiply-adds.
+// - Split-KV as in bf16, but the plan (kernels/spec_verify/ops.py:
+//   f32_split_plan) is fixed by S+1, hd and the SM count alone (splits of
+//   at least 128 slots, tiles owned by index), so a row's float32 output
+//   does not depend on B, T or the other rows, bit for bit; only the cut
+//   of a kv head's T*G rows into CTAs (up to 96 rows, 8 a warp) follows
+//   the batch. One K/V stream per (batch, kv head, split, row block); at
+//   Qwen3-8B's 68 rows a kv head, one block.
+// - K/V tiles (64 slots; 32 at hd 256) by 16-byte cp.async into a
+//   two-stage ring, one copy group a tile, the next in flight while one
+//   is computed; the split's first tile is fetched with the query rows
+//   before the slot positions say whether it is live, and the slot and
+//   row positions are loaded ahead of both.
+// - Register tiles: a lane holds 4 rows x 4 slots of scores (a k-step:
+//   4 + 4 float4 loads for 64 fused multiply-adds) and 4 rows x hd/16
+//   output columns (a slot of P.V: one float4 of P and hd/64 of V for
+//   hd/4 multiply-adds), Q, K and V rows padded to hd + 4 floats.
+// - The online softmax runs on the score registers, base 2, row max and
+//   sum by shuffles over a row's 16 lanes; a rescale by exactly 1 is
+//   skipped. Tiles no row of the CTA sees are never loaded, and 16-slot
+//   blocks past a tile's last visible slot are not computed: both leave a
+//   row's state bit for bit as it was.
+// - Partials merge in split order in spec_verify_f32_combine_kernel
+//   (float32 out), launched as a programmatic dependent of the main grid
+//   so its launch overlaps that grid's tail.
+// hd must be 32, 64, 128 or 256 (the wrapper checks).
 //
 // The tensor maps come from the driver's cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint, so the library needs no -lcuda.
@@ -72,100 +97,7 @@
 namespace {
 
 
-constexpr int ROWS = 16;     // query rows per block
-constexpr int TILE = 64;     // KV slots per tile
-constexpr int THREADS = 128;
-constexpr int PST = TILE + 8;  // float row stride of the score tile
 constexpr float NEG = -1e30f;
-
-struct Shape {
-  int Tq, Hq, Hkv, S1, hd, window;
-  float softcap, scale;
-};
-
-// ---- pieces shared by both kernels ----------------------------------------
-
-// Query positions of the block's rows; m = NEG, l = 0. Returns the
-// block's (min, max) query position for tile skipping.
-__device__ void init_rows(const int* pos, int b, int r0, int TG, int G,
-                          const Shape& sh, int* qp_s, float* m_s, float* l_s,
-                          int& qmin, int& qmax) {
-  const int tid = threadIdx.x;
-  if (tid < ROWS) {
-    const int row = r0 + tid;
-    qp_s[tid] = row < TG ? pos[(size_t)b * sh.Tq + row / G] : INT_MIN;
-    m_s[tid] = NEG;
-    l_s[tid] = 0.f;
-  }
-  __syncthreads();
-  qmax = INT_MIN;
-  qmin = INT_MAX;
-  for (int r = 0; r < ROWS && r0 + r < TG; ++r) {
-    qmax = max(qmax, qp_s[r]);
-    qmin = min(qmin, qp_s[r]);
-  }
-}
-
-// Loads the tile's slot positions; true iff some slot is visible to some
-// row of the block (block-uniform: it synchronises).
-__device__ bool tile_live(const int* cpos, int b, int s0, const Shape& sh,
-                          int qmin, int qmax, int* cp_s) {
-  int live = 0;
-  if (threadIdx.x < TILE) {
-    const int s = s0 + threadIdx.x;
-    const int cp = s < sh.S1 ? cpos[(size_t)b * sh.S1 + s] : -1;
-    cp_s[threadIdx.x] = cp;
-    live = cp >= 0 && cp <= qmax && (sh.window <= 0 || cp > qmin - sh.window);
-  }
-  return __syncthreads_or(live) != 0;
-}
-
-// Raw score -> scaled, soft-capped, masked score.
-__device__ __forceinline__ float finish_score(float dot, int r, int j, int r0,
-                                              int TG, const Shape& sh,
-                                              const int* qp_s,
-                                              const int* cp_s) {
-  float s = dot * sh.scale;
-  if (sh.softcap > 0.f) s = tanhf(s / sh.softcap) * sh.softcap;
-  const int cp = cp_s[j], qp = qp_s[r];
-  const bool ok = r0 + r < TG && cp >= 0 && cp <= qp &&
-                  (sh.window <= 0 || cp > qp - sh.window);
-  return ok ? s : NEG;
-}
-
-// Online-softmax update over one tile, one warp per row: scores in ps
-// become probabilities; m, l advance; a_s gets the accumulator rescale.
-__device__ void softmax_tile(float* ps, float* m_s, float* l_s, float* a_s) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < ROWS; r += THREADS / 32) {
-    const float sa = ps[r * PST + lane];
-    const float sb = ps[r * PST + lane + 32];
-    float mx = fmaxf(sa, sb);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_prev = m_s[r];
-    const float m_new = fmaxf(m_prev, mx);
-    float pa = 0.f, pb = 0.f, alpha = 0.f;
-    if (m_new > NEG) {  // else: nothing visible yet, the state stays empty
-      pa = sa <= NEG ? 0.f : expf(sa - m_new);
-      pb = sb <= NEG ? 0.f : expf(sb - m_new);
-      alpha = m_prev <= NEG ? 0.f : expf(m_prev - m_new);
-    }
-    float sum = pa + pb;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    ps[r * PST + lane] = pa;
-    ps[r * PST + lane + 32] = pb;
-    __syncwarp();
-    if (lane == 0) {
-      m_s[r] = m_new;
-      l_s[r] = alpha * l_s[r] + sum;
-      a_s[r] = alpha;
-    }
-  }
-}
 
 // ---- bfloat16: TMA + wgmma, split-KV ----------------------------------------
 
@@ -771,185 +703,486 @@ spec_verify_combine_kernel(const float* __restrict__ part,
   o[1] = __floats2bfloat162_rn(a.z / l, a.w / l);
 }
 
-// ---- float32: CUDA cores ---------------------------------------------------
+// ---- float32: CUDA cores, split-KV ------------------------------------------
 
-// CPT: output columns a thread owns in P·V (hd / THREADS at hd = 256,
-// else 1).
-template <int CPT>
-__global__ void __launch_bounds__(THREADS)
-spec_verify_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+constexpr int F32_CHUNK = 16;        // split tiles whose slots are staged
+constexpr int F32_STAGES = 2;        // K/V tiles in the shared-memory ring
+constexpr int F32_MAX_WARPS = 12;    // warps of a CTA (8 query rows each)
+constexpr size_t SMEM_MAX = 232448;  // shared memory a CTA may have
+
+// One instantiation's geometry. KT: slots a K/V tile (64; 32 at hd 256).
+// A warp holds 8 query rows: lane (rg, sg) = (lane / 16, lane % 16) owns
+// rows rg + 2 e (e < 4), their scores at slots sg + 16 j (j < SPL) and
+// their output columns 4 sg + 64 c ... + 3 (c < CPL / 4; 2 sg, 2 sg + 1
+// at hd 32). Rows of Q, K and V lie STR = HD + 4 floats apart in shared
+// memory: 16-byte aligned, and the 8 slots a quarter-warp reads in a
+// k-step fall in distinct banks. Shared memory, in floats: F32_STAGES
+// K/V stages (K then V, KT x STR each), the CTA's query rows (8 W x
+// STR), a P tile a warp (KT slots x 8 rows), then as ints the chunk's
+// slot positions (F32_CHUNK x KT) and live flags.
+template <int HD, int KT>
+struct F32Cfg {
+  static constexpr int STR = HD + 4;
+  static constexpr int SPL = KT / 16;
+  static constexpr int CPL = HD / 16;
+  static constexpr int STAGE = 2 * KT * STR;
+  static constexpr int PW = KT * 8;
+  static constexpr size_t bytes(int warps) {
+    return 4 * (F32_STAGES * (size_t)STAGE + (size_t)warps * (8 * STR + PW) +
+                (size_t)F32_CHUNK * (KT + 1));
+  }
+};
+
+// The most warps a CTA of this geometry may have: what fits in shared
+// memory, at most F32_MAX_WARPS (8 at hd 256, whose lanes hold 64
+// accumulators).
+template <int HD, int KT>
+constexpr int f32_maxw() {
+  int w = HD > 128 ? 8 : F32_MAX_WARPS;
+  while (w > 1 && F32Cfg<HD, KT>::bytes(w) > SMEM_MAX) --w;
+  return w;
+}
+
+// 16-byte copy into shared memory; zeros where !full (nothing is read).
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Over the 16 lanes of a row group.
+__device__ __forceinline__ float max16(float x) {
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float sum16(float x) {
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Grid (row blocks x Hkv x B, n_split) of 32 W threads: the CTAs of split
+// 0, which own the most live tiles of a partly filled ring, start first.
+// Split j owns the ring's tiles j, j + n_split, ...; a CTA holds 8 W query
+// rows of one kv head (warp w: rows 8 w ... 8 w + 7). A row's arithmetic (dot products
+// in head-dim order, the softmax's reductions over its 16-lane group, P.V
+// in slot order) is the same in every CTA, whatever the other rows.
+template <int HD, int KT>
+__global__ void __launch_bounds__(f32_maxw<HD, KT>() * 32)
+spec_verify_f32_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
                        const float* __restrict__ v,
                        const int* __restrict__ cpos,
                        const int* __restrict__ pos, float* __restrict__ out,
-                       Shape sh) {
-  extern __shared__ __align__(16) float smem[];
-  const int hd = sh.hd;
-  const int G = sh.Hq / sh.Hkv;
-  const int TG = sh.Tq * G;
-  const int h = blockIdx.x, r0 = blockIdx.y * ROWS, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ST = hd + 4;  // padded row stride: 16-byte aligned, bank-spread
-  const int VPR = hd / 4;
+                       float* __restrict__ part, TcShape sh) {
+  using L = F32Cfg<HD, KT>;
+  constexpr int STR = L::STR, SPL = L::SPL, CPL = L::CPL;
+  extern __shared__ __align__(16) float smem_f[];
+  const int W = blockDim.x / 32, CR = 8 * W;
+  float* kv_s = smem_f;
+  float* q_s = kv_s + F32_STAGES * L::STAGE;
+  float* p_s = q_s + CR * STR;
+  int* cp_s = reinterpret_cast<int*>(p_s + W * L::PW);
+  int* live_s = cp_s + F32_CHUNK * KT;
 
-  float* qs = smem;                  // [ROWS][ST]
-  float* ks = qs + ROWS * ST;        // [TILE][ST]
-  float* vs = ks + TILE * ST;        // [TILE][hd]
-  float* ps = vs + TILE * hd;        // [ROWS][PST]
-  float* m_s = ps + ROWS * PST;
-  float* l_s = m_s + ROWS;
-  float* a_s = l_s + ROWS;
-  int* qp_s = reinterpret_cast<int*>(a_s + ROWS);
-  int* cp_s = qp_s + ROWS;
+  const int G = sh.Hq / sh.Hkv, TG = sh.Tq * G;
+  const int row_blocks = (TG + CR - 1) / CR;
+  const int split = blockIdx.y;
+  const int r0 = (blockIdx.x % row_blocks) * CR;
+  const int h = (blockIdx.x / row_blocks) % sh.Hkv;
+  const int b = blockIdx.x / row_blocks / sh.Hkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = lane / 16, sg = lane % 16;
+  const int n_tiles = (sh.S1 + KT - 1) / KT;
+  const int nt = (n_tiles - split + sh.n_split - 1) / sh.n_split;  // tiles
 
-  for (int i = tid; i < ROWS * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 4;
-    const int row = r0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < TG) {
-      const int tq = row / G, gq = row % G;
-      val = __ldg(reinterpret_cast<const float4*>(
-          q + (((size_t)b * sh.Tq + tq) * sh.Hq + h * G + gq) * hd + c));
+  // ---- live tile (ring tile t) into stage st by 16-byte cp.async, zeros
+  // past S+1
+  auto issue = [&](int t, int st) {
+    float* ks = kv_s + st * L::STAGE;
+    for (int i = tid; i < KT * (HD / 4); i += blockDim.x) {
+      const int j = i / (HD / 4), c = (i % (HD / 4)) * 4, s = t * KT + j;
+      const bool ok = s < sh.S1;
+      const size_t off =
+          ok ? (((size_t)b * sh.S1 + s) * sh.Hkv + h) * HD + c : 0;
+      cp16(ks + j * STR + c, k + off, ok);
+      cp16(ks + (KT + j) * STR + c, v + off, ok);
     }
-    *reinterpret_cast<float4*>(qs + r * ST + c) = val;
+  };
+  // ---- prologue. First the small loads (ahead of the bulk copies in the
+  // memory system): the slot positions of the first chunk's tile this
+  // warp tests (-1 past S+1) and the rows' positions
+  int cpv[KT / 32];
+#pragma unroll
+  for (int j = 0; j < KT / 32; ++j) {
+    const int s = (split + warp * sh.n_split) * KT + lane + 32 * j;
+    cpv[j] = warp < nt && s < sh.S1 ? __ldg(cpos + (size_t)b * sh.S1 + s)
+                                    : -1;
   }
-  int qmin, qmax;
-  init_rows(pos, b, r0, TG, G, sh, qp_s, m_s, l_s, qmin, qmax);
-
-  // P·V ownership: columns d_own + c * THREADS (c < CPT) of rows rg0,
-  // rg0 + RG, ...
-  const int RG = hd >= THREADS ? 1 : THREADS / hd;
-  const int nr = ROWS / RG;
-  const int d_own = tid % hd;
-  const int rg0 = tid / hd;
-  float acc[CPT][ROWS];
+  const int ra = r0 + 8 * warp + rg;  // the lane's rows: ra + 2 e
+  const int r_end = min(r0 + CR, TG);
+  int hi[4], qp[(8 * F32_MAX_WARPS + 31) / 32];
 #pragma unroll
-  for (int c = 0; c < CPT; ++c)
+  for (int e = 0; e < 4; ++e)
+    hi[e] = ra + 2 * e < TG ? __ldg(pos + (size_t)b * sh.Tq + (ra + 2 * e) / G)
+                            : -1;
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) acc[c][i] = 0.f;
-  // score ownership: rows srow, srow+1 x slots skey + 16*jj
-  const int srow = (tid / 16) * 2;
-  const int skey = tid % 16;
+  for (int i = 0; i < (8 * F32_MAX_WARPS + 31) / 32; ++i) {
+    const int r = r0 + lane + 32 * i;
+    qp[i] = r < r_end ? __ldg(pos + (size_t)b * sh.Tq + r / G) : 0;
+  }
 
-  for (int s0 = 0; s0 < sh.S1; s0 += TILE) {
-    if (!tile_live(cpos, b, s0, sh, qmin, qmax, cp_s)) continue;
+  // then one copy group: the CTA's query rows (zeros past T*G) and, ahead
+  // of knowing whether any row sees it, the split's first tile (stage 0:
+  // the first owned tile is live but for the shortest caches)
+  for (int i = tid; i < CR * (HD / 4); i += blockDim.x) {
+    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4, row = r0 + r;
+    const bool ok = row < TG;
+    cp16(q_s + r * STR + c,
+         ok ? q + (((size_t)b * sh.Tq + row / G) * sh.Hq + h * G + row % G) *
+                      HD + c
+            : q,
+         ok);
+  }
+  if (nt > 0) issue(split, 0);
+  cp_commit();
 
-    for (int i = tid; i < TILE * VPR; i += THREADS) {
-      const int j = i / VPR, c = (i % VPR) * 4;
-      const int s = s0 + j;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (s < sh.S1) {
-        const size_t off = (((size_t)b * sh.S1 + s) * sh.Hkv + h) * hd + c;
-        kv = __ldg(reinterpret_cast<const float4*>(k + off));
-        vv = __ldg(reinterpret_cast<const float4*>(v + off));
+  // the lane's rows see slot positions [lo, hi] (nothing past T*G); the
+  // CTA's position range (each warp finds it)
+  int lo[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    lo[e] = sh.window > 0 && ra + 2 * e < TG
+                ? max(hi[e] - sh.window + 1, 0) : 0;
+  int qmin = INT_MAX, qmax = INT_MIN;
+#pragma unroll
+  for (int i = 0; i < (8 * F32_MAX_WARPS + 31) / 32; ++i)
+    if (r0 + lane + 32 * i < r_end) {
+      qmin = min(qmin, qp[i]);
+      qmax = max(qmax, qp[i]);
+    }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
+    qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
+  }
+
+  const bool active = r0 + 8 * warp < TG;  // warp-uniform
+  const float sl2 = sh.scale * LOG2E;
+  const float inv_cap = sh.softcap > 0.f ? sh.scale / sh.softcap : 0.f;
+  const float cap_l2 = sh.softcap * LOG2E;
+  float acc[4][CPL];
+  // running max (log2 units) and sum of the lane's rows
+  float m[4], l[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    m[e] = NEG;
+    l[e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) acc[e][i] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < nt; k0 += F32_CHUNK) {
+    const int nk = min(F32_CHUNK, nt - k0);
+    // ---- the chunk's slot positions (-1 past S+1), a tile a warp. A
+    // slot is live iff some row of the CTA sees it; a tile's live_s is
+    // the count of its 16-slot blocks up to its last live slot (0: the
+    // tile is dead). The blocks past it would add exact zeros: skipped
+    for (int kk = warp; kk < nk; kk += W) {
+      const int s0 = (split + (k0 + kk) * sh.n_split) * KT;
+      int last = -1;
+#pragma unroll
+      for (int j = 0; j < KT / 32; ++j) {
+        const int s = s0 + lane + 32 * j;
+        const int cp = k0 == 0 && kk == warp ? cpv[j]
+                       : s < sh.S1           ? __ldg(cpos + (size_t)b * sh.S1 + s)
+                                             : -1;
+        cp_s[kk * KT + lane + 32 * j] = cp;
+        const unsigned vis = __ballot_sync(
+            0xffffffffu, cp >= 0 && cp <= qmax &&
+                             (sh.window <= 0 || cp > qmin - sh.window));
+        if (vis) last = 32 * j + 31 - __clz(vis);
       }
-      *reinterpret_cast<float4*>(ks + j * ST + c) = kv;
-      *reinterpret_cast<float4*>(vs + j * hd + c) = vv;
+      if (lane == 0) live_s[kk] = last < 0 ? 0 : last / 16 + 1;
     }
     __syncthreads();
-
-    {
-      float sc[2][4];
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) sc[rr][jj] = 0.f;
-      const float* q0 = qs + srow * ST;
-      const float* q1 = q0 + ST;
-      for (int c = 0; c < hd; c += 4) {
-        const float4 a0 = *reinterpret_cast<const float4*>(q0 + c);
-        const float4 a1 = *reinterpret_cast<const float4*>(q1 + c);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float4 kk =
-              *reinterpret_cast<const float4*>(ks + (skey + 16 * jj) * ST + c);
-          sc[0][jj] = fmaf(a0.x, kk.x, sc[0][jj]);
-          sc[0][jj] = fmaf(a0.y, kk.y, sc[0][jj]);
-          sc[0][jj] = fmaf(a0.z, kk.z, sc[0][jj]);
-          sc[0][jj] = fmaf(a0.w, kk.w, sc[0][jj]);
-          sc[1][jj] = fmaf(a1.x, kk.x, sc[1][jj]);
-          sc[1][jj] = fmaf(a1.y, kk.y, sc[1][jj]);
-          sc[1][jj] = fmaf(a1.z, kk.z, sc[1][jj]);
-          sc[1][jj] = fmaf(a1.w, kk.w, sc[1][jj]);
-        }
-      }
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int r = srow + rr, j = skey + 16 * jj;
-          ps[r * PST + j] =
-              finish_score(sc[rr][jj], r, j, r0, TG, sh, qp_s, cp_s);
-        }
+    // the live tiles, lowest first: to issue (iss) and to compute (cmp)
+    unsigned iss = __ballot_sync(0xffffffffu, lane < nk && live_s[lane]);
+    unsigned cmp = iss;
+    const int n = __popc(iss);
+    auto pop = [](unsigned& mk) {
+      const int t = __ffs(mk) - 1;
+      mk &= mk - 1;
+      return t;
+    };
+    const auto tile = [&](int kk) { return split + (k0 + kk) * sh.n_split; };
+    // stage 0 gets the first live tile (already in flight if it is the
+    // speculative one; else that copy lands before stage 0 is reused),
+    // stage i the (i+1)-th: one copy group a tile, the next ones in
+    // flight while a tile is computed
+    if (k0 == 0 && (iss & 1u)) {
+      pop(iss);
+    } else {
+      if (k0 == 0) cp_wait<0>();
+      if (iss) issue(tile(pop(iss)), 0);
+      cp_commit();
     }
-    __syncthreads();
-    softmax_tile(ps, m_s, l_s, a_s);
-    __syncthreads();
-
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-      if (i < nr) {
-        const float al = a_s[rg0 + i * RG];
+    for (int st = 1; st < F32_STAGES; ++st) {
+      if (iss) issue(tile(pop(iss)), st);
+      cp_commit();
+    }
+    for (int it = 0; it < n; ++it) {
+      cp_wait<F32_STAGES - 1>();
+      __syncthreads();
+      if (active) {
+        const float* ks = kv_s + (it % F32_STAGES) * L::STAGE;
+        const float* vs = ks + KT * STR;
+        const int kk = pop(cmp);
+        const int* cpt = cp_s + kk * KT;
+        const int nb = live_s[kk];  // 16-slot blocks to compute
+        // ---- S = Q K^T: a k-step is a float4 of each of the lane's 4
+        // rows and SPL slots, 16 SPL fused multiply-adds
+        float sc[4][SPL];
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[c][i] *= al;
-      }
-    for (int j = 0; j < TILE; j += 4) {
-      float4 vv[CPT];
+        for (int e = 0; e < 4; ++e)
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float* vc = vs + j * hd + d_own + c * THREADS;
-        vv[c] = make_float4(vc[0], vc[hd], vc[2 * hd], vc[3 * hd]);
-      }
+          for (int j = 0; j < SPL; ++j) sc[e][j] = 0.f;
+        const float* qa = q_s + (8 * warp + rg) * STR;
+        const float* kb = ks + sg * STR;
+        // one k-step over the first NB 16-slot blocks
+        const auto kstep = [&](int c, int NB) {
+          float4 a[4];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        if (i < nr) {
-          const float4 p4 =
-              *reinterpret_cast<const float4*>(ps + (rg0 + i * RG) * PST + j);
+          for (int e = 0; e < 4; ++e) a[e] = lds4(qa + 2 * e * STR + c);
 #pragma unroll
-          for (int c = 0; c < CPT; ++c) {
-            float a = acc[c][i];
-            a = fmaf(p4.x, vv[c].x, a);
-            a = fmaf(p4.y, vv[c].y, a);
-            a = fmaf(p4.z, vv[c].z, a);
-            a = fmaf(p4.w, vv[c].w, a);
-            acc[c][i] = a;
+          for (int j = 0; j < SPL; ++j) {
+            if (j >= NB) break;
+            const float4 x = lds4(kb + 16 * j * STR + c);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sc[e][j] = fmaf(a[e].x, x.x, sc[e][j]);
+              sc[e][j] = fmaf(a[e].y, x.y, sc[e][j]);
+              sc[e][j] = fmaf(a[e].z, x.z, sc[e][j]);
+              sc[e][j] = fmaf(a[e].w, x.w, sc[e][j]);
+            }
           }
+        };
+        if (nb == SPL) {  // a whole tile: unrolled, no test
+#pragma unroll
+          for (int c = 0; c < HD; c += 4) kstep(c, SPL);
+        } else {
+#pragma unroll 2
+          for (int c = 0; c < HD; c += 4) kstep(c, nb);
+        }
+        // ---- online softmax in registers, base 2; a row's max and sum
+        // over its 16 lanes by shuffles. A row with nothing visible yet
+        // keeps an empty state (reference point 0: ex2(-1e30) = 0); a
+        // tile a row cannot see leaves its state bit for bit as it was
+        float al[4];
+        bool one = true;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float mx = NEG;
+#pragma unroll
+          for (int j = 0; j < SPL; ++j) {
+            const int cp = cpt[sg + 16 * j];
+            const float s = sh.softcap > 0.f
+                                ? tanhf(sc[e][j] * inv_cap) * cap_l2
+                                : sc[e][j] * sl2;
+            sc[e][j] = cp >= lo[e] && cp <= hi[e] ? s : NEG;
+            mx = fmaxf(mx, sc[e][j]);
+          }
+          const float mn = fmaxf(m[e], max16(mx));
+          const float ref = mn > NEG ? mn : 0.f;
+          al[e] = ex2(m[e] - ref);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < SPL; ++j) {
+            sc[e][j] = ex2(sc[e][j] - ref);
+            sum += sc[e][j];
+          }
+          l[e] = al[e] * l[e] + sum16(sum);
+          m[e] = mn;
+          one = one && al[e] == 1.f;
+        }
+        // a rescale by exactly 1 changes nothing: skipped
+        if (!__all_sync(0xffffffffu, one)) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int i = 0; i < CPL; ++i) acc[e][i] *= al[e];
+        }
+        // ---- acc += P V: P through the warp's own tile (slot-major, a
+        // float4 of the lane's 4 rows), V in float4 (float2 at hd 32) of
+        // the lane's columns a k-step
+        float* pw = p_s + warp * L::PW + 4 * rg;
+#pragma unroll
+        for (int j = 0; j < SPL; ++j)
+          *reinterpret_cast<float4*>(pw + (sg + 16 * j) * 8) =
+              make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+        __syncwarp();
+#pragma unroll 4
+        for (int s = 0; s < 16 * nb; ++s) {
+          const float4 p4 = lds4(pw + s * 8);
+          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+          const float* vr = vs + s * STR;
+          float x[CPL];
+          if constexpr (CPL == 2) {
+            const float2 t = *reinterpret_cast<const float2*>(vr + 2 * sg);
+            x[0] = t.x;
+            x[1] = t.y;
+          } else {
+#pragma unroll
+            for (int i = 0; i < CPL / 4; ++i) {
+              const float4 t = lds4(vr + 4 * sg + 64 * i);
+              x[4 * i] = t.x;
+              x[4 * i + 1] = t.y;
+              x[4 * i + 2] = t.z;
+              x[4 * i + 3] = t.w;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int i = 0; i < CPL; ++i)
+              acc[e][i] = fmaf(p[e], x[i], acc[e][i]);
         }
       }
+      __syncthreads();  // the stage is free
+      if (iss) issue(tile(pop(iss)), it % F32_STAGES);
+      cp_commit();
     }
-    __syncthreads();
   }
+  cp_wait<0>();
 
+  // the combine grid may start launching (it waits for this grid's end)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // ---- epilogue: the output (one split) or this split's partial, m in
+  // log2 units; an empty partial (m = -1e30, l = 0) writes no acc ----
+  if (!active) return;
+  const size_t n_part_rows = (size_t)gridDim.x / row_blocks * sh.n_split * TG;
+  const int col0 = CPL == 2 ? 2 * sg : 4 * sg;
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    if (i >= nr) continue;
-    const int r = rg0 + i * RG;
-    const int row = r0 + r;
+  for (int e = 0; e < 4; ++e) {
+    const int row = ra + 2 * e;
     if (row >= TG) continue;
-    const int tq = row / G, gq = row % G;
-    const float l = fmaxf(l_s[r], 1e-20f);
-    float* orow = out + (((size_t)b * sh.Tq + tq) * sh.Hq + h * G + gq) * hd;
+    const size_t pr =
+        (((size_t)b * sh.Hkv + h) * sh.n_split + split) * TG + row;
+    const bool whole = sh.n_split == 1;
+    if (!whole && m[e] <= NEG) {
+      if (sg == 0) {
+        part[n_part_rows * HD + 2 * pr] = m[e];
+        part[n_part_rows * HD + 2 * pr + 1] = l[e];
+      }
+      continue;
+    }
+    const float lc = whole ? fmaxf(l[e], 1e-20f) : 1.f;
+    float* orow = whole ? out + (((size_t)b * sh.Tq + row / G) * sh.Hq +
+                                 h * G + row % G) * HD + col0
+                        : part + pr * HD + col0;
+    if constexpr (CPL == 2) {
+      *reinterpret_cast<float2*>(orow) =
+          whole ? make_float2(acc[e][0] / lc, acc[e][1] / lc)
+                : make_float2(acc[e][0], acc[e][1]);
+    } else {
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) orow[d_own + c * THREADS] = acc[c][i] / l;
+      for (int i = 0; i < CPL / 4; ++i)
+        *reinterpret_cast<float4*>(orow + 64 * i) =
+            whole ? make_float4(acc[e][4 * i] / lc, acc[e][4 * i + 1] / lc,
+                                acc[e][4 * i + 2] / lc,
+                                acc[e][4 * i + 3] / lc)
+                  : make_float4(acc[e][4 * i], acc[e][4 * i + 1],
+                                acc[e][4 * i + 2], acc[e][4 * i + 3]);
+    }
+    if (!whole && sg == 0) {
+      part[n_part_rows * HD + 2 * pr] = m[e];
+      part[n_part_rows * HD + 2 * pr + 1] = l[e];
+    }
   }
 }
 
-size_t tail_bytes() {  // ps, m/l/alpha, query and slot positions
-  return 4 * ((size_t)ROWS * PST + 3 * ROWS) + 4 * (ROWS + TILE);
-}
+// The float32 kernel's merge, into float32: as spec_verify_combine_kernel
+// (the same sums in split order), with a thread's loads of F32_MERGE
+// partials issued before their use. Launched as the main grid's
+// programmatic dependent: its launch overlaps that grid's tail, and
+// griddepcontrol.wait holds it until the partials are written.
+constexpr int F32_MERGE = 8;
 
-template <typename K, typename T>
-int launch(K kernel, size_t smem, const void* q, const void* k, const void* v,
-           const void* cpos, const void* pos, void* out, int B, const Shape& sh,
-           void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int TG = sh.Tq * (sh.Hq / sh.Hkv);
-  dim3 grid(sh.Hkv, (TG + ROWS - 1) / ROWS, B);
-  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)cpos,
-      (const int*)pos, (T*)out, sh);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(CB_THREADS)
+spec_verify_f32_combine_kernel(const float* __restrict__ part,
+                               float* __restrict__ out, TcShape sh,
+                               int n_rows) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int G = sh.Hq / sh.Hkv, TG = sh.Tq * G;
+  const int tpr = sh.hd / 4;
+  const int r = blockIdx.x * (CB_THREADS / tpr) + threadIdx.x / tpr;
+  if (r >= n_rows) return;
+  const int col = (threadIdx.x % tpr) * 4;
+  const int row = r % TG, bh = r / TG;
+  const int h = bh % sh.Hkv, b = bh / sh.Hkv;
+  const size_t p0 = (size_t)bh * sh.n_split * TG + row;  // split 0's row
+  const float2* ml = reinterpret_cast<const float2*>(
+      part + (size_t)n_rows * sh.n_split * sh.hd);
+  // the first F32_MERGE partials' loads all at once; M over every m_i
+  float2 mi[F32_MERGE];
+  float4 x[F32_MERGE];
+  const auto load = [&](int i0) {
+#pragma unroll
+    for (int i = 0; i < F32_MERGE; ++i) {
+      if (i0 + i >= sh.n_split) break;
+      const size_t pr = p0 + (size_t)(i0 + i) * TG;
+      mi[i] = ml[pr];
+      x[i] = *reinterpret_cast<const float4*>(part + pr * sh.hd + col);
+    }
+  };
+  load(0);
+  float M = NEG;
+#pragma unroll
+  for (int i = 0; i < F32_MERGE; ++i)
+    if (i < sh.n_split) M = fmaxf(M, mi[i].x);
+  for (int i = F32_MERGE; i < sh.n_split; ++i)
+    M = fmaxf(M, ml[p0 + (size_t)i * TG].x);
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  float l = 0.f;
+  for (int i0 = 0; i0 < sh.n_split; i0 += F32_MERGE) {
+    if (i0 > 0) load(i0);
+#pragma unroll
+    for (int i = 0; i < F32_MERGE; ++i) {
+      if (i0 + i >= sh.n_split) break;
+      if (mi[i].x <= NEG) continue;  // empty: its acc not read
+      const float w = ex2(mi[i].x - M);
+      l += w * mi[i].y;
+      a.x += w * x[i].x;
+      a.y += w * x[i].y;
+      a.z += w * x[i].z;
+      a.w += w * x[i].w;
+    }
+  }
+  l = fmaxf(l, 1e-20f);
+  *reinterpret_cast<float4*>(
+      out + (((size_t)b * sh.Tq + row / G) * sh.Hq + h * G + row % G) *
+                sh.hd + col) = make_float4(a.x / l, a.y / l, a.z / l, a.w / l);
 }
 
 // ---- host side of the bfloat16 kernel ---------------------------------------
@@ -1031,21 +1264,79 @@ int launch_tc(const void* q, const void* k, const void* v, const void* cpos,
   return (int)cudaGetLastError();
 }
 
+int f32_max_warps(int hd) {
+  return hd == 256   ? f32_maxw<256, 32>()
+         : hd == 128 ? f32_maxw<128, 64>()
+         : hd == 64  ? f32_maxw<64, 64>()
+                     : f32_maxw<32, 64>();
+}
+
+template <int HD, int KT>
+int launch_f32(const void* q, const void* k, const void* v, const void* cpos,
+               const void* pos, void* out, void* part, int B,
+               const TcShape& sh, int warps, int row_blocks, void* stream) {
+  const auto kernel = spec_verify_f32_kernel<HD, KT>;
+  const size_t smem = F32Cfg<HD, KT>::bytes(warps);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(row_blocks * sh.Hkv * B, sh.n_split);
+  kernel<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)cpos,
+      (const int*)pos, (float*)out, (float*)part, sh);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || sh.n_split == 1) return (int)e;
+  const int n_rows = B * sh.Hkv * sh.Tq * (sh.Hq / sh.Hkv);
+  const int rows_per_block = CB_THREADS / (HD / 4);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_rows + rows_per_block - 1) / rows_per_block);
+  cfg.blockDim = dim3(CB_THREADS);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, spec_verify_f32_combine_kernel,
+                                 (const float*)part, (float*)out, sh,
+                                 n_rows);
+}
+
 }  // namespace
 
+// tile, n_split and tiles_per_split are the plan of
+// kernels/spec_verify/ops.py:f32_split_plan (fixed by S+1, hd and the SM
+// count); warps (8 query rows each) and row_blocks cut a kv head's T*G
+// rows into CTAs; part as for the bfloat16 entry.
 extern "C" int spec_verify_attention_f32(
     const void* q, const void* k, const void* v, const void* cpos,
-    const void* pos, void* out, int B, int Tq, int Hq, int Hkv, int S1,
-    int hd, int window, float softcap, float scale, void* stream) {
-  const Shape sh{Tq, Hq, Hkv, S1, hd, window, softcap, scale};
-  const size_t smem = 4 * ((size_t)ROWS * (hd + 4) + (size_t)TILE * (hd + 4) +
-                           (size_t)TILE * hd) + tail_bytes();
-  if (hd > THREADS)
-    return launch<decltype(&spec_verify_f32_kernel<2>), float>(
-        spec_verify_f32_kernel<2>, smem, q, k, v, cpos, pos, out, B, sh,
-        stream);
-  return launch<decltype(&spec_verify_f32_kernel<1>), float>(
-      spec_verify_f32_kernel<1>, smem, q, k, v, cpos, pos, out, B, sh, stream);
+    const void* pos, void* out, void* part, int B, int Tq, int Hq, int Hkv,
+    int S1, int hd, int window, float softcap, float scale, int tile,
+    int n_split, int tiles_per_split, int warps, int row_blocks,
+    void* stream) {
+  const TcShape sh{Tq, Hq, Hkv, S1, hd, window, softcap, scale, n_split};
+  const int kt = hd > 128 ? 32 : 64;
+  const int n_tiles = (S1 + kt - 1) / kt;
+  const long long TG = (long long)Tq * (Hq / Hkv), rows = 8LL * warps;
+  if (tile != kt || n_split < 1 || n_split > (n_tiles > 1 ? n_tiles : 1) ||
+      tiles_per_split != (n_tiles + n_split - 1) / n_split || warps < 1 ||
+      warps > f32_max_warps(hd) || row_blocks < 1 ||
+      row_blocks * rows < TG || (row_blocks - 1) * rows >= TG ||
+      (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (hd == 256)
+    return launch_f32<256, 32>(q, k, v, cpos, pos, out, part, B, sh, warps,
+                               row_blocks, stream);
+  if (hd == 128)
+    return launch_f32<128, 64>(q, k, v, cpos, pos, out, part, B, sh, warps,
+                               row_blocks, stream);
+  if (hd == 64)
+    return launch_f32<64, 64>(q, k, v, cpos, pos, out, part, B, sh, warps,
+                              row_blocks, stream);
+  if (hd == 32)
+    return launch_f32<32, 64>(q, k, v, cpos, pos, out, part, B, sh, warps,
+                              row_blocks, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // tile, n_split and tiles_per_split are the plan of

@@ -9,10 +9,22 @@ Unlike the TPU wrapper it pads nothing: the kernel reads queries in the
 model's ``(B, T, Hq, hd)`` layout and regroups them per kv head itself
 (rows ``t*G + g``), and masks the ragged end of the cache.
 
-The bfloat16 kernel splits the ring's tiles among CTAs (split-KV); the
-plan comes from shapes alone (``split_plan``), so a row's output never
-depends on what the cache holds elsewhere, and the wrapper reads no
-tensor value on the host.
+Both kernels split the ring's tiles among CTAs (split-KV), and a combine
+kernel merges a row's partials in split order; the plans come from
+shapes alone, so a row's output never depends on what the cache holds
+elsewhere, and the wrapper reads no tensor value on the host. The
+bfloat16 plan (``split_plan``) also counts the batch's streams. The
+float32 plan (``f32_split_plan``) fixes the split by S+1, hd and the SM
+count alone, so a row's float32 output does not depend on B, T or the
+other rows either, bit for bit (float32 is the exact gate of resumes
+and re-sliced batches); only the cut of rows into CTAs, which no row's
+arithmetic depends on, follows B and T. The float32 kernel runs on CUDA
+cores in full float32 (fused multiply-adds, no TF32): a CTA holds up to
+96 query rows of one kv head (8 a warp) and streams its split's live
+K/V tiles once by 16-byte ``cp.async`` into a two-stage ring, with
+register-tiled products (a lane: 4 rows x 4 slots of scores, 4 rows x
+hd/16 output columns) and the online softmax on the score registers;
+its combine is launched as a programmatic dependent of the main grid.
 """
 
 from __future__ import annotations
@@ -33,10 +45,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "spec_verify_attention_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _F, _F, _P),
-    # ... the partials' scratch after out; the plan (tile, n_split,
-    # tiles_per_split) before the stream
+    # q, k, v, cache_pos, positions, out, the partials' scratch; B, T, Hq,
+    # Hkv, S+1, hd, window; softcap, scale; the plan (tile, n_split,
+    # tiles_per_split), for float32 also the rows' cut (warps,
+    # row_blocks); the stream
+    "spec_verify_attention_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _F, _F, _I, _I, _I, _I, _I,
+                                  _P),
     "spec_verify_attention_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _I, _F, _F, _I, _I, _I, _P),
 }
@@ -112,6 +127,36 @@ def split_plan(B: int, T: int, Hq: int, Hkv: int, S1: int, hd: int,
                      tiles_per_split=-(-n_tiles // n))
 
 
+# The float32 kernel's geometry (csrc/spec_verify.cu, F32Cfg): the most
+# warps (8 query rows each) a CTA has, by head dim (what its shared memory
+# and registers allow); the least slots a split owns.
+F32_WARPS_MAX = {32: 12, 64: 12, 128: 12, 256: 8}
+F32_SPLIT_SLOTS = 128
+
+
+def f32_split_plan(B: int, T: int, Hq: int, Hkv: int, S1: int, hd: int,
+                   n_sm: int) -> SplitPlan:
+    """The float32 kernel's plan. The split (tiles of 64 slots, 32 at hd
+    256; ``n_split`` splits of at least ``F32_SPLIT_SLOTS`` slots, at most
+    one a SM) comes from (S+1, hd, n_sm) alone: a row's float32 output
+    does not depend on the batch. A kv head's T*G rows are cut into
+    ``row_blocks`` CTAs of ``cta_rows`` (whole warps of 8 rows, at most
+    ``F32_WARPS_MAX[hd]`` warps): enough blocks that the (batch, kv head,
+    split, block) CTAs cover the ``n_sm`` SMs once, where the rows
+    allow."""
+    tile = 32 if hd > 128 else 64
+    n_tiles = -(-S1 // tile)
+    n_split = max(1, min(-(-n_tiles * tile // F32_SPLIT_SLOTS), n_sm))
+    warp_rows = -(-T * (Hq // Hkv) // 8)
+    streams = B * Hkv * n_split
+    blocks = max(-(-warp_rows // F32_WARPS_MAX[hd]),
+                 min(warp_rows, -(-n_sm // streams)))
+    warps = -(-warp_rows // blocks)
+    return SplitPlan(tile=tile, n_tiles=n_tiles, cta_rows=8 * warps,
+                     row_blocks=-(-warp_rows // warps), n_split=n_split,
+                     tiles_per_split=-(-n_tiles // n_split))
+
+
 _SMS: Dict[int, int] = {}
 
 
@@ -166,16 +211,16 @@ def spec_verify_attention_cuda(q, k, v, cache_pos, positions, *,
             positions.data_ptr(), out.data_ptr())
     shape = (B, T, Hq, Hkv, S, hd, int(window), float(softcap),
              float(1.0 / hd ** 0.5))
-    stream = _build.cuda_stream_ptr(q.device)
-    if q.dtype == torch.bfloat16:
-        plan = split_plan(B, T, Hq, Hkv, S, hd, _sm_count(q.device))
-        part = torch.empty(plan.partial_floats(B, Hkv, T * (Hq // Hkv), hd),
-                           dtype=torch.float32, device=q.device)
-        err = lib.spec_verify_attention_bf16(
-            *ptrs, part.data_ptr() or None, *shape, plan.tile, plan.n_split,
-            plan.tiles_per_split, stream)
-    else:
-        err = lib.spec_verify_attention_f32(*ptrs, *shape, stream)
+    bf16 = q.dtype == torch.bfloat16
+    n_sm = _sm_count(q.device)
+    plan = (split_plan if bf16 else f32_split_plan)(B, T, Hq, Hkv, S, hd,
+                                                    n_sm)
+    part = torch.empty(plan.partial_floats(B, Hkv, T * (Hq // Hkv), hd),
+                       dtype=torch.float32, device=q.device)
+    cut = () if bf16 else (plan.cta_rows // 8, plan.row_blocks)
+    err = getattr(lib, _ENTRY[q.dtype])(
+        *ptrs, part.data_ptr() or None, *shape, plan.tile, plan.n_split,
+        plan.tiles_per_split, *cut, _build.cuda_stream_ptr(q.device))
     _build.check(err, "spec_verify_attention launch")
     LAUNCHES += 1
     return out

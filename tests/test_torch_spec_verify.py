@@ -4,8 +4,12 @@ parametrised cases of tests/test_kernels.py (GQA, MQA, window, softcap,
 float32 and bfloat16), and at RecurrentGemma's head_dim 256 with 16-way
 MQA and a window. Tolerances as there: atol 3e-5 (float32) / 3e-2
 (bfloat16), rtol 1e-2 — the summation order and the bfloat16 rounding
-points differ between the frameworks. The CUDA kernel is held against
-the plain version in the ``gpu`` test (and in ``chip_smoke.py``).
+points differ between the frameworks. Both kernels' split plans are held
+to covering every slot once, the float32 one also to not moving with the
+batch, and partials merged in a plan's split order to the unsplit plain
+version and the JAX kernel. The CUDA kernels are held against the plain
+version in the ``gpu`` tests (and in ``chip_smoke.py``), the float32
+kernel also to its batch invariance, bit for bit.
 """
 
 import jax.numpy as jnp
@@ -162,6 +166,44 @@ def test_split_plan_partials_stay_below_the_kv_bytes(B, T, Hq, Hkv, S1, hd):
     assert part_bytes <= kv_bytes / 2
 
 
+# the float32 kernel's plan at PLAN_SHAPES and Qwen2-1.5B's float32 shape
+# in 10c (B 4, T 17, 12/2 heads, S+1 129)
+F32_PLAN_SHAPES = PLAN_SHAPES + [(4, 17, 12, 2, 129, 128)]
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,S1,hd", F32_PLAN_SHAPES)
+def test_f32_split_plan_covers_every_slot_once_whatever_the_batch(
+        B, T, Hq, Hkv, S1, hd):
+    plan = sv_ops.f32_split_plan(B, T, Hq, Hkv, S1, hd, n_sm=132)
+    assert plan.tile == (32 if hd > 128 else 64)
+    assert plan.n_tiles * plan.tile >= S1 > (plan.n_tiles - 1) * plan.tile
+    assert 1 <= plan.n_split <= min(plan.n_tiles, 132)
+    assert plan.tiles_per_split == -(-plan.n_tiles // plan.n_split)
+    # the split is fixed by S+1, hd and the SM count: the same for any B
+    # and T (a row's float32 output does not depend on the batch)
+    split = (plan.tile, plan.n_tiles, plan.n_split, plan.tiles_per_split)
+    for b in (1, 4, 8):
+        for t in (1, 17):
+            other = sv_ops.f32_split_plan(b, t, Hq, Hkv, S1, hd, n_sm=132)
+            assert (other.tile, other.n_tiles, other.n_split,
+                    other.tiles_per_split) == split
+            # the rows' cut follows the batch: whole warps of 8 rows, every
+            # row once
+            rows = other.row_ranges(t * (Hq // Hkv))
+            assert other.cta_rows % 8 == 0
+            assert other.cta_rows <= 8 * sv_ops.F32_WARPS_MAX[hd]
+            assert rows[0][0] == 0 and rows[-1][1] == t * (Hq // Hkv)
+            assert all(r[1] == n[0] for r, n in zip(rows, rows[1:]))
+    # every slot belongs to exactly one split
+    cover = np.zeros(S1, np.uint8)
+    for j in range(plan.n_split):
+        owned = plan.split_slots(j, S1)
+        assert 0 < len(owned) <= plan.tiles_per_split
+        for lo, hi in owned:
+            cover[lo:hi] += 1
+    assert (cover == 1).all()
+
+
 def _plain_partials(q, k, v, cpos, pos, slots, window, softcap):
     """What one split's CTA writes, in plain float32: per (b, kv head, g,
     t) row over the ring slots ``slots`` (an index array), m (NEG where
@@ -218,16 +260,38 @@ def _ring_inputs(B, T, Hq, Hkv, hd, S1, lengths_range, seed):
     return q, k, v, cpos, positions
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# whether some split is empty for every row under the float32 kernel's
+# plan (f32_split_plan), case by case
+MERGE_F32_PLAN_EMPTY = [True, False, False, False, True]
+
+
+def _merge_params():
+    """MERGE_CASES in both types under the bfloat16 kernel's plan
+    (``split_plan``), and in float32 under the float32 kernel's
+    (``f32_split_plan``)."""
+    out = []
+    for i, case in enumerate(MERGE_CASES):
+        head = "-".join(map(str, case[:8])) + f"-lengths{i}"
+        for dtype in ("float32", "bfloat16"):
+            out.append(pytest.param(*case, dtype, "split_plan",
+                                    id=f"{head}-{case[9]}-{dtype}"))
+        empty = MERGE_F32_PLAN_EMPTY[i]
+        out.append(pytest.param(*case[:9], empty, "float32", "f32_split_plan",
+                                id=f"{head}-{empty}-float32-f32_split_plan"))
+    return out
+
+
 @pytest.mark.parametrize(
-    "B,T,Hq,Hkv,hd,S1,window,softcap,lengths,empty_split", MERGE_CASES)
+    "B,T,Hq,Hkv,hd,S1,window,softcap,lengths,empty_split,dtype,plan_of",
+    _merge_params())
 def test_merged_split_partials_equal_unsplit_plain_and_jax(
-        B, T, Hq, Hkv, hd, S1, window, softcap, lengths, empty_split, dtype):
+        B, T, Hq, Hkv, hd, S1, window, softcap, lengths, empty_split, dtype,
+        plan_of):
     from repro_torch.kernels.spec_verify.ref import NEG, combine_partials_ref
 
     arrs = _ring_inputs(B, T, Hq, Hkv, hd, S1, lengths, seed=B + hd)
     targs = [_torch(a, dtype) for a in arrs]
-    plan = sv_ops.split_plan(B, T, Hq, Hkv, S1, hd, n_sm=132)
+    plan = getattr(sv_ops, plan_of)(B, T, Hq, Hkv, S1, hd, n_sm=132)
     assert plan.n_split > 1
     parts = [_plain_partials(*targs, torch.cat([torch.arange(lo, hi) for lo, hi
                                                 in plan.split_slots(j, S1)]),
@@ -253,26 +317,42 @@ def test_merged_split_partials_equal_unsplit_plain_and_jax(
     np.testing.assert_allclose(unsplit, want_kernel, **_tol(dtype))
 
 
-# bf16 edge cases of the split kernel, on the card: (B, T, Hq, Hkv, hd,
-# S+1, window, softcap, cache lengths [lo, hi)); queries blinded as in
+# edge cases of the split kernels, on the card: (B, T, Hq, Hkv, hd, S+1,
+# window, softcap, cache lengths [lo, hi), dtype); queries blinded as in
 # _ring_inputs
 EDGE_CASES = [
-    (8, 1, 32, 8, 128, 577, 0, 0.0, (128, 560)),        # T = 1
-    (4, 5, 8, 2, 128, 300, 0, 0.0, (20, 290)),          # a row sees nothing
-    (8, 17, 16, 1, 256, 2113, 2048, 0.0, (1, 12)),      # one live split
-    (2, 9, 8, 2, 64, 257, 0, 0.0, (1, 240)),            # hd 64
-    (2, 17, 8, 4, 128, 513, 0, 30.0, (1, 490)),         # softcap
+    (8, 1, 32, 8, 128, 577, 0, 0.0, (128, 560), "bfloat16"),      # T = 1
+    (4, 5, 8, 2, 128, 300, 0, 0.0, (20, 290), "bfloat16"),  # a row sees nothing
+    (8, 17, 16, 1, 256, 2113, 2048, 0.0, (1, 12), "bfloat16"),  # one live split
+    (2, 9, 8, 2, 64, 257, 0, 0.0, (1, 240), "bfloat16"),          # hd 64
+    (2, 17, 8, 4, 128, 513, 0, 30.0, (1, 490), "bfloat16"),       # softcap
+    (8, 1, 32, 8, 128, 577, 0, 0.0, (128, 560), "float32"),       # T = 1
+    (4, 5, 8, 2, 128, 300, 0, 0.0, (20, 290), "float32"),   # a row sees nothing
+    (2, 2, 16, 1, 32, 70, 0, 0.0, (1, 60), "float32"),            # hd 32, G 16
+    (2, 9, 8, 2, 64, 257, 0, 0.0, (1, 240), "float32"),           # hd 64
+    (2, 5, 16, 1, 256, 300, 160, 0.0, (100, 290), "float32"),     # hd 256, window
+    (8, 17, 16, 1, 256, 2113, 2048, 0.0, (1, 12), "float32"),     # one live split
+    (2, 4, 12, 2, 64, 300, 100, 0.0, (1, 290), "float32"),        # G = 6
+    (2, 17, 16, 1, 128, 577, 0, 0.0, (100, 560), "float32"),      # G = 16
+    (2, 17, 8, 4, 128, 513, 0, 30.0, (1, 490), "float32"),        # softcap
+    (1, 17, 32, 8, 128, 20000, 0, 0.0, (15000, 19980), "float32"),  # long ring
+    (8, 17, 32, 8, 128, 577, 0, 0.0, (128, 513), "float32"),      # 10b's shape
+    (4, 17, 12, 2, 128, 129, 0, 0.0, (8, 80), "float32"),         # 10c's shape
 ]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,T,Hq,Hkv,hd,S1,window,softcap,lengths",
-                         EDGE_CASES)
-def test_cuda_kernel_edge_cases_match_plain(B, T, Hq, Hkv, hd, S1, window,
-                                            softcap, lengths):
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    targs = [_torch(a, "bfloat16").cuda() for a in
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,Hq,Hkv,hd,S1,window,softcap,lengths,dtype",
+                         EDGE_CASES)
+def test_cuda_kernel_edge_cases_match_plain(B, T, Hq, Hkv, hd, S1, window,
+                                            softcap, lengths, dtype):
+    _card()
+    targs = [_torch(a, dtype).cuda() for a in
              _ring_inputs(B, T, Hq, Hkv, hd, S1, lengths, seed=7)]
     got = sv_ops.spec_verify_attention_cuda(*targs, window=window,
                                             softcap=softcap)
@@ -280,4 +360,35 @@ def test_cuda_kernel_edge_cases_match_plain(B, T, Hq, Hkv, hd, S1, window,
     torch.cuda.synchronize()
     assert (got[1, 0] == 0).all()
     np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), **_tol("bfloat16"))
+                               want.float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,Hq,Hkv,hd,S1,lengths", [
+    (8, 17, 32, 8, 128, 577, (128, 513)),   # 10b's shape
+    (4, 17, 12, 2, 128, 129, (8, 80)),      # 10c's shape
+])
+def test_cuda_f32_kernel_is_batch_invariant(B, T, Hq, Hkv, hd, S1, lengths):
+    """Bit for bit: a launch equals the same rows launched as two half
+    batches and as T = 1 launches of each query, and a row's output is
+    unchanged when the other rows' queries and positions are redrawn."""
+    _card()
+    q, k, v, cpos, pos = [_torch(a, "float32").cuda() for a in
+                          _ring_inputs(B, T, Hq, Hkv, hd, S1, lengths,
+                                       seed=11)]
+    run = sv_ops.spec_verify_attention_cuda
+    full = run(q, k, v, cpos, pos)
+    h = B // 2
+    halves = torch.cat([run(q[:h], k[:h], v[:h], cpos[:h], pos[:h]),
+                        run(q[h:], k[h:], v[h:], cpos[h:], pos[h:])])
+    singles = torch.cat([run(q[:, t:t + 1].contiguous(), k, v, cpos,
+                             pos[:, t:t + 1].contiguous())
+                         for t in range(T)], dim=1)
+    q2, pos2 = q.clone(), pos.clone()
+    q2[:, 1:] = torch.randn_like(q2[:, 1:])
+    pos2[:, 1:] = pos[:, 1:].flip(1) - 7
+    redrawn = run(q2, k, v, cpos, pos2)
+    torch.cuda.synchronize()
+    assert torch.equal(full, halves)
+    assert torch.equal(full, singles)
+    assert torch.equal(full[:, 0], redrawn[:, 0])
