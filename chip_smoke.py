@@ -25,7 +25,12 @@ non-zero; no phase's error is caught):
    slots), its batch invariance bit for bit at 10b's shape (a B-8 launch
    against two B-4 launches and 17 T-1 launches; a row against redrawn
    other rows) and its timing at 10b's and 10c's shapes (path fill and a
-   full ring: kernel, plain, SDPA, bound, plan and ptxas report);
+   full ring: kernel, plain, SDPA, bound, plan and ptxas report); the
+   bf16 kernel at phase 11's head layouts that no earlier path runs (B
+   8, T 17, hd 128, phase 11's ring of 385 slots at its fill and full):
+   ChatGLM3's 32/2 heads (G = 16: 272 query rows a kv head, three
+   128-row CTAs), Command R+'s 96/8 (G = 12) and Arctic's 56/8 (G = 7),
+   each with its plan, error and kernel / plain / SDPA / bound times;
    suffix-match flat and chunked (a warp a row, 33-way edge
    search from staged splitters) bit-identical, the chunked kernel also
    against the flat one over the same trees, at a forest larger than
@@ -71,10 +76,11 @@ non-zero; no phase's error is caught):
    hybrid model) and the training CLI (``--smoke``, Qwen2-1.5B and the
    hybrid), last of all, started at once with 10d's;
 7. RecurrentGemma-9B at full width (the Qwen3-8B weights freed first):
-   phase 4's lock-step traffic and phase 5's continuous traffic (chunked
-   forest only), gated as there, with one RG-LRU launch per recurrent
-   layer per forward and plain greedy's forwards run on the plain scan,
-   and the lock-step traffic again with R = 4 as in phase 4;
+   phase 4's lock-step traffic, and again with R = 4 as in phase 4, then
+   on its first 14 layers (``HYBRID_SERVE_LAYERS``) phase 5's continuous
+   traffic (chunked forest only), gated as there, with one RG-LRU launch
+   per recurrent layer per forward and plain greedy's forwards run on
+   the plain scan;
    then (phases 8 and 9, below) the RL loops; then the small float32 variants
    of Qwen3-8B and RecurrentGemma-9B: lock-step and continuous (chunked)
    output against plain greedy decoding without cache or kernels;
@@ -110,8 +116,8 @@ non-zero; no phase's error is caught):
        fresh trainer resumes with cursor 2 and the drafter's rollouts,
        and its steps 3-4 equal the uninterrupted run's token for token
        (the sidecar carries the generator's state) with equal losses;
-9. RecurrentGemma-9B training at its published widths, depth cut to 6
-   layers (two (rglru, rglru, local_attn) triples, 2.23 B parameters:
+9. RecurrentGemma-9B training at its published widths, depth cut to 3
+   layers (one (rglru, rglru, local_attn) triple, 1.64 B parameters:
    all 38 layers' weights, gradients and moments would take ~102 GB):
    9a. the RG-LRU scan's backward kernel: its ptxas report and its
        resident CTAs a SM at the training shape (the occupancy query;
@@ -149,9 +155,11 @@ non-zero; no phase's error is caught):
        Twice: in bf16 against phase 5's epoch 1, every journaled prefix
        equal to it and every resumed token within 0.25 logit of plain
        greedy's top (the shortfalls where an output departs from phase
-       5's logged), then on the same weights upcast to float32 against
-       an uninterrupted float32 run, every prefix and output equal;
-   10c. (after phase 8) ``Trainer.run`` on Qwen2-1.5B with two workers
+       5's logged), then on the same weights cut to their first 12
+       layers (``F32_RESUME_LAYERS``) and upcast to float32 against an
+       uninterrupted float32 run, every prefix and output equal;
+   10c. (after phase 8) ``Trainer.run`` on Qwen2-1.5B, its first 14 of
+       28 layers (``MULTIWORKER_LAYERS``), with two workers
        over the in-process sharded history service, ``fault_tolerant``,
        journals and the flight recorder at T = 0 on 8e's task: a shard
        killed after its second publish (the supervisor restarts it),
@@ -170,7 +178,33 @@ non-zero; no phase's error is caught):
    10d. (with phase 6) the serving CLI with ``--continuous
        --history-service --workers 2 --supervise --journal-dir D
        --trace-out D/trace.json``: exit 0, a valid trace, only finished
-       journal sessions.
+       journal sessions;
+11. the remaining decoder families at their published widths (random
+   bf16 weights from seed 0, one model on the card at a time), depth cut
+   only where the model does not fit one card (``FAMILY_CASES``): 11a
+   Yi-9B (48 layers), 11b ChatGLM3-6B (28; partial RoPE, QKV bias), 11c
+   Command R+ (16 of 64; parallel blocks, LayerNorm, tied embeddings,
+   vocab 256,000), 11d Qwen2-VL-2B's backbone (28; M-RoPE), 11e
+   Mixtral-8x7B (16 of 32; 8 experts, top 2, window 4096), 11f
+   Arctic-480B (2 of 35; 128 experts and a dense residual MLP). Each runs
+   phase 4's lock-step traffic with limits of 32 and 64 new tokens (and
+   Mixtral also 16 requests over 8 problems in 8 slots through
+   ``SpecEngine.serve``, chunked forest, two epochs), gated as phase 4:
+   the drafting kernel's kept launches bit-identical, spec-verify once
+   per attention layer per verify round with its kept launches within
+   the bf16 tolerance, epoch 2 accepting drafts. The dense families'
+   epoch 2 equals epoch 1 and every token is plain greedy's within
+   0.25 logit. The MoE families' witness is the layer: capacity dropping
+   makes a token depend on the other tokens of its forward, so a spy on
+   ``apply_moe`` keeps each epoch's first call and every 64th and
+   replays them through the plain float32 layer (``moe_plain``): equal
+   top-k experts, capacity slots and kept masks, outputs within
+   ``MOE_TOL``; it logs the share of (token, k) pairs each path dropped.
+   11d also runs a forward over stub embeddings (B 4, S 1,024, three
+   position streams) held to the same forward on the weights upcast to
+   float32, M-RoPE on text positions against standard RoPE bit for bit,
+   and a GRPO step on that batch (the surrogate at ratio 1, finite
+   gradients, the update norm, a lower surrogate after it).
 
 The last lines are the card line, the per-kernel JSON line and the
 result line ``{"ok": true, "device": {...}}``. A kernel's ``launches``
@@ -183,7 +217,11 @@ shape, ``spec_verify_attention_qwen2``: phases 8 and 10c in bf16; the
 float32 instantiation has entries of its own, timed at the shape its
 run launched most (kept launches, cycled): ``spec_verify_attention_f32``
 at Qwen3-8B's (10b) and ``spec_verify_attention_qwen2_f32`` at Qwen2-
-1.5B's (10c); the scan's backward: phase 9); the drafting
+1.5B's (10c); the scan's backward: phase 9; each phase-11 family's
+spec-verify launches have an entry of their own, timed on that run's
+kept launches: ``spec_verify_attention_{yi,chatglm3,command_r,
+qwen2_vl,mixtral,arctic}``, the drafting kernels counting phase 11's
+launches too); the drafting
 kernels' times and bounds there are at the path's own shapes (phases
 3b and 3c are logged). The scan has an entry per shape class, split by
 the wrapper's launches by (B, T): ``rglru_scan`` at the verify shape
@@ -524,7 +562,20 @@ def phase_spec_verify(torch, np, timer, card):
                           S1_path, S1_full, window, min_len, fill)
         e["max_abs_err"] = max(e["max_abs_err"], edge_err["bfloat16"])
         entries.append(dict(name=name, **e))
-    return entries, f32_err
+    # phase 11's head layouts that no earlier path runs, at its batch, ring
+    # (S+1 = 385: prompts of up to 256 tokens, 64 generated, 16 drafts)
+    # and fill, and with a full ring: ChatGLM3's 32/2 (G = 16: 272 query
+    # rows a kv head at T 17), Command R+'s 96/8 (G = 12) and Arctic's 56/8
+    # (G = 7); their largest errors go to phase 11's entries
+    family_err = {}
+    for name, Hq, Hkv in (("spec_verify_attention_chatglm3", 32, 2),
+                          ("spec_verify_attention_command_r", 96, 8),
+                          ("spec_verify_attention_arctic", 56, 8)):
+        e = sv_main_shape(torch, np, timer, card, 8, 17, Hq, Hkv, 128,
+                          SV_FAMILY_RING, SV_FAMILY_RING, 0, 128,
+                          SV_FAMILY_FILL)
+        family_err[name] = max(e["max_abs_err"], edge_err["bfloat16"])
+    return entries, f32_err, family_err
 
 
 # The path's fill: prompts of 128-256 tokens and up to 256 generated
@@ -533,6 +584,11 @@ SV_PATH_FILL = (128, 513)
 # Phase 8b's fill: prompts of 2,100 and 2,200 tokens and up to 64
 # generated, so a block's first position lies in [2100, 2264].
 SV_LONG_FILL = (2100, 2265)
+# Phase 11's ring and fill: prompts of 128-256 tokens, up to 64 generated
+# and 16 drafted (a cache of 384 slots), so a block's first position lies
+# in [128, 320].
+SV_FAMILY_RING = 385
+SV_FAMILY_FILL = (128, 321)
 # 10c's fill: the pattern task's short prompts and 32 generated tokens in
 # a ring of 128 (+1) slots.
 SV_QWEN2_F32_FILL = (8, 80)
@@ -1547,10 +1603,56 @@ def full_width_model(torch, arch, layers=None):
     return cfg, params
 
 
-def phase_main_path(torch, np, card, cfg, params, micro_rounds=1):
-    """Phase 4's lock-step traffic (phase 7's for the hybrid), with up to
-    ``micro_rounds`` fused rounds a dispatch. Returns the launches, the
-    flat suffix-match spy and each epoch's (outputs, stats, wall s)."""
+def lockstep_requests(np, vocab, prompt_len=(128, 256)):
+    """Phase 4's requests: 8 over 4 problems, seeded prompts of
+    ``prompt_len`` (128-256) tokens."""
+    rng = np.random.default_rng(1)
+    lo, hi = prompt_len
+    problems = [[int(t) for t in rng.integers(2, vocab,
+                                              size=int(rng.integers(lo, hi + 1)))]
+                for _ in range(4)]
+    return [problems[i // 2] for i in range(8)], [f"p{i // 2}"
+                                                  for i in range(8)]
+
+
+# Depth cuts of earlier paths that make room for phase 11 inside the
+# script's time (widths stay the published ones): 10b's float32 drain and
+# resume on the first 12 of Qwen3-8B's 36 layers, phase 7's continuous
+# run on the first 14 of RecurrentGemma-9B's 38 (the lock-step runs, R = 1
+# and R = 4, keep all 38), 10c's trainers on 14 of Qwen2-1.5B's 28 (8's
+# RL loop keeps all 28), and phase 9 (``HYBRID_TRAIN_LAYERS``).
+F32_RESUME_LAYERS = 12
+HYBRID_SERVE_LAYERS = 14
+MULTIWORKER_LAYERS = 14
+
+
+def cut_depth(torch, params, cfg, n):
+    """Keeps the first ``n`` layers of a model, in place (the others'
+    memory goes back to the allocator); returns the cut config. The
+    layers' kinds are the block pattern tiled, so the first ``n`` layers
+    are ``cfg.replace(num_layers=n)``'s."""
+    from torch import nn
+
+    params.layers = nn.ModuleList(list(params.layers)[:n])
+    params.cfg = cfg = cfg.replace(num_layers=n)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg
+
+
+def phase_main_path(torch, np, card, cfg, params, micro_rounds=1,
+                    limits=(32, 64, 128, 256), dev="cuda", sv_spy=None,
+                    spies=(), tag="", prompt_len=(128, 256)):
+    """Phase 4's lock-step traffic (phase 7's for the hybrid, phase 11's
+    with ``limits`` (32, 64)), with up to ``micro_rounds`` fused rounds a
+    dispatch: 8 requests over 4 problems (prompts of ``prompt_len``
+    tokens), token limits cycling through ``limits`` a problem. Epoch 2
+    must equal epoch 1, but for an MoE model, whose capacity makes a token
+    depend on the other tokens of its forward. ``sv_spy`` (an ``SvSpy``, kept by the
+    caller for timing) and ``spies`` (each with ``new_epoch``) wrap the
+    run. The kernel gates hold on the card (``dev``). Returns the
+    launches, the flat suffix-match spy and each epoch's (outputs, stats,
+    wall s)."""
     from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
     from repro_torch.core.spec_engine import EngineConfig, SpecEngine
     from repro_torch.models import model as M
@@ -1561,26 +1663,21 @@ def phase_main_path(torch, np, card, cfg, params, micro_rounds=1):
     # kernel for two shapes.
     eng = SpecEngine(
         params, cfg,
-        EngineConfig(max_draft=16, block_buckets=(16,), max_new_tokens=256,
-                     eos_token=1, fuse_rounds="auto",
-                     micro_rounds=micro_rounds),
+        EngineConfig(max_draft=16, block_buckets=(16,),
+                     max_new_tokens=max(limits), eos_token=1,
+                     fuse_rounds="auto", micro_rounds=micro_rounds),
         drafter=SuffixDrafter(DrafterConfig(scope="problem")),
-        device="cuda",
+        device=dev,
     )
-    where = f"{cfg.name} lock-step" + (f" R={micro_rounds}"
-                                       if micro_rounds > 1 else "")
-    rng = np.random.default_rng(1)
-    problems = [[int(t) for t in rng.integers(2, cfg.vocab_size,
-                                              size=int(rng.integers(128, 257)))]
-                for _ in range(4)]
-    prompts = [problems[i // 2] for i in range(8)]
-    pids = [f"p{i // 2}" for i in range(8)]
-    max_new = [(32, 64, 128, 256)[i // 2] for i in range(8)]
+    where = (f"{tag} " if tag else "") + f"{cfg.name} lock-step" + (
+        f" R={micro_rounds}" if micro_rounds > 1 else "")
+    prompts, pids = lockstep_requests(np, cfg.vocab_size, prompt_len)
+    max_new = [limits[(i // 2) % len(limits)] for i in range(8)]
 
     # the prefill's logits at full width are finite and of the right shape
     Tp = 256
-    toks = torch.zeros((8, Tp), dtype=torch.int32, device="cuda")
-    mask = torch.zeros((8, Tp), dtype=torch.bool, device="cuda")
+    toks = torch.zeros((8, Tp), dtype=torch.int32, device=dev)
+    mask = torch.zeros((8, Tp), dtype=torch.bool, device=dev)
     for b, p in enumerate(prompts):
         toks[b, Tp - len(p):] = torch.tensor(p, dtype=torch.int32)
         mask[b, Tp - len(p):] = True
@@ -1591,49 +1688,65 @@ def phase_main_path(torch, np, card, cfg, params, micro_rounds=1):
 
     reset_launches()
     epochs = []
-    spy = SvSpy()
+    spy = SvSpy() if sv_spy is None else sv_spy
     sm_spy = SmSpy(chunked=False)
+    on_card = dev == "cuda"
     for ep in range(2):
         eng.begin_iteration(ep)
-        spy.new_epoch()
-        sm_spy.new_epoch()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        for s_ in (spy, sm_spy, *spies):
+            s_.new_epoch()
+        sync(torch, dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with spy, sm_spy:
+        with spy, sm_spy, contextlib.ExitStack() as stack:
+            for s_ in spies:
+                stack.enter_context(s_)
             outs, st = eng.generate(prompts, pids, max_new_tokens=max_new)
-        torch.cuda.synchronize()
+        sync(torch, dev)
         wall = time.perf_counter() - t0
         epochs.append((outs, st, wall))
         toks_n = st.n_toks_emitted
+        peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+                if on_card else "not measured")
         log(f"{where} epoch {ep + 1}: wall {wall * 1e3:.1f} ms, rounds "
             f"{st.n_rounds}, "
             f"tokens {toks_n}, {toks_n / wall:.1f} tok/s, drafted "
             f"{st.n_drafted}, accepted {st.n_accepted} "
             f"({st.acceptance_per_round:.2f}/round), peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+            f"{peak}  [{card}]")
     launches = read_launches()
     log(f"{where} path launches: {launches}")
     (o1, s1, _), (o2, s2, _) = epochs
     for b, o in enumerate(o1):
         check(len(o) <= max_new[b], f"row {b} emitted {len(o)} > {max_new[b]}")
         check(all(0 <= t < cfg.vocab_size for t in o), f"row {b}: bad token")
-    check(o2 == o1, "epoch 2 outputs differ from epoch 1 (T=0 is lossless)")
-    check(s2.n_accepted > 0, "epoch 2 accepted no drafts")
-    check(s2.n_rounds < s1.n_rounds, "epoch 2 did not cut verify rounds")
-    check(launches["suffix_match_propose"] > 0,
-          "suffix_match_propose never launched on the lock-step path")
-    # every dispatched micro-round launches, the rounds past the loop's
-    # exit (``n_idle_rounds``) included
-    idle = s1.n_idle_rounds + s2.n_idle_rounds
-    check_sv_launches(cfg, launches, s1.n_rounds + s2.n_rounds + idle, where)
-    spy.check(torch, card, where)
-    sm_spy.check(torch, card, where)
-    check(launches["suffix_match_propose_chunked"] == 0,
-          "the chunked kernel launched on the flat lock-step path")
-    check_rglru_launches(cfg, launches, s1.n_fwd + s2.n_fwd + idle, where)
-    del eng
-    torch.cuda.empty_cache()
+    if cfg.num_experts == 0:
+        check(o2 == o1,
+              f"{where}: epoch 2 outputs differ from epoch 1 (T=0 is "
+              "lossless)")
+        check(s2.n_rounds < s1.n_rounds,
+              f"{where}: epoch 2 did not cut verify rounds")
+    else:
+        log(f"{where}: {sum(a == b for a, b in zip(o1, o2))} of {len(o1)} "
+            "epoch-2 outputs equal epoch 1's (not gated: see the MoE spy)")
+    check(s2.n_accepted > 0, f"{where}: epoch 2 accepted no drafts")
+    if on_card:
+        check(launches["suffix_match_propose"] > 0,
+              "suffix_match_propose never launched on the lock-step path")
+        # every dispatched micro-round launches, the rounds past the loop's
+        # exit (``n_idle_rounds``) included
+        idle = s1.n_idle_rounds + s2.n_idle_rounds
+        check_sv_launches(cfg, launches, s1.n_rounds + s2.n_rounds + idle,
+                          where)
+        spy.check(torch, card, where)
+        sm_spy.check(torch, card, where)
+        check(launches["suffix_match_propose_chunked"] == 0,
+              "the chunked kernel launched on the flat lock-step path")
+        check_rglru_launches(cfg, launches, s1.n_fwd + s2.n_fwd + idle,
+                             where)
+        del eng
+        torch.cuda.empty_cache()
     return launches, sm_spy, epochs
 
 
@@ -1769,27 +1882,32 @@ def serving_engine(cfg, params, dev, max_new, layout="chunked", tel=None):
 
 def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
                        n_problems, n_requests, limits, prompt_len,
-                       layouts=("chunked", "flat")):
+                       layouts=("chunked", "flat"), lockstep=True,
+                       sv_spy=None, spies=()):
     """The continuous path with the chunked forest, then (unless
     ``layouts`` leaves it out) with the flat one on a fresh engine and
-    drafter; gated as ``phase_continuous`` says. Returns each run's
-    launches (by layout), the chunked run's runs, the prompts, the
-    lock-step outputs of the same prompts and the chunked run's
+    drafter; gated as ``phase_continuous`` says. ``sv_spy`` (one
+    ``SvSpy`` for every layout, kept by the caller) and ``spies`` (each
+    with ``new_epoch``) wrap the runs. Returns each run's launches (by
+    layout), the chunked run's runs, the prompts, the lock-step outputs
+    of the same prompts (None without ``lockstep``) and the chunked run's
     suffix-match spy (its second epoch's launches kept for timing)."""
     prompts, pids, max_new = continuous_requests(
         np, cfg.vocab_size, n_problems, n_requests, limits, prompt_len)
     result = {}
     for layout in layouts:
         eng = serving_engine(cfg, params, dev, max_new, layout)
-        sv_spy = SvSpy()
+        sv = SvSpy() if sv_spy is None else sv_spy
         sm_spy = SmSpy(chunked=layout == "chunked")
 
         def on_epoch():
-            sv_spy.new_epoch()
-            sm_spy.new_epoch()
+            for s_ in (sv, sm_spy, *spies):
+                s_.new_epoch()
 
         reset_launches()
-        with sv_spy, sm_spy:
+        with sv, sm_spy, contextlib.ExitStack() as stack:
+            for s_ in spies:
+                stack.enter_context(s_)
             runs = serve_epochs(torch, eng, prompts, pids, max_new, slots,
                                 dev, card, f"continuous ({layout})",
                                 on_epoch=on_epoch)
@@ -1799,7 +1917,7 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
             where = f"{cfg.name} continuous ({layout})"
             check_sv_launches(cfg, launches,
                               sum(r["stats"].n_rounds for r in runs), where)
-            sv_spy.check(torch, card, where)
+            sv.check(torch, card, where)
             sm_spy.check(torch, card, where)
         result[layout] = (runs, launches, eng, sm_spy)
     c_runs, c_launch, c_eng, c_spy = result["chunked"]
@@ -1830,7 +1948,8 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
                              f"{cfg.name} continuous (chunked)")
         check(c_spy.trees >= n_problems,
               f"the chunked forest held {c_spy.trees} trees")
-    lock, _ = f_eng.generate(prompts, pids, max_new_tokens=max_new)
+    lock = (f_eng.generate(prompts, pids, max_new_tokens=max_new)[0]
+            if lockstep else None)
     launches = {k: v[1] for k, v in result.items()}
     del c_eng, f_eng, result
     return launches, c_runs, prompts, lock, c_spy
@@ -3213,9 +3332,11 @@ def phase_rl(torch, np, timer, card):
 
 # Bf16 weights and gradients with float32 moments (12 bytes a parameter:
 # no master copy, the reference's rule) of all 38 layers take about 102
-# GB, more than the card's 80: phase 9 keeps two (rglru, rglru,
-# local_attn) triples, 2.23 B parameters, every width as published.
-HYBRID_TRAIN_LAYERS = 6
+# GB, more than the card's 80: phase 9 keeps one (rglru, rglru,
+# local_attn) triple, 1.64 B parameters, every width as published (one
+# triple rather than two makes room for phase 11 in the script's time:
+# 9c's checkpoint is ~15 GiB instead of 20.74).
+HYBRID_TRAIN_LAYERS = 3
 # The GRPO step's sequence length in 9b (prompts of 2,100 and 2,200 tokens
 # and 64 new ones, packed): the backward kernel's training shape.
 TRAIN_S = 2272
@@ -3409,6 +3530,337 @@ def phase_hybrid_train(torch, np, timer, card):
     return entries, total, shapes
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the remaining decoder families at their published widths
+# ---------------------------------------------------------------------------
+
+# (tag, arch, layers kept (None: all), the JSON entry of its spec-verify
+# launches). A depth is cut where the whole model does not fit one card:
+# Command R+ 16 of 64 layers (56.6 GB of bf16 weights), Mixtral 16 of 32
+# (47.0 GB), Arctic 2 of 35 (55.4 GB: one layer's 128 experts are 26.8
+# GB). Widths are the published ones.
+FAMILY_CASES = (
+    ("11a", "yi-9b", None, "spec_verify_attention_yi"),
+    ("11b", "chatglm3-6b", None, "spec_verify_attention_chatglm3"),
+    ("11c", "command-r-plus-104b", 16, "spec_verify_attention_command_r"),
+    ("11d", "qwen2-vl-2b", None, "spec_verify_attention_qwen2_vl"),
+    ("11e", "mixtral-8x7b", 16, "spec_verify_attention_mixtral"),
+    ("11f", "arctic-480b", 2, "spec_verify_attention_arctic"),
+)
+# phase 4's lock-step traffic, shortened: limits of 32 and 64 new tokens
+FAMILY_LIMITS = (32, 64)
+# a kept MoE call's output against the layer's plain float32 computation
+MOE_TOL = dict(atol=3e-2, rtol=1e-2)
+
+
+def moe_plain(torch, p, x, cfg):
+    """The MoE layer's plain float32 computation from its definition (the
+    reference's ``apply_moe``), on ``x`` (B, T, d): routing from the
+    float32 router (top-k by a stable descending sort: ties to the lower
+    expert), a (token, k) pair's slot as its rank among the pairs routed
+    to its expert in token-major, k-minor order (counted here by a sort,
+    not a cumulative one-hot), pairs at or past the capacity dropped; then
+    each routed expert's SwiGLU in float32 on the tokens it kept (one
+    expert's weights upcast at a time), weighted by the gates, and the
+    dense residual branch. Returns (gate_idx, slot, keep, y float32)."""
+    F = torch.nn.functional
+    B, T, d = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    N = B * T
+    xt = x.reshape(N, d).float()
+    probs = torch.softmax(xt @ p["router"].float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_idx = idx[:, :K]
+    gates = vals[:, :K]
+    gates = (gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)).reshape(-1)
+    cap = max(1, int(cfg.capacity_factor * N * K / E))
+    e_flat = gate_idx.reshape(-1)
+    order = torch.argsort(e_flat, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(N * K, device=x.device)
+    counts = torch.bincount(e_flat, minlength=E)
+    slot = rank - (torch.cumsum(counts, 0) - counts)[e_flat]
+    keep = slot < cap
+    tok = torch.arange(N * K, device=x.device) // K
+    y = torch.zeros((N, d), dtype=torch.float32, device=x.device)
+    for e in torch.unique(e_flat[keep]).tolist():
+        sel = keep & (e_flat == e)
+        rows = tok[sel]
+        xe = xt[rows]
+        h = F.silu(xe @ p["wg"][e].float()) * (xe @ p["wi"][e].float())
+        y.index_add_(0, rows, (h @ p["wo"][e].float()) * gates[sel][:, None])
+    if cfg.moe_dense_residual:
+        dp = p["dense"]
+        h = F.silu(xt @ dp["wg"].float()) * (xt @ dp["wi"].float())
+        y += h @ dp["wo"].float()
+    return gate_idx, slot, keep, y.reshape(B, T, d)
+
+
+class MoeSpy:
+    """Wraps ``models.layers.apply_moe`` (and, inside it, ``moe_route``)
+    on the main path: counts the (token, k) pairs each call dropped (on
+    the device: no host sync), and keeps the input, output and routing of
+    each epoch's first call and of every ``EVERY``-th, to be replayed
+    after the run through ``moe_plain``: top-k experts, slots and the kept
+    mask equal, the output within ``MOE_TOL``. Adds no launch of a kernel
+    under test."""
+
+    EVERY = 64
+
+    def __init__(self):
+        from repro_torch.models import layers as L
+
+        self.L = L
+        self.real = L.apply_moe
+        self.real_route = L.moe_route
+        self.kept = []
+        self.n = 0
+        self.first = True
+        self.route = None
+        self.dropped = 0
+        self.pairs = 0
+
+    def new_epoch(self):
+        self.first = True
+
+    def _route(self, p, xt, cfg):
+        self.route = self.real_route(p, xt, cfg)
+        return self.route
+
+    def __call__(self, p, x, cfg):
+        y, aux = self.real(p, x, cfg)
+        r = self.route
+        self.dropped = self.dropped + (~r.keep).sum()
+        self.pairs += r.keep.numel()
+        if self.first or self.n % self.EVERY == 0:
+            self.kept.append((p, x.clone(), y.clone(), r.gate_idx.clone(),
+                              r.slot.clone(), r.keep.clone()))
+        self.n += 1
+        self.first = False
+        return y, aux
+
+    def __enter__(self):
+        self.L.apply_moe = self
+        self.L.moe_route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.L.apply_moe = self.real
+        self.L.moe_route = self.real_route
+
+    def check(self, torch, card, cfg, where):
+        check(len(self.kept) >= 2,
+              f"{where}: only {len(self.kept)} MoE calls kept")
+        worst = 0.0
+        kept_drop = kept_pairs = 0
+        shapes = set()
+        for p, x, y, gate_idx, slot, keep in self.kept:
+            g2, s2, k2, want = moe_plain(torch, p, x, cfg)
+            check(torch.equal(gate_idx, g2),
+                  f"{where}: a kept MoE call's top-k experts differ from "
+                  "the plain computation's")
+            check(torch.equal(slot, s2) and torch.equal(keep, k2),
+                  f"{where}: a kept MoE call's capacity slots differ from "
+                  "the plain computation's")
+            err = float((y.float() - want).abs().max())
+            check(bool(torch.isfinite(y).all()) and torch.allclose(
+                y.float(), want, **MOE_TOL),
+                f"{where}: a kept MoE call's output differs from the plain "
+                f"float32 computation, max |err| {err}")
+            worst = max(worst, err)
+            kept_drop += int((~keep).sum())
+            kept_pairs += keep.numel()
+            shapes.add(tuple(x.shape[:2]))
+        dropped = int(self.dropped)
+        log(f"{where}: {len(self.kept)} of {self.n} apply_moe calls kept "
+            f"(each epoch's first, every {self.EVERY}th; (B, T) "
+            f"{sorted(shapes)}): top-k experts, capacity slots and kept "
+            f"masks equal to the plain computation's, outputs within "
+            f"{MOE_TOL} of its float32 result, max |err| {worst:.3e}; "
+            f"(token, k) pairs dropped at capacity: {dropped} of "
+            f"{self.pairs} ({dropped / max(self.pairs, 1):.2%}) on the "
+            f"path, {kept_drop} of {kept_pairs} in the kept calls  [{card}]")
+        self.kept.clear()
+        self.dropped, self.pairs, self.n = 0, 0, 0
+        return worst
+
+
+def phase_family(torch, np, card, cfg, params, tag, dev="cuda",
+                 serve=False, limits=FAMILY_LIMITS, prompt_len=(128, 256)):
+    """11a-11f: one family at its published widths through the normal
+    entry points: phase 4's lock-step traffic with ``limits`` (and
+    with ``serve``, 16 requests over 8 problems in 8 slots through
+    ``SpecEngine.serve``, chunked forest, two epochs). Gated on the card
+    as phase 4: the drafting kernel's kept launches bit-identical,
+    spec-verify once per attention layer per verify round and its kept
+    launches within the bf16 tolerance, epoch 2 accepting drafts. A
+    dense family's epoch 2 equals epoch 1 and every token is plain
+    greedy's within ``TOL_LOGIT_BF16``; an MoE family's witness is the
+    layer itself (``MoeSpy``): with capacity dropping, a token depends on
+    the other tokens of its forward, so neither epoch identity nor plain
+    greedy's full-sequence forward can witness it. Returns the launches
+    (summed over the runs) and the spec-verify spy (its path case kept
+    for timing)."""
+    moe = cfg.num_experts > 0
+    sv = SvSpy()
+    spies = (MoeSpy(),) if moe else ()
+    launches = Counter()
+    run, _, epochs = phase_main_path(
+        torch, np, card, cfg, params, limits=limits, dev=dev, sv_spy=sv,
+        spies=spies, tag=tag, prompt_len=prompt_len)
+    launches.update({k: v for k, v in run.items()
+                     if k != "rglru_scan_by_shape"})
+    where = f"{tag} {cfg.name}"
+    if moe:
+        spies[0].check(torch, card, cfg, f"{where} lock-step")
+    else:
+        prompts, _ = lockstep_requests(np, cfg.vocab_size, prompt_len)
+        plain_greedy_full_width(torch, np, cfg, params, prompts,
+                                {"lock-step epoch 1": epochs[0][0]}, card)
+    if serve:
+        by_layout, _, _, _, _ = continuous_layouts(
+            torch, np, cfg, params, dev, card, slots=8, n_problems=8,
+            n_requests=16, limits=limits, prompt_len=prompt_len,
+            layouts=("chunked",), lockstep=False, sv_spy=sv, spies=spies)
+        launches.update({k: v for k, v in by_layout["chunked"].items()
+                         if k != "rglru_scan_by_shape"})
+        if moe:
+            spies[0].check(torch, card, cfg, f"{where} continuous")
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return launches, sv
+
+
+def phase_vlm(torch, np, card, cfg, params, dev="cuda", B=4, S=1024,
+              tag="11d"):
+    """11d's extra: the Qwen2-VL backbone over stub vision embeddings (B
+    4, S 1,024) with three distinct M-RoPE position streams (t, and h and
+    w over a 32-wide grid): bf16 logits finite and within
+    ``TOL_LOGIT_BF16`` of the same forward on the weights upcast to
+    float32; M-RoPE on text positions gives the same logits as standard
+    RoPE, bit for bit; then one GRPO step on that batch: the surrogate at
+    ratio 1, every gradient finite and every attention layer's wq/wk/wv
+    gradient non-zero, the update norm, a lower surrogate after it."""
+    import copy
+
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.rl import grpo
+
+    rng = np.random.default_rng(111)
+    dt = getattr(torch, cfg.dtype)
+    embeds = torch.tensor(0.02 * rng.normal(size=(B, S, cfg.d_model)),
+                          dtype=torch.float32, device=dev).to(dt)
+    ar = np.arange(S)
+    pos3 = torch.tensor(np.broadcast_to(np.stack([ar, ar // 32, ar % 32])[
+        :, None], (3, B, S)).copy(), dtype=torch.int32, device=dev)
+    tok = torch.tensor(rng.integers(2, cfg.vocab_size, size=(B, S)),
+                       dtype=torch.int32, device=dev)
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lg = M.forward(params, cfg, embeds=embeds,
+                       mrope_positions=pos3)[0][..., :V]
+        check(tuple(lg.shape) == (B, S, V) and bool(torch.isfinite(lg).all()),
+              f"{tag}: embeds forward logits not finite or of a wrong shape")
+        p32 = copy.deepcopy(params).float()
+        lg32 = M.forward(p32, cfg.replace(dtype="float32"), embeds=embeds,
+                         mrope_positions=pos3)[0][..., :V]
+        del p32
+        diff = (lg - lg32).abs()
+        err, mean = float(diff.max()), float(diff.mean())
+        del lg, lg32, diff
+        text = tok[:2, :256]
+        std = M.forward(params, cfg.replace(rope="standard"), text)[0]
+        mro = M.forward(params, cfg, text)[0]
+        same = torch.equal(std, mro)
+        del std, mro
+    sync(torch, dev)
+    check(err <= TOL_LOGIT_BF16, f"{tag}: bf16 logits over embeds differ "
+          f"from the float32 forward's by {err:.4f}")
+    check(same, f"{tag}: M-RoPE on text positions differs from standard "
+          "RoPE")
+    log(f"{cfg.name} {tag} forward over stub embeds (B={B}, S={S}, three "
+        f"position streams): bf16 logits within {err:.4f} (mean "
+        f"{mean:.2e}) of the float32 forward's (tolerance "
+        f"{TOL_LOGIT_BF16}); M-RoPE on text positions equal to standard "
+        f"RoPE bit for bit; {time.perf_counter() - t0:.2f} s  [{card}]")
+
+    M.set_trainable(params)
+    plen = rng.integers(S // 4, S // 2, size=B)
+    resp = np.zeros((B, S), bool)
+    for b in range(B):
+        resp[b, plen[b]:plen[b] + int(rng.integers(S // 8, S - plen[b]))] = True
+    adv = rng.normal(size=B).astype(np.float32)
+    with torch.no_grad():
+        hid = M.forward(params, cfg, tok, embeds=embeds,
+                        mrope_positions=pos3, return_hidden=True)[0]
+        old = grpo.chunked_token_logprobs(params, cfg, hid, tok)
+        del hid
+    batch = {"tokens": tok, "resp_mask": torch.tensor(resp, device=dev),
+             "advantages": torch.tensor(adv, device=dev),
+             "old_logprobs": old, "embeds": embeds,
+             "mrope_positions": pos3}
+    ocfg = adamw.AdamWConfig(lr=STEP_LR)
+    opt = adamw.init_state(params)
+    gcfg = grpo.GRPOConfig()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    loss, metrics = grpo.grpo_loss(params, cfg, gcfg, batch)
+    grads = grpo.param_grads(params, loss)
+    loss = float(loss.detach())
+    params, opt, om = adamw.apply_updates(ocfg, params, grads, opt)
+    sync(torch, dev)
+    t_step = time.perf_counter() - t0
+    want = float(-(adv[:, None] * resp).sum() / resp.sum())
+    check(abs(loss - want) <= SURROGATE_RTOL * abs(want),
+          f"{tag}: surrogate {loss} at ratio 1, expected {want}")
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    check(not bad, f"{tag}: non-finite gradients in {bad[:4]}")
+    check_layer_grads(cfg, grads, tag)
+    gn, lr, un = (float(om[k]) for k in ("grad_norm", "lr", "update_norm"))
+    un_want = lr * min(1.0, ocfg.grad_clip / gn) * gn
+    check(np.isfinite(gn) and gn > 0 and abs(un - un_want) <= 1e-5 * un_want,
+          f"{tag}: grad_norm {gn}, update_norm {un} (expected {un_want})")
+    del grads, opt
+    with torch.no_grad():
+        after = float(grpo.grpo_loss(params, cfg, gcfg, batch)[0])
+    check(after < loss, f"{tag}: surrogate after the step {after} is not "
+          f"below {loss}")
+    log(f"{cfg.name} {tag} GRPO step over the embeds batch ({int(resp.sum())}"
+        f" response tokens): surrogate {loss:.6f} at ratio 1 (expected "
+        f"{want:.6f}), after the step {after:.6f}; grad_norm {gn:.4f}, "
+        f"update_norm {un:.6f}; every gradient finite; loss + gradients + "
+        f"AdamW {t_step:.3f} s  [{card}]")
+
+
+def phase_families(torch, np, card, timer, err_3a):
+    """Phase 11: each of ``FAMILY_CASES`` in turn, one model resident at a
+    time. Returns the JSON entries of the families' spec-verify launches
+    (timed on each run's kept launches) and the launches of the other
+    kernels, summed."""
+    entries, launches = [], Counter()
+    for tag, arch, layers, name in FAMILY_CASES:
+        t0 = time.perf_counter()
+        cfg, params = full_width_model(torch, arch, layers)
+        run, sv = phase_family(torch, np, card, cfg, params, tag,
+                               serve=arch == "mixtral-8x7b")
+        if cfg.rope == "mrope":
+            phase_vlm(torch, np, card, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        e = time_sv_path_case(torch, np, timer, card, sv, name,
+                              f"{tag} {cfg.name}", err_3a.get(name, 0.0))
+        e["launches"] = run.pop("spec_verify_attention")
+        entries.append(e)
+        launches.update(run)
+        del sv
+        log(f"{tag} {cfg.name}: {time.perf_counter() - t0:.1f} s  [{card}]")
+    return entries, launches
+
+
+
 def run_concurrently(cmds, env, timeout_s=600):
     """Start every command at once (their output to temporary files, so
     no pipe fills) and wait for all; returns per command its exit code,
@@ -3542,7 +3994,8 @@ def main() -> None:
             log(f"  [{name}] {ln}")
 
     timer = Timer(torch)
-    sv_entries, sv_f32_err = phase_spec_verify(torch, np, timer, card)
+    sv_entries, sv_f32_err, sv_family_err = phase_spec_verify(torch, np,
+                                                              timer, card)
     kernels = {k["name"]: k for k in (
         *sv_entries,
         phase_suffix_match(torch, np, timer, card),
@@ -3580,6 +4033,7 @@ def main() -> None:
     l10b16, _ = phase_drain_resume(torch, np, card, cfg, params,
                                    reference=cont_runs[0])
     torch.cuda.empty_cache()
+    cfg = cut_depth(torch, params, cfg, F32_RESUME_LAYERS)
     params.float()
     params.cfg = cfg = cfg.replace(dtype="float32")
     l10b, sv10b = phase_drain_resume(torch, np, card, cfg, params)
@@ -3605,9 +4059,10 @@ def main() -> None:
     # and spec-verify at head_dim 256 (lock-step and continuous runs)
     cfg, params = full_width_model(torch, "recurrentgemma-9b")
     hybrid, _, hybrid_runs = phase_main_path(torch, np, card, cfg, params)
+    hmicro = phase_micro(torch, np, card, cfg, params, hybrid_runs)
+    cfg = cut_depth(torch, params, cfg, HYBRID_SERVE_LAYERS)
     cont, _, _ = phase_continuous(torch, np, card, cfg, params,
                                   layouts=("chunked",))
-    hmicro = phase_micro(torch, np, card, cfg, params, hybrid_runs)
     for run in (hybrid, cont["chunked"], hmicro):
         add(run, skip=("spec_verify_attention",))
         launches["spec_verify_attention_hd256"] += run["spec_verify_attention"]
@@ -3641,6 +4096,7 @@ def main() -> None:
     from repro_torch.configs import get_config
 
     qwen2 = get_config("qwen2-1.5b")
+    qwen2 = qwen2.replace(num_layers=MULTIWORKER_LAYERS)
     l10c, sv10c = phase_multiworker(torch, np, card,
                                     cfg=qwen2.replace(dtype="float32"))
     timer = Timer(torch)
@@ -3669,6 +4125,15 @@ def main() -> None:
     kernels.update({k["name"]: k for k in entries})
     launches.update(l9)
     rglru_shapes.update(shapes9)
+    # phase 11: the remaining decoder families, one resident at a time
+    gc.collect()
+    torch.cuda.empty_cache()
+    timer = Timer(torch)
+    entries11, l11 = phase_families(torch, np, card, timer, sv_family_err)
+    stamp("phase 11")
+    del timer
+    kernels.update({k["name"]: k for k in entries11})
+    launches.update(l11)
     # the scan's launches by shape class (phases 7 and 9)
     verify_n, prefill_n = rglru_launch_split(rglru_shapes)
     long_n = rglru_long_launches(rglru_shapes)

@@ -1,15 +1,37 @@
 """Architecture registry of the port: the configs the engine serves (the
-paper's own Qwen3-8B, Qwen2-1.5B and the hybrid RecurrentGemma-9B), and
+paper's own Qwen3-8B, the dense Qwen2-1.5B, Yi-9B, ChatGLM3-6B and
+Command R+ (parallel blocks), the Qwen2-VL-2B backbone (M-RoPE), the MoE
+Mixtral-8x7B and Arctic-480B, and the hybrid RecurrentGemma-9B), and
 reduced smoke variants for CPU tests."""
 
 from __future__ import annotations
 
 from typing import Dict
 
-from . import qwen2_1_5b, qwen3_8b, recurrentgemma_9b
+from . import (
+    arctic_480b,
+    chatglm3_6b,
+    command_r_plus_104b,
+    mixtral_8x7b,
+    qwen2_1_5b,
+    qwen2_vl_2b,
+    qwen3_8b,
+    recurrentgemma_9b,
+    yi_9b,
+)
 from .base import ModelConfig, active_params, count_params
 
-_MODULES = (recurrentgemma_9b, qwen2_1_5b, qwen3_8b)
+_MODULES = (
+    mixtral_8x7b,
+    command_r_plus_104b,
+    recurrentgemma_9b,
+    chatglm3_6b,
+    arctic_480b,
+    qwen2_1_5b,
+    yi_9b,
+    qwen2_vl_2b,
+    qwen3_8b,
+)
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

@@ -8,9 +8,11 @@ after ``np.asarray`` on every leaf: ``{"embed", "final_norm",
 along a leading layer axis. The stages (a scanned stage of whole
 block-pattern units, then one un-scanned stage per remainder layer, as
 ``cfg.scan_stages`` lays them out) are unstacked into per-layer tensors
-in the order the reference's forward runs them. An attention block's
-mixer is its ``attn`` subtree; an RG-LRU block's is ``rglru`` (``wx``,
-``wy``, ``wo``, ``conv``, ``w_a``, ``w_i``, ``lam``).
+in the order the reference's forward runs them. A block's groups are
+those ``models.model.block_parts`` names: an attention block's mixer is
+its ``attn`` subtree, an RG-LRU block's ``rglru`` (``wx``, ``wy``,
+``wo``, ``conv``, ``w_a``, ``w_i``, ``lam``); a parallel block has no
+``mlp_norm``, and an MoE block's ``moe`` nests Arctic's ``dense`` MLP.
 
 bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` refuses; they cross as their raw 16-bit patterns
@@ -33,9 +35,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.model import (
-    RECURRENT,
     Block,
     Transformer,
+    block_parts,
     check_supported,
 )
 
@@ -50,8 +52,11 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
 
 
 def _pdict(d: Dict[str, Any], device, idx=None) -> nn.ParameterDict:
+    """A parameter group; a nested mapping (MoE's ``dense``) nests."""
     return nn.ParameterDict({
-        k: L._param(tensor_from_numpy(v if idx is None else v[idx], device))
+        k: (_pdict(v, device, idx) if isinstance(v, dict)
+            else L._param(tensor_from_numpy(v if idx is None else v[idx],
+                                            device)))
         for k, v in d.items()
     })
 
@@ -66,13 +71,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         for r in range(repeats):
             idx = r if repeats > 1 else None
             for ui, kind in enumerate(unit):
-                p = stage[ui]
-                mixer = p["rglru" if kind in RECURRENT else "attn"]
-                blocks.append(Block(
-                    kind, _pdict(p["norm"], dev, idx),
-                    _pdict(mixer, dev, idx), _pdict(p["mlp_norm"], dev, idx),
-                    _pdict(p["mlp"], dev, idx),
-                ))
+                blocks.append(Block(kind, **{
+                    name: _pdict(stage[ui][name], dev, idx)
+                    for name in block_parts(cfg, kind)}))
     lm_head = tree.get("lm_head")
     return Transformer(
         cfg,
@@ -101,7 +102,13 @@ def params_to_numpy(params: Transformer, cfg: ModelConfig) -> Dict[str, Any]:
         return t.detach().float().cpu().numpy()
 
     def pd(d):
-        return {k: arr(v) for k, v in d.items()}
+        return {k: pd(v) if isinstance(v, nn.ParameterDict) else arr(v)
+                for k, v in d.items()}
+
+    def stack(parts):
+        if isinstance(parts[0], dict):
+            return {k: stack([p[k] for p in parts]) for k in parts[0]}
+        return np.stack(parts)
 
     layers = list(params.layers)
     stages: List[Any] = []
@@ -113,18 +120,12 @@ def params_to_numpy(params: Transformer, cfg: ModelConfig) -> Dict[str, Any]:
             for kind in unit:
                 blk = layers[li]
                 li += 1
-                mixer = "rglru" if kind in RECURRENT else "attn"
-                unit_p.append({"norm": pd(blk.norm),
-                               mixer: pd(getattr(blk, mixer)),
-                               "mlp_norm": pd(blk.mlp_norm),
-                               "mlp": pd(blk.mlp)})
+                unit_p.append({name: pd(getattr(blk, name))
+                               for name in blk.parts})
             reps.append(tuple(unit_p))
         if repeats > 1:
-            reps = [tuple(
-                {part: {k: np.stack([r[ui][part][k] for r in reps])
-                        for k in reps[0][ui][part]}
-                 for part in reps[0][ui]}
-                for ui in range(len(unit)))]
+            reps = [tuple(stack([r[ui] for r in reps])
+                          for ui in range(len(unit)))]
         stages.append(reps[0])
     tree: Dict[str, Any] = {"embed": arr(params.embed),
                             "final_norm": pd(params.final_norm),

@@ -1,5 +1,6 @@
 """Decoder layers of the port (PyTorch counterpart of
-``repro.models.layers``): attention, MLP and the RG-LRU recurrent block.
+``repro.models.layers``): attention (standard, partial and M-RoPE
+rotary), MLP, the capacity-dispatched MoE and the RG-LRU recurrent block.
 
 Parameters are plain mappings of tensors (``nn.ParameterDict`` inside the
 model) in the JAX package's layouts — ``wq`` is ``(d, Hq, hd)``, ``wo``
@@ -27,7 +28,7 @@ kernel (its plain version on the CPU).
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,12 +44,22 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 def _dense_init(shape, dtype, gen: torch.Generator, device,
-                scale: Optional[float] = None) -> torch.Tensor:
-    """N(0, 1)·scale with scale = 1/sqrt(fan_in) (fan_in = shape[0], as
-    ``repro.models.layers._dense_init`` takes it for every dense kernel
-    here), drawn in float32 on ``device`` and cast to ``dtype``."""
+                scale: Optional[float] = None,
+                experts: bool = False) -> torch.Tensor:
+    """N(0, 1)·scale with scale = 1/sqrt(fan_in) (fan_in = shape[0], or
+    shape[1] for an ``experts`` stack (E, in, out), as
+    ``repro.models.layers._dense_init`` takes it), drawn in float32 on
+    ``device`` and cast to ``dtype``."""
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
+    if experts:
+        fan_in = shape[1]
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    if experts:  # one expert at a time: no float32 copy of the whole stack
+        w = torch.empty(shape, dtype=dtype, device=device)
+        for e in range(shape[0]):
+            w[e] = torch.randn(shape[1:], generator=gen, device=device,
+                               dtype=torch.float32).mul_(s)
+        return w
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     return w.mul_(s).to(dtype)
 
@@ -83,24 +94,40 @@ def apply_norm(p: Mapping, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings: standard / partial (M-RoPE is not ported yet)
+# rotary embeddings: standard / partial (chatglm "2d") / M-RoPE (qwen2-vl)
 # ---------------------------------------------------------------------------
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+               mrope_positions: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """x: (B, T, H, hd); positions: (B, T) int32 absolute positions.
-    cos/sin are cast to ``x.dtype`` before the rotation, as in JAX."""
+    cos/sin are cast to ``x.dtype`` before the rotation, as in JAX.
+
+    * standard: rotate the whole head_dim;
+    * partial: rotate only ``rope_fraction`` of it (ChatGLM);
+    * mrope: three position streams (t, h, w), ``mrope_positions`` (3, B,
+      T), each owning a section of the rotary frequencies
+      (``cfg.mrope_sections``); without them the three streams are
+      ``positions`` and M-RoPE is standard RoPE, bit for bit.
+    """
     if cfg.rope == "none":
         return x
-    if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet")
     hd = x.shape[-1]
     rot = int(hd * (cfg.rope_fraction if cfg.rope == "partial" else 1.0))
     rot -= rot % 2
     freqs = 1.0 / (cfg.rope_theta ** (
         torch.arange(0, rot, 2, dtype=torch.float32, device=x.device) / rot
     ))
-    ang = positions.float()[..., None] * freqs  # (B, T, rot/2)
+    if cfg.rope == "mrope":
+        if mrope_positions is None:
+            mrope_positions = positions[None].expand(3, *positions.shape)
+        owner = torch.cat([torch.full((n,), i, dtype=torch.long)
+                           for i, n in enumerate(cfg.mrope_sections)]
+                          )[:rot // 2].to(x.device)
+        pos_f = mrope_positions.float()[owner]  # (rot/2, B, T)
+        ang = pos_f.permute(1, 2, 0) * freqs  # (B, T, rot/2)
+    else:
+        ang = positions.float()[..., None] * freqs  # (B, T, rot/2)
     cos = torch.cos(ang)[..., None, :].to(x.dtype)  # (B, T, 1, rot/2)
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
     x_rot, x_pass = x[..., :rot], x[..., rot:]
@@ -306,6 +333,7 @@ def attention_forward(
     window: int = 0,  # 0 = full
     kv_cache: Optional[Tuple] = None,  # (k, v, cache_pos) or None
     valid: Optional[torch.Tensor] = None,  # (B, T) bool
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, T)
 ):
     """Returns (y, kv). Cached path: ``kv_cache = (k, v, cache_pos)`` with
     k/v ``(B, S+1, Hkv, hd)`` and cache_pos ``(B, S+1)`` int32 (-1 =
@@ -319,8 +347,8 @@ def attention_forward(
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = apply_rope(q, positions, cfg)
-    k = apply_rope(k, positions, cfg)
+    q = apply_rope(q, positions, cfg, mrope_positions)
+    k = apply_rope(k, positions, cfg, mrope_positions)
 
     if kv_cache is None:
         if T >= _FLASH_THRESHOLD:
@@ -398,6 +426,95 @@ def apply_mlp(p: Mapping, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
     return torch.einsum("btf,fd->btd", h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k, capacity-based GShard-style dispatch)
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator,
+             device) -> nn.ParameterDict:
+    """The reference's tree: a float32 router (d, E), expert stacks
+    ``wi``/``wg`` (E, d, f) and ``wo`` (E, f, d), and with
+    ``moe_dense_residual`` a nested ``dense`` MLP (Arctic)."""
+    dt = torch_dtype(cfg.dtype)
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p = {
+        "router": _param(_dense_init((d, E), torch.float32, gen, device)),
+        "wi": _param(_dense_init((E, d, f), dt, gen, device, experts=True)),
+        "wg": _param(_dense_init((E, d, f), dt, gen, device, experts=True)),
+        "wo": _param(_dense_init((E, f, d), dt, gen, device, experts=True)),
+    }
+    if cfg.moe_dense_residual:
+        p["dense"] = init_mlp(cfg, gen, device)
+    return nn.ParameterDict(p)
+
+
+class MoERoute(NamedTuple):
+    probs: torch.Tensor  # (N, E) float32 router softmax
+    gate_vals: torch.Tensor  # (N, K) float32, renormalised over the K
+    gate_idx: torch.Tensor  # (N, K) int64 experts, best first
+    slot: torch.Tensor  # (N*K,) place in the expert's buffer, token-major
+    keep: torch.Tensor  # (N*K,) bool: slot < cap
+    cap: int
+
+
+def moe_route(p: Mapping, xt: torch.Tensor, cfg: ModelConfig) -> MoERoute:
+    """Routing of the (N, d) tokens, as ``repro.models.layers.apply_moe``
+    routes: float32 router, softmax, top-k (ties to the lower expert, as
+    ``lax.top_k``: a stable descending sort), renormalised gates, and each
+    (token, k) pair's slot from the exclusive cumulative count of its
+    expert over the pairs before it in token-major, k-minor order; pairs
+    at or past the capacity ``max(1, int(capacity_factor * N * K / E))``
+    are dropped. Every token of the forward counts, pads included."""
+    N = xt.shape[0]
+    E, K = cfg.num_experts, cfg.experts_per_token
+    logits = xt.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[:, :K], idx[:, :K]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    cap = max(1, int(cfg.capacity_factor * N * K / E))
+    onehot = F.one_hot(gate_idx.reshape(N * K), E).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=0) - onehot  # (N*K, E)
+    slot = (pos * onehot).sum(-1)
+    return MoERoute(probs, gate_vals, gate_idx, slot, slot < cap, cap)
+
+
+def apply_moe(p: Mapping, x: torch.Tensor,
+              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y, aux_loss). Tokens scatter into per-expert capacity
+    buffers (E, cap, d) plus a trash row for the dropped pairs, the
+    experts run as batched products (``torch.bmm``: the reference's
+    einsums, outside any Pallas kernel there too), and the outputs gather
+    back weighted by the gates in ``x.dtype`` and summed over K; Arctic
+    adds its dense MLP branch. ``aux_loss`` is the Switch load-balance
+    loss (float32)."""
+    B, T, d = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    N = B * T
+    xt = x.reshape(N, d)
+    r = moe_route(p, xt, cfg)
+    cap = r.cap
+    e_flat = r.gate_idx.reshape(N * K)
+    dest = torch.where(r.keep, e_flat * cap + r.slot, E * cap)
+    buf = torch.zeros((E * cap + 1, d), dtype=xt.dtype, device=x.device)
+    buf = buf.index_put((dest,), xt.repeat_interleave(K, dim=0))
+    xin = buf[:E * cap].reshape(E, cap, d)
+    h = torch.bmm(xin, p["wi"])
+    g = torch.bmm(xin, p["wg"])
+    h = F.silu(g) * h
+    eout = torch.bmm(h, p["wo"]).reshape(E * cap, d)
+    eout = torch.cat([eout, eout.new_zeros((1, d))], dim=0)
+    y_flat = eout[dest] * r.gate_vals.reshape(N * K, 1).to(x.dtype)
+    y = y_flat.reshape(N, K, d).sum(1).reshape(B, T, d)
+    if cfg.moe_dense_residual and "dense" in p:
+        y = y + apply_mlp(p["dense"], x, cfg)
+    me = r.probs.mean(0)  # (E,)
+    ce = F.one_hot(r.gate_idx[:, 0], E).float().mean(0)
+    aux = E * torch.sum(me * ce) * cfg.router_aux_weight
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Model assembly of the port: embedding → decoder blocks → head
 (PyTorch counterpart of ``repro.models.model``): dense attention
-decoders and the hybrid RG-LRU + local-attention stack (RecurrentGemma).
+decoders (pre-norm, or parallel blocks as in Command R+), M-RoPE over
+stub embeddings (Qwen2-VL), capacity-dispatched MoE (Mixtral, Arctic)
+and the hybrid RG-LRU + local-attention stack (RecurrentGemma).
 
 The reference groups layers into ``lax.scan`` stages over stacked
 parameters; here the blocks sit in an ``nn.ModuleList`` in the order the
@@ -42,16 +44,16 @@ RECURRENT = ("rglru",)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves decoders of attention and RG-LRU blocks, each with
-    a pre-norm MLP (so far)."""
+    """The port serves decoders of attention and RG-LRU blocks with an
+    MLP or MoE (so far): not xLSTM, not the encoder-decoder, not
+    ``d_ff == 0``."""
     if (
         not set(cfg.block_pattern) <= set(ATTENTION + RECURRENT)
-        or cfg.num_experts > 0 or cfg.is_encoder_decoder
-        or cfg.parallel_block or cfg.rope == "mrope" or cfg.d_ff <= 0
+        or cfg.is_encoder_decoder or cfg.d_ff <= 0
     ):
         raise NotImplementedError(
             f"{cfg.name}: only decoders of attention and RG-LRU blocks "
-            "with a pre-norm MLP are ported so far"
+            "with an MLP or MoE are ported so far"
         )
 
 
@@ -59,20 +61,32 @@ def has_recurrent(cfg: ModelConfig) -> bool:
     return any(k in RECURRENT for k in cfg.layer_kinds)
 
 
+def block_parts(cfg: ModelConfig, kind: str) -> Tuple[str, ...]:
+    """A block's parameter groups, as the reference's ``_init_block``
+    lays them out: ``norm`` and the mixer (``attn`` or ``rglru``), then
+    ``mlp_norm`` + ``moe`` on an attention kind of an MoE config,
+    ``mlp`` alone for a parallel block (it shares ``norm``), else
+    ``mlp_norm`` + ``mlp``."""
+    mixer = "rglru" if kind in RECURRENT else "attn"
+    if cfg.num_experts > 0 and kind in ATTENTION:
+        return ("norm", mixer, "mlp_norm", "moe")
+    if cfg.parallel_block:
+        return ("norm", mixer, "mlp")
+    return ("norm", mixer, "mlp_norm", "mlp")
+
+
 class Block(nn.Module):
     """Pre-norm mixer (``attn`` for attention kinds, ``rglru`` for the
-    recurrent one) + pre-norm MLP. Parameters are nested
-    ``ParameterDict``s in the reference's layouts and names."""
+    recurrent one) + MLP or MoE (``block_parts``). Parameters are nested
+    ``ParameterDict``s in the reference's layouts and names, one
+    attribute a group; ``parts`` names them in order."""
 
-    def __init__(self, kind: str, norm: nn.ParameterDict,
-                 mixer: nn.ParameterDict, mlp_norm: nn.ParameterDict,
-                 mlp: nn.ParameterDict) -> None:
+    def __init__(self, kind: str, **parts: nn.ParameterDict) -> None:
         super().__init__()
         self.kind = kind
-        self.norm = norm
-        setattr(self, "rglru" if kind in RECURRENT else "attn", mixer)
-        self.mlp_norm = mlp_norm
-        self.mlp = mlp
+        self.parts = tuple(parts)
+        for name, p in parts.items():
+            setattr(self, name, p)
 
 
 class Transformer(nn.Module):
@@ -107,11 +121,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = L._dense_init((cfg.d_model, cfg.padded_vocab), dt, gen, dev)
+    init = {"norm": L.init_norm, "mlp_norm": L.init_norm,
+            "attn": L.init_attention, "rglru": L.init_rglru,
+            "mlp": L.init_mlp, "moe": L.init_moe}
     blocks = [
-        Block(kind, L.init_norm(cfg, dev),
-              (L.init_rglru if kind in RECURRENT else L.init_attention)(
-                  cfg, gen, dev),
-              L.init_norm(cfg, dev), L.init_mlp(cfg, gen, dev))
+        Block(kind, **{
+            name: (init[name](cfg, dev) if name.endswith("norm")
+                   else init[name](cfg, gen, dev))
+            for name in block_parts(cfg, kind)})
         for kind in cfg.layer_kinds
     ]
     return Transformer(cfg, embed, L.init_norm(cfg, dev), lm_head, blocks)
@@ -157,7 +174,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _run_block(blk: Block, x, cfg: ModelConfig, *, positions, cache, valid,
-               collect: bool):
+               collect: bool, mrope_positions=None):
+    """Returns (x, cache entry, MoE aux loss or None)."""
     h = L.apply_norm(blk.norm, x, cfg)
     if blk.kind in RECURRENT:
         y, h_fin, conv = L.apply_rglru(
@@ -176,16 +194,23 @@ def _run_block(blk: Block, x, cfg: ModelConfig, *, positions, cache, valid,
                   else cfg.sliding_window)
         y, new = L.attention_forward(
             blk.attn, h, cfg, positions=positions, window=window,
-            kv_cache=cache, valid=valid,
+            kv_cache=cache, valid=valid, mrope_positions=mrope_positions,
         )
     x = x + y
-    hm = L.apply_norm(blk.mlp_norm, x, cfg)
-    return x + L.apply_mlp(blk.mlp, hm, cfg), new
+    if "moe" in blk.parts:
+        y, aux = L.apply_moe(blk.moe, L.apply_norm(blk.mlp_norm, x, cfg), cfg)
+        return x + y, new, aux
+    # a parallel block's MLP reads the pre-attention h (Command R+)
+    hm = h if cfg.parallel_block else L.apply_norm(blk.mlp_norm, x, cfg)
+    return x + L.apply_mlp(blk.mlp, hm, cfg), new, None
 
 
-def _block_hidden(blk: Block, x, cfg: ModelConfig, positions, valid):
-    return _run_block(blk, x, cfg, positions=positions, cache=None,
-                      valid=valid, collect=False)[0]
+def _block_hidden(blk: Block, x, cfg: ModelConfig, positions, valid,
+                  mrope_positions):
+    x, _, aux = _run_block(blk, x, cfg, positions=positions, cache=None,
+                           valid=valid, collect=False,
+                           mrope_positions=mrope_positions)
+    return x, aux
 
 
 def head(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -198,17 +223,27 @@ def head(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
 def forward(
     params: Transformer,
     cfg: ModelConfig,
-    tokens: torch.Tensor,  # (B, T) int
+    tokens: Optional[torch.Tensor] = None,  # (B, T) int
     *,
+    embeds: Optional[torch.Tensor] = None,  # (B, T, d) modality stub
     cache: Optional[Cache] = None,
     positions: Optional[torch.Tensor] = None,  # (B, T) int32
     valid: Optional[torch.Tensor] = None,  # (B, T) bool
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, T)
     return_hidden: bool = False,
     collect_states: bool = False,
     remat: bool = False,
+    return_aux: bool = False,
 ):
     """Returns (logits (B,T,V_padded) f32, cache | per-layer entries:
-    (k, v, pos) for attention, {"h", "conv"} final states for RG-LRU).
+    (k, v, pos) for attention, {"h", "conv"} final states for RG-LRU),
+    and with ``return_aux`` a third value, the MoE layers' summed
+    load-balance loss (a float32 0-d tensor, 0 without MoE: the
+    reference's third return value, which only the learner reads).
+
+    ``embeds`` (the stub of a vision front end) replaces the token
+    embedding lookup, and ``mrope_positions`` (3, B, T) gives M-RoPE its
+    three position streams, as in the reference.
 
     With a cache the layer caches are written in place and a ``Cache`` of
     the same tensors (lengths untouched) comes back. With
@@ -224,46 +259,56 @@ def forward(
     returns no cache entry (None)."""
     if remat and cache is not None:
         raise ValueError("remat is for full-sequence (training) forwards")
-    # F.embedding, not indexing: its backward on CUDA sums the rows of a
-    # repeated token in a fixed order (indexing's accumulates by atomics),
-    # so a training step is bit-reproducible
-    x = F.embedding(tokens, params.embed).to(L.torch_dtype(cfg.dtype))
-    B, T = tokens.shape
+    dt = L.torch_dtype(cfg.dtype)
+    if embeds is None:
+        # F.embedding, not indexing: its backward on CUDA sums the rows of
+        # a repeated token in a fixed order (indexing's accumulates by
+        # atomics), so a training step is bit-reproducible
+        x = F.embedding(tokens, params.embed).to(dt)
+    else:
+        x = embeds.to(dt)
+    B, T = x.shape[:2]
     if positions is None:
         ar = torch.arange(T, dtype=torch.int32, device=x.device)[None]
         positions = (cache.lengths[:, None] + ar if cache is not None
                      else ar.expand(B, T))
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     kv_out = []
     for li, blk in enumerate(params.layers):
         if remat:
-            x = checkpoint(_block_hidden, blk, x, cfg, positions, valid,
-                           use_reentrant=False)
-            kv_out.append(None)
-            continue
-        c = cache.layers[li] if cache is not None else None
-        x, kv = _run_block(blk, x, cfg, positions=positions, cache=c,
-                           valid=valid, collect=collect_states)
+            x, aux = checkpoint(_block_hidden, blk, x, cfg, positions, valid,
+                                mrope_positions, use_reentrant=False)
+            kv = None
+        else:
+            c = cache.layers[li] if cache is not None else None
+            x, kv, aux = _run_block(blk, x, cfg, positions=positions,
+                                    cache=c, valid=valid,
+                                    collect=collect_states,
+                                    mrope_positions=mrope_positions)
+        if aux is not None:
+            aux_total = aux_total + aux
         kv_out.append(kv)
     x = L.apply_norm(params.final_norm, x, cfg)
     out = x if return_hidden else head(params, cfg, x)
-    if cache is not None:
-        return out, Cache(kv_out, cache.lengths)
-    return out, kv_out
+    kv_ret = Cache(kv_out, cache.lengths) if cache is not None else kv_out
+    return (out, kv_ret, aux_total) if return_aux else (out, kv_ret)
 
 
 def prefill(params: Transformer, cfg: ModelConfig, tokens, pad_mask,
-            max_len: int, *, headroom: int = 64):
-    """Left-padded prompt prefill. tokens (B, Tp), pad_mask (B, Tp) bool
-    (False = left pad). Returns (last_logits (B, V), cache) with
-    ``cache.lengths`` = per-row prompt lengths. Only the last column's
-    logits are computed (rows are right-aligned)."""
-    B, Tp = tokens.shape
-    dev = tokens.device
+            max_len: int, *, embeds=None, headroom: int = 64,
+            mrope_positions=None):
+    """Left-padded prompt prefill. tokens (B, Tp) or embeds (B, Tp, d),
+    pad_mask (B, Tp) bool (False = left pad). Returns (last_logits (B,
+    V), cache) with ``cache.lengths`` = per-row prompt lengths. Only the
+    last column's logits are computed (rows are right-aligned)."""
+    B, Tp = pad_mask.shape
+    dev = pad_mask.device
     plen = pad_mask.sum(-1).to(torch.int32)
     positions = torch.cumsum(pad_mask.to(torch.int32), dim=-1) - 1
     positions = torch.where(pad_mask, positions, -1).to(torch.int32)
-    hidden, kv = forward(params, cfg, tokens, positions=positions,
-                         valid=pad_mask, return_hidden=True)
+    hidden, kv = forward(params, cfg, tokens, embeds=embeds,
+                         positions=positions, valid=pad_mask,
+                         mrope_positions=mrope_positions, return_hidden=True)
     last_logits = head(params, cfg, hidden[:, -1:])[:, 0]
     cache = init_cache(cfg, B, max_len, headroom, device=dev)
     bidx = torch.arange(B, device=dev)[:, None]

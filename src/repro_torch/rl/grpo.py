@@ -9,9 +9,12 @@ autograd through the model, with the memory-bounded flash attention's
 hand-written backward at 2048+ tokens and per-chunk recompute of the
 logits tile here, so the (B, S, V) float32 logits never exist.
 
-The port's models carry no MoE auxiliary loss and no modality inputs
-(``models.model.check_supported``): a batch with ``embeds``,
-``mrope_positions`` or ``enc_embeds`` raises.
+An MoE model's load-balance loss (``forward(return_aux=True)``) is added
+to the GRPO and SFT losses, as in the reference. A batch may carry the
+vision stub's ``embeds`` (replacing the token embedding lookup) and
+``mrope_positions`` (3, B, S); the encoder-decoder's ``enc_embeds`` /
+``enc_mask`` are not ported (``models.model.check_supported``) and
+raise.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
-_UNSUPPORTED_KEYS = ("embeds", "mrope_positions", "enc_embeds", "enc_mask")
+_UNSUPPORTED_KEYS = ("enc_embeds", "enc_mask")
 
 
 @dataclass(frozen=True)
@@ -119,8 +122,10 @@ def grpo_loss(
     update). Returns (loss, metrics), both differentiable 0-d tensors."""
     _check_batch(batch)
     tokens = batch["tokens"]
-    hidden, _ = M.forward(params, cfg, tokens, remat=gcfg.remat,
-                          return_hidden=True)
+    hidden, _, aux = M.forward(
+        params, cfg, tokens, embeds=batch.get("embeds"),
+        mrope_positions=batch.get("mrope_positions"), remat=gcfg.remat,
+        return_hidden=True, return_aux=True)
     lp = chunked_token_logprobs(params, cfg, hidden, tokens)
     mask = batch["resp_mask"].float()
     adv = batch["advantages"][:, None]
@@ -131,7 +136,6 @@ def grpo_loss(
     pg = -torch.minimum(unclipped, clipped)
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = (pg * mask).sum() / denom
-    aux = torch.zeros((), device=loss.device)  # no MoE in the port
     metrics = {"pg_loss": loss, "aux_loss": aux}
     if gcfg.kl_coef > 0:
         # k3 estimator of KL(new || old)
@@ -193,11 +197,12 @@ def make_sft_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig):
     def sft_step(params, opt_state, batch):
         _check_batch(batch)
         tokens = batch["tokens"]
-        hidden, _ = M.forward(params, cfg, tokens, return_hidden=True)
+        hidden, _, aux = M.forward(params, cfg, tokens, return_hidden=True,
+                                   return_aux=True)
         lp = chunked_token_logprobs(params, cfg, hidden, tokens)
         mask = batch["resp_mask"].float()
         ce = -(lp * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-        grads = param_grads(params, ce)
+        grads = param_grads(params, ce + aux)
         params, opt_state, om = adamw.apply_updates(ocfg, params, grads,
                                                     opt_state)
         metrics = {"sft_loss": ce.detach()}

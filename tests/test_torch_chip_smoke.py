@@ -7,7 +7,8 @@ kernel's work. Integers only: bit-identical. The RG-LRU scan's bound
 counts the bytes of the steps its mask updates, counted here by hand;
 its launches split by shape into the JSON line's entries. The scan's
 backward bound counts x, r, i and h_{t-1} at the updated steps and the
-rest at every step.
+rest at every step. Phases 10 and 11 are rehearsed at small widths on the
+CPU, where the kernels' plain versions run and the launch gates are off.
 """
 
 import importlib.util
@@ -261,6 +262,69 @@ def test_phase10_bf16_witness_on_cpu():
         dtype="bfloat16")
     cs.phase_multiworker(torch, np, "cpu", cfg=cfg2, dev="cpu",
                          max_new_tokens=12, resume=False)
+
+
+# ---------------------------------------------------------------------------
+# phase 11's helpers rehearsed on the CPU at small widths
+# ---------------------------------------------------------------------------
+
+def _small(arch, **over):
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import model as M
+
+    cfg = smoke_variant(get_config(arch)).replace(
+        d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
+        **over)
+    return cfg, M.init_params(cfg, seed=0, device="cpu")
+
+
+def test_phase11_families_on_cpu():
+    """11c (parallel blocks: epoch identity and the plain-greedy witness)
+    and 11e (MoE: the ``apply_moe`` spy's kept calls replayed through the
+    plain float32 layer, in lock-step and, at a smaller traffic than the
+    card's, in continuous serving) at small widths; then 11d's embeds
+    forward, M-RoPE check and GRPO step on the Qwen2-VL backbone."""
+    cs = _chip_smoke()
+    traffic = dict(dev="cpu", limits=(8, 16), prompt_len=(6, 12))
+    cfg, params = _small("command-r-plus-104b")
+    launches, _ = cs.phase_family(torch, np, "cpu", cfg, params, "11c",
+                                  **traffic)
+    assert launches["spec_verify_attention"] == 0  # plain versions here
+    cfg, params = _small("mixtral-8x7b")
+    cs.phase_family(torch, np, "cpu", cfg, params, "11e", **traffic)
+    spy = cs.MoeSpy()
+    cs.continuous_layouts(torch, np, cfg, params, "cpu", "cpu", slots=2,
+                          n_problems=2, n_requests=4, limits=(8, 16),
+                          prompt_len=(6, 12), layouts=("chunked",),
+                          lockstep=False, spies=(spy,))
+    spy.check(torch, "cpu", cfg, "11e continuous")
+    cfg, params = _small("qwen2-vl-2b", mrope_sections=(2, 3, 3))
+    cs.phase_vlm(torch, np, "cpu", cfg, params, dev="cpu", B=2, S=64)
+
+
+def test_moe_replay_catches_a_wrong_slot():
+    """A kept MoE call whose slots are not the plain computation's stops
+    the run; its own routing passes."""
+    from repro_torch.models import layers as L
+
+    cs = _chip_smoke()
+    cfg, params = _small("mixtral-8x7b", capacity_factor=0.5)
+    moe = params.layers[0].moe
+    spy = cs.MoeSpy()
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 9, cfg.d_model)).astype(np.float32))
+    with spy:
+        for _ in range(2):
+            spy.new_epoch()
+            L.apply_moe(moe, x, cfg)
+    assert L.apply_moe is spy.real
+    assert int(spy.dropped) > 0  # the capacity binds
+    kept = list(spy.kept)
+    spy.check(torch, "cpu", cfg, "ok")
+    p, x_, y, gi, slot, keep = kept[0]
+    spy.kept = [(p, x_, y, gi, slot.flip(0), keep)] * 2
+    with pytest.raises(SystemExit):
+        spy.check(torch, "cpu", cfg, "mutated")
 
 
 def test_greedy_shortfalls_and_first_divergence():

@@ -1,9 +1,11 @@
-"""The JAX-free modules the RL slice copies into the port (``data``,
-``fault/{watchdog,drain}``, ``obs``, ``history/persist``) against their
-originals: the same seeds give the same problems, rewards and shuffles;
-the same telemetry calls give the same Prometheus text; the watchdog and
-drain controller behave alike on a virtual clock; and a port engine's
-history payload restores into a fresh engine."""
+"""The JAX-free modules the port copies (``data``, ``fault/{watchdog,
+drain}``, ``obs``, ``history/persist``, ``core/suffix_array``, the model
+configs) against their originals: the same seeds give the same problems,
+rewards and shuffles; the same telemetry calls give the same Prometheus
+text; the watchdog and drain controller behave alike on a virtual clock;
+a port engine's history payload restores into a fresh engine; the suffix
+array's source is the original's and it answers the same queries; every
+config the port registers equals the reference's."""
 
 import numpy as np
 import pytest
@@ -120,3 +122,40 @@ def test_engine_history_round_trips_through_persist():
     a.begin_iteration(2)
     assert a.generate(prompts, ["p0", "p1"])[0] == \
         b.generate(prompts, ["p0", "p1"])[0]
+
+
+def test_suffix_array_copy_matches_original():
+    import inspect
+
+    import repro.core.suffix_array as jsa
+    import repro_torch.core.suffix_array as tsa
+
+    assert inspect.getsource(tsa) == inspect.getsource(jsa)
+    rng = np.random.default_rng(8)
+    docs = [list(rng.integers(0, 6, size=n)) for n in (30, 12, 45)]
+    ja, ta = jsa.SuffixArray(), tsa.SuffixArray()
+    for d in docs:
+        ja.add_document(d)
+        ta.add_document(d)
+    np.testing.assert_array_equal(ta.sa, ja.sa)
+    np.testing.assert_array_equal(ta.text, ja.text)
+    for _ in range(20):
+        ctx = list(rng.integers(0, 6, size=int(rng.integers(1, 12))))
+        assert ta.longest_suffix_match(ctx) == ja.longest_suffix_match(ctx)
+        assert ta.find_range(ctx[-3:]) == ja.find_range(ctx[-3:])
+        assert ta.propose(ctx, 4) == ja.propose(ctx, 4)
+
+
+def test_registered_configs_equal_the_reference():
+    import dataclasses
+
+    from repro.configs import get_config as jget
+    from repro_torch.configs import REGISTRY, smoke_variant
+    from repro.configs import smoke_variant as jsmoke
+
+    assert {"yi-9b", "chatglm3-6b", "command-r-plus-104b", "qwen2-vl-2b",
+            "mixtral-8x7b", "arctic-480b"} <= set(REGISTRY)
+    for name, cfg in REGISTRY.items():
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jget(name))
+        assert (dataclasses.asdict(smoke_variant(cfg))
+                == dataclasses.asdict(jsmoke(jget(name))))

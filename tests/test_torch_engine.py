@@ -4,7 +4,10 @@ RG-LRU + local attention, so verify rounds collect staged recurrent
 states and gather them at the acceptance count).
 
 Same weights (JAX ``init_params`` through numpy), same prompts and
-problem ids, T = 0. Two ``generate`` calls over the same problems, so the
+problem ids, T = 0. Mixtral's smoke variant (MoE, whose capacity makes a
+token depend on its forward's other tokens, so identity also holds the
+port to the reference's batches: pads and dead rows routed too) and
+Command R+'s (parallel blocks) run the fused path. Two ``generate`` calls over the same problems, so the
 second drafts from the first one's trees. Checked for the fused path
 (``fuse_rounds="auto"``, scope ``problem``: device drafting through the
 suffix-match plain version) and the unfused path (``fuse_rounds="off"``,
@@ -49,8 +52,17 @@ PROMPT_SEED = 1
 # vocab 1024); weight seed 4 keeps the top-2 gap above MIN_GAP. One K
 # bucket: each bucket is one more JAX compilation of the hybrid round.
 HYBRID = jax_smoke_variant(jax_get_config("recurrentgemma-9b"))
+# Mixtral's smoke variant (MoE: 4 experts, top 2, capacity 1.25, window
+# 64) and Command R+'s (parallel blocks, LayerNorm, tied embeddings), one
+# K bucket each. A MoE token's output depends on the other tokens of its
+# forward (the capacity), so identity also needs the port to route the
+# same batches of tokens as the reference: pads and dead rows included.
+MOE = jax_smoke_variant(jax_get_config("mixtral-8x7b"))
+PARALLEL = jax_smoke_variant(jax_get_config("command-r-plus-104b"))
 FAMILIES = {"dense": (CFG, WEIGHT_SEED, (0, 2, 4)),
-            "hybrid": (HYBRID, 4, (4,))}
+            "hybrid": (HYBRID, 4, (4,)),
+            "moe": (MOE, 0, (4,)),
+            "parallel": (PARALLEL, 5, (4,))}
 MAX_NEW = [24, 12, 30, 18]
 PIDS = ["a", "b", "a", "c"]
 MIN_GAP = 1e-3  # 5x the cross-framework logits tolerance
@@ -101,9 +113,13 @@ def _min_top2_gap(jparams, prompts, outs, jcfg=CFG):
     return gap
 
 
-@pytest.mark.parametrize("family", ["dense", "hybrid"])
-@pytest.mark.parametrize("fuse,scope", [("auto", "problem"),
-                                        ("off", "problem+request")])
+@pytest.mark.parametrize("fuse,scope,family", [
+    ("auto", "problem", "dense"), ("off", "problem+request", "dense"),
+    ("auto", "problem", "hybrid"), ("off", "problem+request", "hybrid"),
+    # the main (fused) path only for the families whose layers, not
+    # rounds, are new: each case is one more JAX compilation
+    ("auto", "problem", "moe"), ("auto", "problem", "parallel"),
+])
 def test_generate_token_identical_to_jax(fuse, scope, family):
     jparams, jeng, teng = _engines(fuse, scope, family)
     jcfg = FAMILIES[family][0]

@@ -11,8 +11,12 @@
   decoder and for the hybrid (RecurrentGemma-9B's smoke pattern at the
   same small width: two RG-LRU layers, whose gradient runs through the
   scan's backward, and a local-attention layer of window 64, through the
-  flash backward past the window at S = 2048); ``remat=True`` gives the
-  ``remat=False`` loss and gradients exactly, for both;
+  flash backward past the window at S = 2048), for Mixtral's smoke
+  pattern (MoE, its load-balance loss in the loss and the metrics) and
+  for the Qwen2-VL backbone on a batch of stub ``embeds`` with three
+  distinct M-RoPE position streams; ``remat=True`` gives the
+  ``remat=False`` loss and gradients exactly, for the dense decoder and
+  the hybrid;
 * three AdamW steps (warmup, cosine, weight decay and clipping all
   active) against ``apply_updates``: parameters, ``mu``, ``nu`` and the
   three metrics, float32 within rtol 1e-5, and bfloat16 parameters (the
@@ -56,6 +60,10 @@ SMALL = dict(d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
              vocab_size=96, vocab_pad_multiple=32)
 # the hybrid at the same width: rglru, rglru, local_attn (window 64), MQA
 HYBRID = dict(SMALL, arch="recurrentgemma-9b", num_kv_heads=1, rnn_width=64)
+# MoE at the same width: 4 experts, top 2, window 64
+MOE = dict(SMALL, arch="mixtral-8x7b")
+# the VLM backbone: M-RoPE sections summing to the rotary half of hd 16
+VLM = dict(SMALL, arch="qwen2-vl-2b", mrope_sections=(2, 3, 3))
 
 
 def _params(jcfg, cfg, seed=0, dtype=None):
@@ -128,7 +136,19 @@ GRPO_CASES = {
     "hybrid_surrogate": (dict(), HYBRID, 4, 40),
     # 3 layers: 2 would hold no attention layer
     "hybrid_flash_2048": (dict(kl_coef=0.05), HYBRID, 2, 2048),
+    "moe_surrogate": (dict(), MOE, 4, 40),
+    "vlm_embeds": (dict(), VLM, 4, 40),
 }
+
+
+def _modality_inputs(cfg, B, S, seed):
+    """Stub vision embeddings and three distinct position streams."""
+    rng = np.random.default_rng(seed)
+    embeds = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    t = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    pos3 = np.stack([t, rng.integers(0, S, size=(B, S)),
+                     rng.integers(0, S, size=(B, S))]).astype(np.int32)
+    return {"embeds": embeds, "mrope_positions": pos3}
 
 
 @pytest.mark.parametrize("case", sorted(GRPO_CASES))
@@ -137,19 +157,26 @@ def test_grpo_loss_and_grads_match_jax(case):
     jcfg, cfg = _cfgs(**{**SMALL, **ckw})
     jparams, params = _params(jcfg, cfg, seed=2)
     tokens, resp, adv, noise = _batch(cfg, B, S, seed=3)
-    jold = np.asarray(jgrpo.compute_old_logprobs(jparams, jcfg,
-                                                 jnp.asarray(tokens)))
+    # the reference runs jitted, as its train step does
+    jold = np.asarray(jax.jit(jgrpo.compute_old_logprobs, static_argnums=1)(
+        jparams, jcfg, jnp.asarray(tokens)))
     told = grpo.compute_old_logprobs(params, cfg, torch.from_numpy(tokens))
     np.testing.assert_allclose(told.numpy(), jold, **LP_TOL)
     old = jold + noise  # ratios away from 1: clipping is active
     jg = jgrpo.GRPOConfig(**gkw)
     jbatch = {"tokens": jnp.asarray(tokens), "resp_mask": jnp.asarray(resp),
               "advantages": jnp.asarray(adv), "old_logprobs": jnp.asarray(old)}
-    (jloss, jm), jgrads = jax.value_and_grad(
-        lambda p: jgrpo.grpo_loss(p, jcfg, jg, jbatch), has_aux=True)(jparams)
     tb = {"tokens": torch.from_numpy(tokens), "resp_mask": torch.from_numpy(resp),
           "advantages": torch.from_numpy(adv),
           "old_logprobs": torch.from_numpy(old)}
+    if cfg.rope == "mrope":
+        extra = _modality_inputs(cfg, B, S, seed=4)
+        jbatch.update({k: jnp.asarray(v) for k, v in extra.items()})
+        tb.update({k: torch.from_numpy(v) for k, v in extra.items()})
+    (jloss, jm), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jgrpo.grpo_loss(p, jcfg, jg, jbatch), has_aux=True))(jparams)
+    if cfg.num_experts:
+        assert float(jm["aux_loss"]) > 0
     loss, m = grpo.grpo_loss(params, cfg, grpo.GRPOConfig(**gkw), tb)
     grads = grpo.param_grads(params, loss)
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5, atol=1e-7)
@@ -189,12 +216,17 @@ def test_grpo_remat_gives_the_same_grads_hybrid():
     _remat_gives_the_same_grads(HYBRID)
 
 
+def test_grpo_remat_gives_the_same_grads_moe():
+    """The load-balance loss comes out of each checkpointed block too."""
+    _remat_gives_the_same_grads(MOE)
+
+
 def test_grpo_refuses_modality_batches():
     jcfg, cfg = _cfgs(**SMALL)
     _, params = _params(jcfg, cfg)
     tb = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-          "embeds": torch.zeros((1, 8, cfg.d_model))}
-    with pytest.raises(NotImplementedError, match="embeds"):
+          "enc_embeds": torch.zeros((1, 8, cfg.d_model))}
+    with pytest.raises(NotImplementedError, match="enc_embeds"):
         grpo.grpo_loss(params, cfg, grpo.GRPOConfig(), tb)
 
 

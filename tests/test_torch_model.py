@@ -1,7 +1,10 @@
 """The port's model against the JAX package on the same weights: dense
-decoders and the hybrid RG-LRU + local-attention stack (RecurrentGemma's
-smoke variant, and an 8-layer cut of it whose layers form a scanned
-stage of two units plus two remainder stages).
+decoders (Qwen3, Qwen2, Yi, ChatGLM3's partial RoPE with QKV bias,
+Command R+'s parallel blocks with LayerNorm and tied embeddings), the
+Qwen2-VL backbone's M-RoPE, the MoE decoders (Mixtral's sliding window,
+Arctic's dense residual) and the hybrid RG-LRU + local-attention stack
+(RecurrentGemma's smoke variant, and an 8-layer cut of it whose layers
+form a scanned stage of two units plus two remainder stages).
 
 JAX ``init_params`` weights cross through numpy (``params_from_numpy``);
 prefill over left-padded prompts and one cached 5-token verify block go
@@ -82,13 +85,22 @@ def _configs(tiny_dense):
         "qwen2_1_5b_smoke": jax_smoke_variant(jax_get_config("qwen2-1.5b")),
         "recurrentgemma_9b_smoke": hybrid,
         "recurrentgemma_9b_smoke_8_layers": hybrid.replace(num_layers=8),
+        **{arch.replace("-", "_").replace(".", "_") + "_smoke":
+           jax_smoke_variant(jax_get_config(arch)) for arch in NEW_ARCHS},
     }
 
 
-@pytest.mark.parametrize("name", ["tiny_dense", "qwen3_8b_smoke",
-                                  "qwen2_1_5b_smoke",
-                                  "recurrentgemma_9b_smoke",
-                                  "recurrentgemma_9b_smoke_8_layers"])
+# the other decoder families: dense (yi, chatglm3), parallel blocks
+# (command-r), M-RoPE (qwen2-vl), MoE (mixtral, arctic)
+NEW_ARCHS = ("yi-9b", "chatglm3-6b", "command-r-plus-104b", "qwen2-vl-2b",
+             "mixtral-8x7b", "arctic-480b")
+
+
+@pytest.mark.parametrize("name", [
+    "tiny_dense", "qwen3_8b_smoke", "qwen2_1_5b_smoke",
+    "recurrentgemma_9b_smoke", "recurrentgemma_9b_smoke_8_layers",
+    "yi_9b_smoke", "chatglm3_6b_smoke", "command_r_plus_104b_smoke",
+    "qwen2_vl_2b_smoke", "mixtral_8x7b_smoke", "arctic_480b_smoke"])
 def test_prefill_and_cached_block_match_jax(tiny_dense, name):
     jcfg = _configs(tiny_dense)[name]
     assert jcfg.dtype == "float32"
@@ -140,7 +152,8 @@ def test_prefill_and_cached_block_match_jax(tiny_dense, name):
 
 
 @pytest.mark.parametrize("arch,n_layers", [("qwen3-8b", 2),
-                                           ("recurrentgemma-9b", 6)])
+                                           ("recurrentgemma-9b", 6),
+                                           *((a, 2) for a in NEW_ARCHS)])
 def test_init_params_shapes_and_scale(arch, n_layers):
     jcfg = jax_smoke_variant(jax_get_config(arch)).replace(
         num_layers=n_layers)
@@ -157,16 +170,28 @@ def test_init_params_shapes_and_scale(arch, n_layers):
     for ui, kind in enumerate(unit):
         blk, jblk = params.layers[ui], ref["stages"][0][ui]
         assert blk.kind == kind
-        mixer = "rglru" if kind == "rglru" else "attn"
-        for group in ("norm", mixer, "mlp_norm", "mlp"):
-            for k, v in getattr(blk, group).items():
-                assert tuple(v.shape) == jblk[group][k].shape[1:], (group, k)
+        assert sorted(blk.parts) == sorted(jblk)  # parallel: no mlp_norm
+
+        def same_shapes(group, jgroup, path):
+            assert sorted(group.keys()) == sorted(jgroup), path
+            for k, v in group.items():
+                if isinstance(v, torch.nn.ParameterDict):  # Arctic's dense
+                    same_shapes(v, jgroup[k], path + (k,))
+                    continue
+                assert tuple(v.shape) == jgroup[k].shape[1:], path + (k,)
                 assert v.dtype == torch.float32
+
+        for group in blk.parts:
+            same_shapes(getattr(blk, group), jblk[group], (group,))
         # N(0,1)/sqrt(fan_in): the std of wq (wx) is 1/sqrt(d_model), like
-        # JAX's
-        w = blk.rglru["wx"] if kind == "rglru" else blk.attn["wq"]
-        std = float(w.std())
-        assert abs(std - 1 / np.sqrt(cfg.d_model)) < 0.1 / np.sqrt(cfg.d_model)
+        # JAX's; an expert stack (E, d, f) takes its fan-in from d
+        ws = [blk.rglru["wx"] if kind == "rglru" else blk.attn["wq"]]
+        if "moe" in blk.parts:
+            ws += [blk.moe["wi"], blk.moe["router"]]
+        for w in ws:
+            std = float(w.std())
+            assert abs(std - 1 / np.sqrt(cfg.d_model)) < 0.1 / np.sqrt(
+                cfg.d_model)
         if kind == "rglru":  # Λ's init is deterministic
             np.testing.assert_allclose(blk.rglru["lam"].numpy(),
                                        jblk["rglru"]["lam"][0], rtol=1e-5)
