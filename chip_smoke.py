@@ -30,7 +30,9 @@ non-zero; no phase's error is caught):
    8, T 17, hd 128, phase 11's ring of 385 slots at its fill and full):
    ChatGLM3's 32/2 heads (G = 16: 272 query rows a kv head, three
    128-row CTAs), Command R+'s 96/8 (G = 12) and Arctic's 56/8 (G = 7),
-   each with its plan, error and kernel / plain / SDPA / bound times;
+   each with its plan, error and kernel / plain / SDPA / bound times,
+   and at phase 12c's (B 4, T 1, SeamlessM4T-medium's 16/16 heads of
+   64, G = 1, its ring of 97 slots);
    suffix-match flat and chunked (a warp a row, 33-way edge
    search from staged splitters) bit-identical, the chunked kernel also
    against the flat one over the same trees, at a forest larger than
@@ -155,10 +157,10 @@ non-zero; no phase's error is caught):
        Twice: in bf16 against phase 5's epoch 1, every journaled prefix
        equal to it and every resumed token within 0.25 logit of plain
        greedy's top (the shortfalls where an output departs from phase
-       5's logged), then on the same weights cut to their first 12
+       5's logged), then on the same weights cut to their first 6
        layers (``F32_RESUME_LAYERS``) and upcast to float32 against an
        uninterrupted float32 run, every prefix and output equal;
-   10c. (after phase 8) ``Trainer.run`` on Qwen2-1.5B, its first 14 of
+   10c. (after phase 8) ``Trainer.run`` on Qwen2-1.5B, its first 7 of
        28 layers (``MULTIWORKER_LAYERS``), with two workers
        over the in-process sharded history service, ``fault_tolerant``,
        journals and the flight recorder at T = 0 on 8e's task: a shard
@@ -204,7 +206,35 @@ non-zero; no phase's error is caught):
    position streams) held to the same forward on the weights upcast to
    float32, M-RoPE on text positions against standard RoPE bit for bit,
    and a GRPO step on that batch (the surrogate at ratio 1, finite
-   gradients, the update norm, a lower surrogate after it).
+   gradients, the update norm, a lower surrogate after it);
+12. the two families with no decoder-only attention stack:
+   12a. xLSTM-125M whole (12 mLSTM/sLSTM layers, no attention, bf16):
+       phase 4's lock-step traffic with limits 32 and 64 (flat forest)
+       and 11e's continuous traffic (16 requests over 8 problems in 8
+       slots, chunked forest), two epochs each: the drafting kernels'
+       kept launches bit-identical, spec-verify exactly 0 launches (the
+       count for a model with no attention layer, gated), epoch 2 equal
+       to epoch 1 and accepting drafts; plain greedy's shortfalls by one
+       batched full-sequence forward reported beside the same forward on
+       the weights upcast to float32 (xLSTM amplifies a bf16 rounding
+       past any logit tolerance: 12b is the exact witness); the wall a
+       round and one verify forward's kernel launches (``torch.profiler``)
+       and wall;
+   12b. the same lock-step traffic in float32 on the first 4 layers
+       (``XLSTM_F32_LAYERS``): epoch 2 equal to epoch 1 and every token
+       plain greedy's argmax (DAS's output identity, exact), and the
+       staged states gathered at n_commit equal to a ``commit_upto``
+       forward's committed carry bit for bit in every layer;
+   12c. SeamlessM4T-medium (12 encoder and 12 decoder layers, d 1024,
+       vocab 256,206, bf16): ``encode`` over 4 stub utterances of 1,024
+       frames (one cut to 768), ``build_cross_cache``, a 32-token
+       ``prefill`` and 64 greedy steps through the ring and the cross
+       cache: spec-verify once per decoder layer a step, its kept
+       launches within the bf16 tolerance of the plain version, the
+       cached logits within ``TOL_LOGIT_BF16`` of a full
+       ``forward(enc_out=)`` over the same tokens and every token within
+       it of that forward's top; then on the first 2 encoder and decoder
+       layers upcast to float32, every token the full forward's argmax.
 
 The last lines are the card line, the per-kernel JSON line and the
 result line ``{"ok": true, "device": {...}}``. A kernel's ``launches``
@@ -220,8 +250,9 @@ at Qwen3-8B's (10b) and ``spec_verify_attention_qwen2_f32`` at Qwen2-
 1.5B's (10c); the scan's backward: phase 9; each phase-11 family's
 spec-verify launches have an entry of their own, timed on that run's
 kept launches: ``spec_verify_attention_{yi,chatglm3,command_r,
-qwen2_vl,mixtral,arctic}``, the drafting kernels counting phase 11's
-launches too); the drafting
+qwen2_vl,mixtral,arctic}``, and so have 12c's bf16 and float32 runs,
+``spec_verify_attention_seamless`` and ``..._seamless_f32``; the
+drafting kernels count phases 11 and 12's launches too); the drafting
 kernels' times and bounds there are at the path's own shapes (phases
 3b and 3c are logged). The scan has an entry per shape class, split by
 the wrapper's launches by (B, T): ``rglru_scan`` at the verify shape
@@ -237,6 +268,7 @@ step beside it.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -575,6 +607,15 @@ def phase_spec_verify(torch, np, timer, card):
                           SV_FAMILY_RING, SV_FAMILY_RING, 0, 128,
                           SV_FAMILY_FILL)
         family_err[name] = max(e["max_abs_err"], edge_err["bfloat16"])
+    # phase 12c's layout, which no earlier path runs: SeamlessM4T-medium's
+    # decoder self-attention, 16/16 heads of 64 (G = 1), one query a row
+    # (greedy decode, T 1) at B 4, its ring of 96 (+1) slots filled by the
+    # 32-token prompt and up to 64 steps
+    e = sv_main_shape(torch, np, timer, card, 4, 1, 16, 16, 64,
+                      SEAMLESS_RING, SEAMLESS_RING, 0, SEAMLESS_PROMPT,
+                      (SEAMLESS_PROMPT, SEAMLESS_RING - 1))
+    family_err["spec_verify_attention_seamless"] = max(
+        e["max_abs_err"], edge_err["bfloat16"])
     return entries, f32_err, family_err
 
 
@@ -1360,6 +1401,23 @@ def check_rglru_launches(cfg, launches, n_fwd, where):
           f"{where}: the RG-LRU launches by shape do not sum to the total")
 
 
+def has_attention(cfg):
+    return any(k in ("attn", "local_attn") for k in cfg.layer_kinds)
+
+
+def check_sv_spy(torch, card, cfg, spy, where):
+    """Holds a run's kept spec-verify launches to the plain version; a
+    model with no attention layer (xLSTM) must have launched none, a gate
+    stated rather than skipped (its count, 0, is ``check_sv_launches``')."""
+    if has_attention(cfg):
+        spy.check(torch, card, where)
+        return
+    check(spy.n == 0, f"{where}: spec-verify launched {spy.n} times in a "
+          "model with no attention layer")
+    log(f"{where}: spec-verify launched 0 times, as a model with no "
+        f"attention layer must  [{card}]")
+
+
 def check_sv_launches(cfg, launches, n_rounds, where):
     """One spec-verify launch per attention layer per verify round: the
     prefills run without the cache and never launch it."""
@@ -1615,15 +1673,15 @@ def lockstep_requests(np, vocab, prompt_len=(128, 256)):
                                                   for i in range(8)]
 
 
-# Depth cuts of earlier paths that make room for phase 11 inside the
-# script's time (widths stay the published ones): 10b's float32 drain and
-# resume on the first 12 of Qwen3-8B's 36 layers, phase 7's continuous
+# Depth cuts of earlier paths that make room for phases 11 and 12 inside
+# the script's time (widths stay the published ones): 10b's float32 drain
+# and resume on the first 6 of Qwen3-8B's 36 layers, phase 7's continuous
 # run on the first 14 of RecurrentGemma-9B's 38 (the lock-step runs, R = 1
-# and R = 4, keep all 38), 10c's trainers on 14 of Qwen2-1.5B's 28 (8's
-# RL loop keeps all 28), and phase 9 (``HYBRID_TRAIN_LAYERS``).
-F32_RESUME_LAYERS = 12
+# and R = 4, keep all 38), 10c's trainers on 7 of Qwen2-1.5B's 28 (8's RL
+# loop keeps all 28), and phase 9 (``HYBRID_TRAIN_LAYERS``).
+F32_RESUME_LAYERS = 6
 HYBRID_SERVE_LAYERS = 14
-MULTIWORKER_LAYERS = 14
+MULTIWORKER_LAYERS = 7
 
 
 def cut_depth(torch, params, cfg, n):
@@ -1739,7 +1797,7 @@ def phase_main_path(torch, np, card, cfg, params, micro_rounds=1,
         idle = s1.n_idle_rounds + s2.n_idle_rounds
         check_sv_launches(cfg, launches, s1.n_rounds + s2.n_rounds + idle,
                           where)
-        spy.check(torch, card, where)
+        check_sv_spy(torch, card, cfg, spy, where)
         sm_spy.check(torch, card, where)
         check(launches["suffix_match_propose_chunked"] == 0,
               "the chunked kernel launched on the flat lock-step path")
@@ -1917,7 +1975,7 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
             where = f"{cfg.name} continuous ({layout})"
             check_sv_launches(cfg, launches,
                               sum(r["stats"].n_rounds for r in runs), where)
-            sv.check(torch, card, where)
+            check_sv_spy(torch, card, cfg, sv, where)
             sm_spy.check(torch, card, where)
         result[layout] = (runs, launches, eng, sm_spy)
     c_runs, c_launch, c_eng, c_spy = result["chunked"]
@@ -3861,6 +3919,419 @@ def phase_families(torch, np, card, timer, err_3a):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 12: xLSTM-125M and the SeamlessM4T-medium encoder-decoder
+# ---------------------------------------------------------------------------
+
+# 12b: 12a's lock-step traffic in float32 on xLSTM-125M's first 4 of 12
+# layers (two mLSTM/sLSTM pairs; the cut keeps the script's time)
+XLSTM_F32_LAYERS = 4
+# 12c: B 4 stub utterances of 1,024 frames (the reference's workloads'
+# S_ENC, src/repro/launch/workloads.py:33), a 32-token prompt and 64
+# greedy steps through the ring and the cross cache; its float32 rerun on
+# the first 2 of the 12 encoder and of the 12 decoder layers
+SEAMLESS_S_ENC = 1024
+SEAMLESS_PROMPT = 32
+SEAMLESS_STEPS = 64
+SEAMLESS_F32_LAYERS = 2
+# 12c's ring: the prompt and the steps (max_len), plus the trash slot
+SEAMLESS_RING = SEAMLESS_PROMPT + SEAMLESS_STEPS + 1
+
+
+def greedy_witness_batched(torch, np, cfg, params, triples, card, tol,
+                           where, ref_params=None):
+    """Each (label, prompt, output) of ``triples`` against plain greedy
+    decoding: full-sequence forwards (no cache, the RG-LRU scan's plain
+    version) over prompt + output, all sequences right-padded into one
+    batch (a position's logits see only its prefix), the head applied
+    per row at the positions that emitted. With ``tol`` a token may fall
+    at most ``tol`` short of the top logit there (0: it is the argmax);
+    with ``tol`` None the shortfalls are only reported. ``ref_params``
+    (the same weights upcast to float32) runs the same forward again and
+    reports how far the model's own logits move between the two
+    precisions at those positions: the bf16 noise floor of a witness. An
+    output that is a prefix of another one checked for the same prompt
+    is covered by it. Logs, per label, the tokens, how many are the top,
+    the largest shortfall and the smallest top-2 gap; returns the
+    largest shortfall."""
+    from repro_torch.models import model as M
+
+    seqs = {}  # prompt -> the longest outputs, none a prefix of another
+    for _, p, o in triples:
+        have = seqs.setdefault(tuple(p), [])
+        if any(h[:len(o)] == list(o) for h in have):
+            continue
+        have[:] = [h for h in have if list(o)[:len(h)] != h] + [list(o)]
+    rows = [(p, o) for p, outs in seqs.items() for o in outs if o]
+    dev = params.embed.device
+    T = max(len(p) + len(o) for p, o in rows)
+    x = torch.zeros((len(rows), T), dtype=torch.int32, device=dev)
+    for b, (p, o) in enumerate(rows):
+        x[b, :len(p) + len(o)] = torch.tensor(list(p) + o, dtype=torch.int32)
+
+    def emitted_logits(prm, c):
+        with torch.inference_mode(), plain_rglru_scan():
+            hidden, _ = M.forward(prm, c, x, return_hidden=True)
+            return [M.head(prm, c, hidden[b:b + 1, len(p) - 1:
+                                         len(p) - 1 + len(o)])
+                    [0, :, :c.vocab_size].float()
+                    for b, (p, o) in enumerate(rows)]
+
+    lgs = emitted_logits(params, cfg)
+    res = {}
+    for lg, (p, o) in zip(lgs, rows):
+        top2 = torch.topk(lg, 2, dim=-1).values
+        chosen = lg.gather(1, torch.tensor(o, device=dev)[:, None])[:, 0]
+        res[(tuple(p), tuple(o))] = (
+            (top2[:, 0] - chosen).cpu().numpy(),
+            (top2[:, 0] - top2[:, 1]).cpu().numpy())
+    if ref_params is not None:
+        spread = max(float((a - b).abs().max()) for a, b in zip(
+            lgs, emitted_logits(ref_params, ref_params.cfg)))
+        log(f"{where}: the same forward on the weights upcast to float32 "
+            f"moves the logits at the emitted positions by up to "
+            f"{spread:.4f}: the model's own {cfg.dtype} noise  [{card}]")
+    worst = 0.0
+    by_label = {}
+    for label, p, o in triples:
+        if not o:
+            continue
+        sf, gap = next(v for (pp, oo), v in res.items()
+                       if pp == tuple(p) and oo[:len(o)] == tuple(o))
+        by_label.setdefault(label, []).append((sf[:len(o)], gap[:len(o)]))
+    for label, parts in by_label.items():
+        sf = np.concatenate([a for a, _ in parts])
+        gap = np.concatenate([g for _, g in parts])
+        mx = float(sf.max(initial=0.0))
+        worst = max(worst, mx)
+        log(f"{where}: plain greedy ({cfg.dtype}, {len(rows)} sequences in "
+            f"one forward) vs {label}: {sf.size} tokens, "
+            f"{int((sf == 0).sum())} the top logit, largest shortfall "
+            f"{mx:.4f} ({'reported' if tol is None else f'tolerance {tol}'}"
+            f"), smallest top-2 gap {float(gap.min()):.2e}  [{card}]")
+    if tol is not None:
+        check(worst <= tol, f"{where}: a token falls {worst:.4f} short of "
+              f"plain greedy's top logit (tolerance {tol})")
+    return worst
+
+
+def profile_verify_forward(torch, np, cfg, params, dev, card, where, B=8,
+                           T=VERIFY_T, prompt=128):
+    """The model's part of one verify round at the path's shape, alone:
+    B prompts prefilled, then a (B, T) block forward with staged states
+    and their gather at per-row acceptance counts. On the card its kernel
+    launches are counted by ``torch.profiler`` (CUDA kernel events) and
+    its wall is the median of 5 synchronized runs; everywhere the aten
+    ops it dispatches are counted."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import model as M
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(2, cfg.vocab_size, (B, prompt), generator=g,
+                         device=dev)
+    block = torch.randint(2, cfg.vocab_size, (B, T), generator=g, device=dev)
+    valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    n_commit = torch.arange(B, device=dev) % (T + 1)
+    with torch.inference_mode():
+        _, cache = M.prefill(params, cfg, toks,
+                             torch.ones((B, prompt), dtype=torch.bool,
+                                        device=dev), max_len=prompt + 2 * T)
+
+        def one():
+            _, staged = M.forward(params, cfg, block, cache=cache,
+                                  valid=valid, collect_states=True)
+            M.commit_staged_cache(cfg, cache, staged, n_commit)
+
+        one()
+        with OpCount() as oc:
+            one()
+        kernels, walls = "not measured", []
+        if dev == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+
+            try:  # instrumentation only: a tracer that fails says so
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    one()
+                    torch.cuda.synchronize()
+                n_k = sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
+                kernels = (str(n_k) if n_k
+                           else "not measured (no device events)")
+            except RuntimeError as exc:
+                kernels = f"not measured (profiler: {exc})"
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+    wall = (f"{float(np.median(walls)) * 1e3:.2f} ms (median of 5)"
+            if walls else "not measured")
+    log(f"{where}: one verify forward (B {B}, T {T}, staged states and "
+        f"their gather): {oc.n} aten ops dispatched, {kernels} kernel "
+        f"launches, wall {wall}  [{card}]")
+    return oc.n
+
+
+def phase_xlstm(torch, np, card, cfg, params, dev="cuda",
+                limits=FAMILY_LIMITS, prompt_len=(128, 256), slots=8,
+                n_problems=8, n_requests=16):
+    """12a: xLSTM-125M (all 12 layers, bf16) through the normal entry
+    points: phase 4's lock-step traffic with ``limits`` (flat forest) and
+    11e's continuous traffic (``n_requests`` over ``n_problems`` in
+    ``slots`` slots, chunked forest), two epochs each, gated as phase 4:
+    the drafting kernels' kept launches bit-identical, epoch 2 equal to
+    epoch 1 and accepting drafts. The model has no attention layer, so
+    spec-verify must launch exactly zero times (stated, not skipped).
+    The continuous run's epochs are compared (reported). Every token's
+    shortfall from plain greedy's top by a full-sequence forward is
+    reported, not gated, beside that forward's own move on the weights
+    upcast to float32: on an H100 it reached 3.83 logit, so no bf16
+    witness of a fixed tolerance holds for xLSTM (12b is the exact one).
+    Logs the wall a round and one verify forward's launches. Returns the
+    launches, summed over the runs."""
+    where = f"12a {cfg.name}"
+    launches = Counter()
+    run, _, epochs = phase_main_path(
+        torch, np, card, cfg, params, limits=limits, dev=dev, tag="12a",
+        prompt_len=prompt_len)
+    launches.update({k: v for k, v in run.items()
+                     if k != "rglru_scan_by_shape"})
+    by_layout, c_runs, c_prompts, _, _ = continuous_layouts(
+        torch, np, cfg, params, dev, card, slots=slots,
+        n_problems=n_problems, n_requests=n_requests, limits=limits,
+        prompt_len=prompt_len, layouts=("chunked",), lockstep=False)
+    launches.update({k: v for k, v in by_layout["chunked"].items()
+                     if k != "rglru_scan_by_shape"})
+    if dev == "cuda":
+        check(launches["spec_verify_attention"] == 0,
+              f"{where}: spec-verify launched "
+              f"{launches['spec_verify_attention']} times without an "
+              "attention layer")
+        check(launches["suffix_match_propose"] > 0
+              and launches["suffix_match_propose_chunked"] > 0,
+              f"{where}: a drafting kernel never launched")
+    same = sum(a == b for a, b in zip(c_runs[0]["outputs"],
+                                      c_runs[1]["outputs"]))
+    log(f"{where} continuous: {same} of {len(c_runs[0]['outputs'])} epoch-2 "
+        f"outputs equal epoch 1's  [{card}]")
+    prompts, _ = lockstep_requests(np, cfg.vocab_size, prompt_len)
+    triples = [(f"lock-step epoch {e + 1}", p, o)
+               for e, (outs, _, _) in enumerate(epochs)
+               for p, o in zip(prompts, outs)]
+    triples += [(f"continuous epoch {e + 1}", p, o)
+                for e, r in enumerate(c_runs)
+                for p, o in zip(c_prompts, r["outputs"])]
+    # reported, not gated: xLSTM amplifies a bf16 rounding past any logit
+    # tolerance (the float32 forward on the same weights is the noise
+    # floor logged beside it); 12b is the exact witness
+    ref = copy.deepcopy(params).float()
+    ref.cfg = cfg.replace(dtype="float32")
+    greedy_witness_batched(torch, np, cfg, params, triples, card, None,
+                           where, ref_params=ref)
+    del ref
+    for label, st, wall in (
+            [(f"lock-step epoch {e + 1}", s_, w) for e, (_, s_, w)
+             in enumerate(epochs)]
+            + [(f"continuous epoch {e + 1}", r["stats"], r["wall"])
+               for e, r in enumerate(c_runs)]):
+        log(f"{where} {label}: {st.n_rounds} rounds, "
+            f"{wall / max(st.n_rounds, 1) * 1e3:.2f} ms a round  [{card}]")
+    profile_verify_forward(torch, np, cfg, params, dev, card, where)
+    return launches
+
+
+def phase_xlstm_f32(torch, np, card, cfg, params, dev="cuda",
+                    limits=FAMILY_LIMITS, prompt_len=(128, 256)):
+    """12b: 12a's lock-step traffic in float32 (the caller cuts the depth
+    and upcasts): epoch 2 equals epoch 1 (``phase_main_path``) and every
+    token is plain greedy's argmax, DAS's output identity, exact; then
+    the two commit schemes on the card: staged states gathered at
+    n_commit (``commit_staged_cache``, the serving path) equal, bit for
+    bit, a ``commit_upto`` forward's committed carry (the reference's
+    dual carry) in every layer, n_commit from 0 to T. Returns the
+    launches."""
+    from repro_torch.models import model as M
+
+    where = f"12b {cfg.name}"
+    run, _, epochs = phase_main_path(
+        torch, np, card, cfg, params, limits=limits, dev=dev, tag="12b",
+        prompt_len=prompt_len)
+    prompts, _ = lockstep_requests(np, cfg.vocab_size, prompt_len)
+    greedy_witness_batched(
+        torch, np, cfg, params,
+        [(f"lock-step epoch {e + 1}", p, o)
+         for e, (outs, _, _) in enumerate(epochs)
+         for p, o in zip(prompts, outs)], card, 0.0, where)
+    B, T = len(prompts), VERIFY_T
+    Tp = max(map(len, prompts))
+    toks = torch.zeros((B, Tp), dtype=torch.int32, device=dev)
+    mask = torch.zeros((B, Tp), dtype=torch.bool, device=dev)
+    for b, p in enumerate(prompts):
+        toks[b, Tp - len(p):] = torch.tensor(p, dtype=torch.int32)
+        mask[b, Tp - len(p):] = True
+    g = torch.Generator(device=dev).manual_seed(9)
+    block = torch.randint(2, cfg.vocab_size, (B, T), generator=g, device=dev)
+    valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    valid[-1] = False  # a frozen row
+    n_commit = torch.tensor([0, 1, 5, 9, 13, 16, T, 0], device=dev)[:B]
+    with torch.inference_mode():
+        caches = [M.prefill(params, cfg, toks, mask, max_len=Tp + 2 * T)[1]
+                  for _ in range(2)]
+        la, staged = M.forward(params, cfg, block, cache=caches[0],
+                               valid=valid, collect_states=True)
+        M.commit_staged_cache(cfg, caches[0], staged, n_commit)
+        lb, _ = M.forward(params, cfg, block, cache=caches[1], valid=valid,
+                          commit_upto=n_commit)
+    check(torch.equal(la, lb), f"{where}: the staged and the committed "
+          "forwards' logits differ")
+    for li, (a, b) in enumerate(zip(caches[0].layers, caches[1].layers)):
+        for key in a:
+            check(torch.equal(a[key], b[key]),
+                  f"{where}: layer {li} {key}: the staged states gathered "
+                  "at n_commit differ from commit_upto's committed carry")
+    log(f"{where}: staged states gathered at n_commit {n_commit.tolist()} "
+        f"equal commit_upto's committed carry bit for bit in all "
+        f"{len(caches[0].layers)} layers ({', '.join(sorted(a))} of the "
+        f"last)  [{card}]")
+    return {k: v for k, v in run.items() if k != "rglru_scan_by_shape"}
+
+
+def seamless_decode(torch, np, cfg, params, dev, card, where, spy,
+                    enc_embeds, enc_mask, toks, steps):
+    """``encode`` → ``build_cross_cache`` → ``prefill(enc_out=)`` of the
+    prompt ``toks`` → ``steps`` greedy steps of one token through the
+    ring cache and the cross cache, under ``spy`` (spec-verify, one
+    launch per decoder layer a step). Then one full ``forward(enc_out=)``
+    over prompt + generated tokens. Returns the generated tokens (B,
+    steps), the cached logits at the positions P-1 .. P+steps-1 and the
+    full forward's there (B, steps+1, vocab) float32, the launches of
+    the steps and the wall a step."""
+    from repro_torch.models import model as M
+
+    B, P = toks.shape
+    with torch.inference_mode():
+        enc_out = M.encode(params, cfg, enc_embeds, enc_mask)
+        check(tuple(enc_out.shape) == (B, enc_embeds.shape[1], cfg.d_model)
+              and bool(torch.isfinite(enc_out).all()),
+              f"{where}: encoder output {tuple(enc_out.shape)} not finite "
+              "or misshapen")
+        cross = M.build_cross_cache(params, cfg, enc_out)
+        last, cache = M.prefill(params, cfg, toks,
+                                torch.ones_like(toks, dtype=torch.bool),
+                                max_len=P + steps, enc_out=enc_out,
+                                enc_mask=enc_mask)
+        one = torch.ones((B, 1), dtype=torch.bool, device=dev)
+        step_logits, out = [last[:, :cfg.vocab_size]], []
+        reset_launches()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        with spy:
+            spy.new_epoch()
+            for _ in range(steps):
+                nxt = step_logits[-1].argmax(-1).to(torch.int32)
+                out.append(nxt)
+                lg, cache = M.forward(params, cfg, nxt[:, None], cache=cache,
+                                      valid=one, cross_cache=cross,
+                                      enc_mask=enc_mask)
+                cache.lengths += 1
+                step_logits.append(lg[:, 0, :cfg.vocab_size])
+        sync(torch, dev)
+        wall = (time.perf_counter() - t0) / steps
+        launches = read_launches()
+        gen = torch.stack(out, 1)
+        hidden, _ = M.forward(params, cfg, torch.cat([toks, gen], 1),
+                              enc_out=enc_out, enc_mask=enc_mask,
+                              return_hidden=True)
+        full = M.head(params, cfg, hidden[:, P - 1:])[..., :cfg.vocab_size]
+        cached = torch.stack(step_logits, 1)
+    check(bool(torch.isfinite(cached).all() and torch.isfinite(full).all()),
+          f"{where}: non-finite logits")
+    return gen, cached, full, launches, wall
+
+
+def phase_seamless(torch, np, card, cfg, params, dev="cuda", B=4,
+                   S_enc=SEAMLESS_S_ENC, prompt=SEAMLESS_PROMPT,
+                   steps=SEAMLESS_STEPS, f32_layers=SEAMLESS_F32_LAYERS):
+    """12c: SeamlessM4T-medium's encoder over B stub utterances of
+    ``S_enc`` frames (the last row's mask cut to three quarters), its
+    cross cache, a ``prompt``-token prefill and ``steps`` greedy steps
+    (``seamless_decode``), in bf16: spec-verify once per decoder layer a
+    step, its kept launches (one or more a step, every ``EVERY``-th)
+    within the bf16 tolerance of the plain version; the cached logits
+    within ``TOL_LOGIT_BF16`` of the full forward's and every greedy token
+    within it of the full forward's top. Then the same on the model cut to
+    its first ``f32_layers`` encoder and decoder layers and upcast to
+    float32 (in place): the tokens equal the full forward's argmax at
+    every step. Returns the bf16 and the float32 runs' spec-verify spies
+    and launches."""
+    from torch import nn
+
+    where = f"12c {cfg.name}"
+    g = torch.Generator(device=dev).manual_seed(12)
+    enc = torch.randn((B, S_enc, cfg.d_model), generator=g, device=dev)
+    enc_mask = torch.ones((B, S_enc), dtype=torch.bool, device=dev)
+    enc_mask[-1, 3 * S_enc // 4:] = False  # a shorter utterance
+    toks = torch.randint(2, cfg.vocab_size, (B, prompt), generator=g,
+                         device=dev, dtype=torch.int32)
+    n_attn = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds)
+    out = {}
+    for dtype in ("bf16", "float32"):
+        if dtype == "float32":
+            params.layers = nn.ModuleList(list(params.layers)[:f32_layers])
+            params.encoder = nn.ModuleList(list(params.encoder)[:f32_layers])
+            params.float()
+            params.cfg = cfg = cfg.replace(
+                num_layers=f32_layers, num_encoder_layers=f32_layers,
+                dtype="float32")
+            n_attn = f32_layers
+            gc.collect()
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+        tag = f"{where} ({cfg.dtype}, {cfg.num_encoder_layers}+" \
+              f"{cfg.num_layers} layers)"
+        spy = SvSpy()
+        spy.EVERY = n_attn - 1 if n_attn > 1 else 1
+        gen, cached, full, launches, wall = seamless_decode(
+            torch, np, cfg, params, dev, card, tag, spy, enc, enc_mask, toks,
+            steps)
+        diff = float((cached - full).abs().max())
+        top2 = torch.topk(full[:, :-1], 2, dim=-1).values
+        chosen = full[:, :-1].gather(-1, gen.long()[..., None])[..., 0]
+        sf = float((top2[..., 0] - chosen).max())
+        gap = float((top2[..., 0] - top2[..., 1]).min())
+        log(f"{tag}: encoder over B {B} x {S_enc} frames, {prompt}-token "
+            f"prompt, {steps} greedy steps at {wall * 1e3:.2f} ms a step; "
+            f"cached logits vs the full forward: max |diff| {diff:.4f}; "
+            f"greedy tokens' shortfall from the full forward's top "
+            f"{sf:.4f}, smallest top-2 gap {gap:.2e}; launches "
+            f"{ {k: v for k, v in launches.items() if v and k != 'rglru_scan_by_shape'} }  [{card}]")
+        if dtype == "bf16":
+            check(diff <= TOL_LOGIT_BF16 and sf <= TOL_LOGIT_BF16,
+                  f"{tag}: the cached decode departs from the full forward "
+                  f"(max |diff| {diff:.4f}, shortfall {sf:.4f}; tolerance "
+                  f"{TOL_LOGIT_BF16})")
+        else:
+            check(sf == 0.0, f"{tag}: a greedy token is not the full "
+                  f"forward's argmax (shortfall {sf:.3e})")
+        if dev == "cuda":
+            check(launches["spec_verify_attention"] == n_attn * steps,
+                  f"{tag}: {launches['spec_verify_attention']} spec-verify "
+                  f"launches, expected {n_attn} decoder layers x {steps} "
+                  "steps")
+            spy.check(torch, card, tag)
+        out[dtype] = (spy, launches["spec_verify_attention"])
+    return out
+
+
 def run_concurrently(cmds, env, timeout_s=600):
     """Start every command at once (their output to temporary files, so
     no pipe fills) and wait for all; returns per command its exit code,
@@ -4134,6 +4605,38 @@ def main() -> None:
     del timer
     kernels.update({k["name"]: k for k in entries11})
     launches.update(l11)
+    # phase 12: xLSTM-125M (12a in bf16 at its published config, 12b in
+    # float32 on its first layers) and SeamlessM4T-medium (12c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    cfg, params = full_width_model(torch, "xlstm-125m")
+    launches.update(phase_xlstm(torch, np, card, cfg, params))
+    cfg = cut_depth(torch, params, cfg, XLSTM_F32_LAYERS)
+    params.float()
+    params.cfg = cfg = cfg.replace(dtype="float32")
+    launches.update(phase_xlstm_f32(torch, np, card, cfg, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params = full_width_model(torch, "seamless-m4t-medium")
+    runs12 = phase_seamless(torch, np, card, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    timer = Timer(torch)
+    for dtype, name, err in (
+            ("bf16", "spec_verify_attention_seamless",
+             sv_family_err["spec_verify_attention_seamless"]),
+            ("float32", "spec_verify_attention_seamless_f32", sv_f32_err)):
+        spy, n = runs12[dtype]
+        e = time_sv_path_case(torch, np, timer, card, spy, name,
+                              f"12c {cfg.name} ({dtype})", err)
+        e["launches"] = n
+        kernels[name] = e
+    del timer, runs12
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s  [{card}]")
+    stamp("phase 12")
     # the scan's launches by shape class (phases 7 and 9)
     verify_n, prefill_n = rglru_launch_split(rglru_shapes)
     long_n = rglru_long_launches(rglru_shapes)

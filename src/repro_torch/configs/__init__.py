@@ -1,8 +1,9 @@
-"""Architecture registry of the port: the configs the engine serves (the
+"""Architecture registry of the port: every config of the reference (the
 paper's own Qwen3-8B, the dense Qwen2-1.5B, Yi-9B, ChatGLM3-6B and
 Command R+ (parallel blocks), the Qwen2-VL-2B backbone (M-RoPE), the MoE
-Mixtral-8x7B and Arctic-480B, and the hybrid RecurrentGemma-9B), and
-reduced smoke variants for CPU tests."""
+Mixtral-8x7B and Arctic-480B, the hybrid RecurrentGemma-9B, the
+attention-free xLSTM-125M and the SeamlessM4T-medium encoder-decoder),
+and reduced smoke variants for CPU tests."""
 
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from . import (
     qwen2_vl_2b,
     qwen3_8b,
     recurrentgemma_9b,
+    seamless_m4t_medium,
+    xlstm_125m,
     yi_9b,
 )
 from .base import ModelConfig, active_params, count_params
@@ -27,6 +30,8 @@ _MODULES = (
     recurrentgemma_9b,
     chatglm3_6b,
     arctic_480b,
+    xlstm_125m,
+    seamless_m4t_medium,
     qwen2_1_5b,
     yi_9b,
     qwen2_vl_2b,

@@ -39,7 +39,9 @@ history service each worker journals to ``D/w<k>.wal``.
 F`` writes a Perfetto/Chrome trace of the run (spans and per-rollout
 flight events, one track per worker).
 
-``--dry-run`` is refused: it waits for ``launch/dryrun``.
+``--dry-run`` is refused: it waits for ``launch/dryrun``. An
+encoder-decoder (``--arch seamless-m4t-medium``) is refused with the
+reference's reason: its ``SpecEngine`` does not serve one either.
 """
 
 from __future__ import annotations
@@ -188,8 +190,14 @@ def main() -> None:
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.models import model as M
 
-    dev = resolve_device(args.device)
     cfg = smoke_variant(get_config(args.arch))
+    if cfg.is_encoder_decoder:  # as the reference refuses it
+        raise SystemExit(
+            "enc-dec serving smoke isn't wired through SpecEngine; use "
+            "tests/test_torch_encdec.py (encode, build_cross_cache and the "
+            "cross-cached decode against the reference)"
+        )
+    dev = resolve_device(args.device)
     params = M.init_params(cfg, seed=args.seed, device=dev)
     if args.history_service:
         _serve_with_service(args, cfg, params, dev)

@@ -11,8 +11,14 @@ block-pattern units, then one un-scanned stage per remainder layer, as
 in the order the reference's forward runs them. A block's groups are
 those ``models.model.block_parts`` names: an attention block's mixer is
 its ``attn`` subtree, an RG-LRU block's ``rglru`` (``wx``, ``wy``,
-``wo``, ``conv``, ``w_a``, ``w_i``, ``lam``); a parallel block has no
-``mlp_norm``, and an MoE block's ``moe`` nests Arctic's ``dense`` MLP.
+``wo``, ``conv``, ``w_a``, ``w_i``, ``lam``), an mLSTM block's ``mlstm``
+(``wq wk wv wi wf bf wo_gate wo``), an sLSTM block's ``slstm`` (``wz wi
+wf wo_g r bf wo``); an encoder-decoder's attention block adds
+``cross_norm`` and ``cross``, a parallel block has no ``mlp_norm``, an
+xLSTM block no MLP, and an MoE block's ``moe`` nests Arctic's ``dense``
+MLP. An encoder-decoder's ``encoder`` holds ``blocks`` (``norm``,
+``attn``, ``mlp_norm``, ``mlp``), each leaf stacked along a leading axis
+of ``num_encoder_layers``, and ``final_norm``.
 
 bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` refuses; they cross as their raw 16-bit patterns
@@ -35,6 +41,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.model import (
+    ENC_PARTS,
     Block,
     Transformer,
     block_parts,
@@ -75,12 +82,19 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                     name: _pdict(stage[ui][name], dev, idx)
                     for name in block_parts(cfg, kind)}))
     lm_head = tree.get("lm_head")
+    enc = tree.get("encoder")
+    encoder = [] if enc is None else [
+        Block("enc", **{name: _pdict(enc["blocks"][name], dev, r)
+                        for name in ENC_PARTS})
+        for r in range(cfg.num_encoder_layers)]
     return Transformer(
         cfg,
         tensor_from_numpy(tree["embed"], dev),
         _pdict(tree["final_norm"], dev),
         None if lm_head is None else tensor_from_numpy(lm_head, dev),
         blocks,
+        encoder,
+        None if enc is None else _pdict(enc["final_norm"], dev),
     )
 
 
@@ -95,9 +109,10 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_to_numpy(params: Transformer, cfg: ModelConfig) -> Dict[str, Any]:
     """The inverse of ``params_from_numpy``: the reference's value tree
-    ``{"embed", "final_norm", ["lm_head"], "stages"}`` with each scanned
-    stage's leaves stacked along a leading layer axis, as float32 numpy
-    arrays (bfloat16 widens exactly)."""
+    ``{"embed", "final_norm", ["lm_head"], "stages", ["encoder"]}`` with
+    each scanned stage's leaves, and the encoder's blocks, stacked along
+    a leading layer axis, as float32 numpy arrays (bfloat16 widens
+    exactly)."""
     def arr(t):
         return t.detach().float().cpu().numpy()
 
@@ -132,4 +147,10 @@ def params_to_numpy(params: Transformer, cfg: ModelConfig) -> Dict[str, Any]:
                             "stages": stages}
     if params.lm_head is not None:
         tree["lm_head"] = arr(params.lm_head)
+    if params.encoder_final_norm is not None:
+        tree["encoder"] = {
+            "blocks": stack([{name: pd(getattr(blk, name))
+                              for name in blk.parts}
+                             for blk in params.encoder]),
+            "final_norm": pd(params.encoder_final_norm)}
     return tree

@@ -1,6 +1,8 @@
-"""Decoder layers of the port (PyTorch counterpart of
-``repro.models.layers``): attention (standard, partial and M-RoPE
-rotary), MLP, the capacity-dispatched MoE and the RG-LRU recurrent block.
+"""Layers of the port (PyTorch counterpart of ``repro.models.layers``):
+attention (standard, partial and M-RoPE rotary; causal, bidirectional
+for the encoder, and cross-attention over an encoder's K/V), MLP, the
+capacity-dispatched MoE, the RG-LRU recurrent block and the xLSTM
+blocks (mLSTM, sLSTM).
 
 Parameters are plain mappings of tensors (``nn.ParameterDict`` inside the
 model) in the JAX package's layouts — ``wq`` is ``(d, Hq, hd)``, ``wo``
@@ -22,7 +24,15 @@ Attention has two modes, as in the reference:
 The RG-LRU block's recurrence always goes through
 ``kernels.rglru.ops.rglru_scan`` in the same way, prefill, verify and
 training alike; under autograd its backward is the scan's backward
-kernel (its plain version on the CPU).
+kernel (its plain version on the CPU). The xLSTM recurrences are
+``lax.scan``s in the reference, with no Pallas kernel; here they are
+loops over T of PyTorch ops.
+
+Every recurrent block keeps the reference's two carries (``_gate_masks``):
+the *dynamic* state advances through every updated step, the *committed*
+state only through the steps before ``commit_upto`` (the acceptance
+prefix of a verify block); ``collect=True`` returns the staged per-step
+states instead, for ``model.commit_staged_cache``.
 """
 
 from __future__ import annotations
@@ -140,8 +150,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
 # attention (GQA, sliding window, cached verify blocks)
 # ---------------------------------------------------------------------------
 
-def init_attention(cfg: ModelConfig, gen: torch.Generator,
-                   device) -> nn.ParameterDict:
+def init_attention(cfg: ModelConfig, gen: torch.Generator, device,
+                   cross: bool = False) -> nn.ParameterDict:
+    """Self-attention, or with ``cross`` an encoder-decoder's
+    cross-attention (no biases, as in the reference)."""
     hd, Hq, Hkv, d = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.d_model
     dt = torch_dtype(cfg.dtype)
     p = {
@@ -150,7 +162,7 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
         "wv": _dense_init((d, Hkv, hd), dt, gen, device),
         "wo": _dense_init((Hq, hd, d), dt, gen, device),
     }
-    if cfg.attn_bias:
+    if cfg.attn_bias and not cross:
         p["bq"] = torch.zeros((Hq, hd), dtype=dt, device=device)
         p["bk"] = torch.zeros((Hkv, hd), dtype=dt, device=device)
         p["bv"] = torch.zeros((Hkv, hd), dtype=dt, device=device)
@@ -334,33 +346,51 @@ def attention_forward(
     kv_cache: Optional[Tuple] = None,  # (k, v, cache_pos) or None
     valid: Optional[torch.Tensor] = None,  # (B, T) bool
     mrope_positions: Optional[torch.Tensor] = None,  # (3, B, T)
+    bidirectional: bool = False,
+    cross_kv: Optional[Tuple] = None,  # (k, v, key valid) cross-attention
 ):
     """Returns (y, kv). Cached path: ``kv_cache = (k, v, cache_pos)`` with
     k/v ``(B, S+1, Hkv, hd)`` and cache_pos ``(B, S+1)`` int32 (-1 =
     empty); slot S is the trash slot. The cache tensors are updated in
-    place (the JAX round donates them) and returned."""
+    place (the JAX round donates them) and returned.
+
+    ``cross_kv = (k (B, S, Hkv, hd), v, kvalid (B, S) bool)`` is an
+    encoder-decoder's cross-attention: no RoPE, keys masked by
+    ``kvalid`` only, no cache (kv None). ``bidirectional`` (the encoder)
+    masks keys by ``valid`` only and never takes the flash path,
+    whatever T is. Both are plain PyTorch, as they are plain XLA in the
+    reference."""
     B, T, _ = x.shape
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"])
     if "bq" in p:
         q = q + p["bq"]
+    if cross_kv is not None:
+        ck, cv, kvalid = cross_kv
+        mask = kvalid[:, None, None, :].expand(B, 1, T, ck.shape[1])
+        out = _attn_core(q, ck, cv, mask, cfg)
+        return torch.einsum("bthk,hkd->btd", out, p["wo"]), None
+    k = torch.einsum("btd,dhk->bthk", x, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
     q = apply_rope(q, positions, cfg, mrope_positions)
     k = apply_rope(k, positions, cfg, mrope_positions)
 
     if kv_cache is None:
-        if T >= _FLASH_THRESHOLD:
+        if not bidirectional and T >= _FLASH_THRESHOLD:
             out = _flash_attn_train(q, k, v, positions, cfg, window=window,
                                     valid=valid)
             y = torch.einsum("bthk,hkd->btd", out, p["wo"])
             return y, (k, v, positions)
         qpos = positions[:, :, None]
         kpos = positions[:, None, :]
-        mask = kpos <= qpos
-        if window > 0:
-            mask &= kpos > qpos - window
+        if bidirectional:
+            mask = torch.ones((B, T, T), dtype=torch.bool, device=x.device)
+        else:
+            mask = kpos <= qpos
+            if window > 0:
+                mask &= kpos > qpos - window
         if valid is not None:
             mask &= valid[:, None, :]
         out = _attn_core(q, k, v, mask[:, None], cfg)
@@ -540,6 +570,45 @@ def init_rglru(cfg: ModelConfig, gen: torch.Generator,
     return nn.ParameterDict({k: _param(v) for k, v in p.items()})
 
 
+def _gate_masks(B: int, T: int, update_mask: Optional[torch.Tensor],
+                commit_upto: Optional[torch.Tensor], device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(upd (T, B), com (T, B)) bool gating masks of the recurrent scans,
+    time-major as the reference's.
+
+    * ``update_mask`` (B, T) gates the *dynamic* state: False for pads
+      (left-padded prefill) and for frozen (finished) rows.
+    * ``commit_upto`` (B,) gates the *committed* state: step t commits
+      iff it updates and t < commit_upto (the acceptance prefix of a
+      verify block). None commits every updated step (train, prefill).
+    """
+    upd = (torch.ones((T, B), dtype=torch.bool, device=device)
+           if update_mask is None else update_mask.t().contiguous())
+    if commit_upto is None:
+        return upd, upd
+    t = torch.arange(T, device=device)[:, None]
+    return upd, upd & (t < commit_upto[None, :])
+
+
+def _committed_conv(xr_pad: torch.Tensor, commit_upto: torch.Tensor,
+                    cw: int) -> torch.Tensor:
+    """The committed conv context ``xr_pad[:, upto : upto+cw-1]`` per row,
+    as the reference's ``jnp.take_along_axis`` (default mode ``"fill"``)
+    reads it: an index below 0 counts from the end once (numpy's
+    normalisation), and one still outside [0, T+cw-1) after that reads
+    NaN. So ``commit_upto`` in [0, T] gives the true context, T+1 and
+    past put NaN in the taps past the end, and -1 wraps to the last
+    input."""
+    L_ = xr_pad.shape[1]
+    idx = commit_upto.long()[:, None] + torch.arange(
+        cw - 1, device=xr_pad.device)[None, :]
+    idx = torch.where(idx < 0, idx + L_, idx)
+    inside = (idx >= 0) & (idx < L_)
+    got = xr_pad.gather(1, idx.clamp(0, L_ - 1)[:, :, None].expand(
+        -1, -1, xr_pad.shape[2]))
+    return torch.where(inside[:, :, None], got, float("nan"))
+
+
 def apply_rglru(
     p: Mapping,
     x: torch.Tensor,
@@ -558,13 +627,15 @@ def apply_rglru(
     per-step candidates instead: new_state (B, T+1, W) and new_conv_state
     (B, T+1, cw-1, W), index t = the state after t steps; the engine
     gathers them at the acceptance count (``model.commit_staged_cache``).
-    The reference's dual-carry ``commit_upto`` branch is not ported:
-    nothing on the serving path reaches it for recurrent models."""
-    if commit_upto is not None:
-        raise NotImplementedError(
-            "apply_rglru's commit_upto (dual-carry) branch is not ported; "
-            "verify with collect=True and commit_staged_cache"
-        )
+
+    ``commit_upto`` (B,) int returns the *committed* carry instead of the
+    dynamic one: the reference's dual-carry scan. The scan stays on the
+    kernel: the dynamic state changes only on updated steps, and step t
+    commits iff it updates and t < commit_upto, so the committed carry is
+    the dynamic state after step commit_upto - 1, which is
+    ``cat([state, hs], 1)[:, clamp(commit_upto, 0, T)]`` (the reference
+    commits nothing below 0 and every updated step past T). The conv
+    context is ``_committed_conv``'s."""
     B, T, _ = x.shape
     W, cw = cfg.rnn_width, cfg.conv_width
     gate_in = torch.einsum("btd,dw->btw", x, p["wy"])
@@ -581,6 +652,8 @@ def apply_rglru(
     if collect:
         # staged conv contexts: candidate t = xr_pad[:, t : t+cw-1]
         new_conv_state = xr_pad.unfold(1, cw - 1, 1).transpose(2, 3)
+    elif commit_upto is not None:
+        new_conv_state = _committed_conv(xr_pad, commit_upto, cw)
     else:
         new_conv_state = xr_pad[:, T:]
     # the reference's order and dtype: sum over taps in the model dtype
@@ -596,4 +669,267 @@ def apply_rglru(
     y = torch.einsum("btw,wd->btd", y, p["wo"])
     if collect:
         h_fin = torch.cat([state[:, None], hs], dim=1)
+    elif commit_upto is not None:
+        at = commit_upto.long().clamp(0, T)
+        h_fin = torch.cat([state[:, None], hs], dim=1)[
+            torch.arange(B, device=x.device), at]
     return y, h_fin, new_conv_state
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks (arXiv:2405.04517): mLSTM (matrix memory) and sLSTM
+# ---------------------------------------------------------------------------
+
+def init_mlstm(cfg: ModelConfig, gen: torch.Generator,
+               device) -> nn.ParameterDict:
+    dt, f32 = torch_dtype(cfg.dtype), torch.float32
+    d, w, H = cfg.d_model, cfg.rnn_width, max(cfg.num_heads, 1)
+    p = {
+        "wq": _dense_init((d, w), dt, gen, device),
+        "wk": _dense_init((d, w), dt, gen, device),
+        "wv": _dense_init((d, w), dt, gen, device),
+        "wi": _dense_init((d, H), f32, gen, device, scale=0.1),
+        "wf": _dense_init((d, H), f32, gen, device, scale=0.1),
+        "bf": torch.full((H,), 3.0, dtype=f32, device=device),
+        "wo_gate": _dense_init((d, w), dt, gen, device),
+        "wo": _dense_init((w, d), dt, gen, device),
+    }
+    return nn.ParameterDict({k: _param(v) for k, v in p.items()})
+
+
+def init_slstm(cfg: ModelConfig, gen: torch.Generator,
+               device) -> nn.ParameterDict:
+    dt, f32 = torch_dtype(cfg.dtype), torch.float32
+    d, w, H = cfg.d_model, cfg.rnn_width, max(cfg.num_heads, 1)
+    hd = w // H
+    p = {
+        "wz": _dense_init((d, w), dt, gen, device),
+        "wi": _dense_init((d, w), f32, gen, device, scale=0.05),
+        "wf": _dense_init((d, w), f32, gen, device, scale=0.05),
+        "wo_g": _dense_init((d, w), dt, gen, device),
+        # head-wise recurrent kernel (block-diagonal R)
+        "r": _dense_init((H, hd, hd), f32, gen, device, scale=0.2),
+        "bf": torch.full((w,), 2.0, dtype=f32, device=device),
+        "wo": _dense_init((w, d), dt, gen, device),
+    }
+    return nn.ParameterDict({k: _param(v) for k, v in p.items()})
+
+
+def _finite(x: torch.Tensor) -> torch.Tensor:
+    """``isfinite`` in two ops, not four: x - x is 0 exactly when x is
+    finite (inf - inf and NaN - NaN are NaN)."""
+    return (x - x) == 0
+
+
+def _stabilizer_chain(logf: torch.Tensor, i_pre: torch.Tensor,
+                      m0: torch.Tensor, upd, com):
+    """The xLSTM blocks' exponential-gate stabilizer m, stepped over T as
+    the reference steps it: m_new = max(log σ(f_t) + m, i_t), replaced by
+    i_t where not finite, and m advancing only on updated steps. m does
+    not depend on the cell, so its chain runs alone, on time-major (T, B,
+    ...) gate pre-activations, and the gates come out for every step at
+    once: fg_t = exp(log σ(f_t) + m_{t-1} - m_new_t), 0 where m_{t-1} is
+    not finite (-inf before the first update: the reference's guard), and
+    ig_t = exp(i_t - m_new_t).
+
+    Returns (m_new (T, ...), fg, ig, m_dyn (T, ...) the dynamic m after
+    each step, m_com the committed m, or None when ``com`` is ``upd``).
+    ``upd``/``com`` are ``_gate_masks``' (T, B) masks shaped to broadcast
+    over m's layout, or ``upd`` None (every step updates)."""
+    m, m_com = m0, (m0 if com is not upd else None)
+    m_new, m_prev, m_dyn = [], [], []
+    for t in range(logf.shape[0]):
+        mn = torch.maximum(logf[t] + m, i_pre[t])
+        mn = torch.where(_finite(mn), mn, i_pre[t])
+        m_prev.append(m)
+        m = mn if upd is None else torch.where(upd[t], mn, m)
+        if m_com is not None:
+            m_com = torch.where(com[t], m, m_com)
+        m_new.append(mn)
+        m_dyn.append(m)
+    m_new = torch.stack(m_new)
+    m_prev = torch.stack(m_prev)
+    fg = torch.where(_finite(m_prev), torch.exp(logf + m_prev - m_new), 0.0)
+    ig = torch.exp(i_pre - m_new)
+    return m_new, fg, ig, torch.stack(m_dyn), m_com
+
+
+def apply_mlstm(
+    p: Mapping,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    state: Optional[Mapping[str, torch.Tensor]] = None,
+    update_mask: Optional[torch.Tensor] = None,  # (B, T) bool
+    commit_upto: Optional[torch.Tensor] = None,  # (B,) int
+    collect: bool = False,
+):
+    """mLSTM with exponential gating and matrix memory. Returns (y,
+    new_state), the state a dict ``{"C" (B, H, hd, hd), "n" (B, H, hd),
+    "m" (B, H)}`` in float32 (m starts at -inf): the state after every
+    updated step, the committed carry with ``commit_upto``, or with
+    ``collect`` the staged states (B, T+1, ...), index 0 the state
+    before the block.
+
+    The reference's dtypes step for step: q, k, v in the model dtype (k
+    divided by sqrt(hd) there), the outer product k_t ⊗ v_t formed in the
+    model dtype before the float32 gate multiplies it, q upcast only
+    where it meets the float32 state, h cast back to ``x.dtype`` before
+    the ``silu(wo_gate)`` product. An output at a step that does not
+    update (a pad, a frozen row) is read from the would-be new state, as
+    in the reference.
+
+    The cell C and the normaliser n step together, as one (B, H, hd,
+    hd+1) tensor: n_t = fg n + ig k_t is the last column of
+    fg [C|n] + ig (k_t ⊗ [v_t, 1]) (k_t · 1 is exact), and one product
+    q_t [C|n] gives q_t C and q_t · n. The stabilizer steps first
+    (``_stabilizer_chain``), the denominators max(|q·n|, exp(-m)) after
+    the loop: what is left in the loop is five ops a step (one more to
+    hold frozen steps, one more for the committed carry)."""
+    B, T, _ = x.shape
+    H = max(cfg.num_heads, 1)
+    W = cfg.rnn_width
+    hd = W // H
+    # time-major (T, B, ...) from here on: each step's slice is contiguous
+    xt = x.transpose(0, 1)
+    q = torch.einsum("tbd,dw->tbw", xt, p["wq"]).reshape(T, B, H, hd)
+    k = torch.einsum("tbd,dw->tbw", xt, p["wk"]).reshape(
+        T, B, H, hd) / math.sqrt(hd)
+    v = torch.einsum("tbd,dw->tbw", xt, p["wv"]).reshape(T, B, H, hd)
+    xf = xt.float()
+    i_pre = torch.einsum("tbd,dh->tbh", xf, p["wi"])
+    f_pre = torch.einsum("tbd,dh->tbh", xf, p["wf"]) + p["bf"]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    if state is None:
+        C0 = torch.zeros((B, H, hd, hd), **f32)
+        n0 = torch.zeros((B, H, hd), **f32)
+        m0 = torch.full((B, H), -math.inf, **f32)
+    else:
+        C0, n0, m0 = state["C"], state["n"], state["m"]
+    upd = com = None
+    if update_mask is not None or commit_upto is not None:
+        upd, com = _gate_masks(B, T, update_mask, commit_upto, x.device)
+        same = com is upd
+        upd = upd[..., None]  # (T, B, 1): over m's (B, H)
+        com = upd if same else com[..., None]
+    m_new, fg, ig, m_dyn, m_com = _stabilizer_chain(
+        F.logsigmoid(f_pre), i_pre, m0, upd, com)
+    q32 = q.float()[..., None, :]  # (T, B, H, 1, hd)
+    v1 = torch.cat([v, torch.ones_like(v[..., :1])], -1)  # [v_t, 1]
+    fg, ig = fg[..., None, None], ig[..., None, None]
+    Cn = torch.cat([C0, n0[..., None]], -1)  # (B, H, hd, hd+1)
+    Cn_com = Cn if commit_upto is not None else None
+    reads, staged = [], [Cn]
+    for t in range(T):
+        new = fg[t] * Cn + ig[t] * (k[t, :, :, :, None] * v1[t, :, :, None])
+        reads.append(q32[t] @ new)  # (B, H, 1, hd+1)
+        Cn = new if upd is None else torch.where(upd[t, ..., None, None],
+                                                 new, Cn)
+        if Cn_com is not None:
+            Cn_com = torch.where(com[t, ..., None, None], Cn, Cn_com)
+        if collect:
+            staged.append(Cn)
+    reads = torch.stack(reads)[:, :, :, 0]  # (T, B, H, hd+1)
+    denom = torch.maximum(reads[..., hd].abs(), torch.exp(-m_new))
+    h = (reads[..., :hd] / denom[..., None]).reshape(T, B, W)
+    h = h.transpose(0, 1).to(x.dtype)
+    gate = F.silu(torch.einsum("btd,dw->btw", x, p["wo_gate"]))
+    y = torch.einsum("btw,wd->btd", h * gate, p["wo"])
+    if collect:
+        Cn = torch.stack(staged, 1)
+        m = torch.cat([m0[None], m_dyn]).transpose(0, 1)
+    elif Cn_com is not None:
+        Cn, m = Cn_com, m_com
+    else:
+        m = m_dyn[-1]
+    return y, {"C": Cn[..., :hd], "n": Cn[..., hd], "m": m}
+
+
+def apply_slstm(
+    p: Mapping,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    state: Optional[Mapping[str, torch.Tensor]] = None,
+    update_mask: Optional[torch.Tensor] = None,  # (B, T) bool
+    commit_upto: Optional[torch.Tensor] = None,  # (B,) int
+    collect: bool = False,
+):
+    """sLSTM with scalar memory, exponential gating and a head-wise
+    recurrence. Returns (y, new_state), the state a dict ``{"c", "n",
+    "h", "m"}``, each (B, W) float32 (m starts at -inf), with the same
+    three readings as ``apply_mlstm``'s (dynamic, committed, staged).
+
+    The reference's mix of dtypes: z and o pre-activations in the model
+    dtype, then upcast; i and f from an upcast x; the recurrence
+    ``h R`` in float32 with a float32 R; n clamped at 1e-6 in the
+    division. The output is the gated h (a step that does not update
+    repeats the last h). The stabilizer steps first
+    (``_stabilizer_chain``); c, n and h step together, as one (3, H, B,
+    hd) tensor, head-major so that h R is one batched product with no
+    copy."""
+    B, T, _ = x.shape
+    H = max(cfg.num_heads, 1)
+    W = cfg.rnn_width
+    hd = W // H
+    # time- and head-major (T, H, B, hd) from here on: each step's slice
+    # is contiguous and h R is one batched product over the heads
+    xt = x.transpose(0, 1)
+    xf = xt.float()
+
+    def heads(a):  # (T, B, W) -> (T, H, B, hd)
+        return a.reshape(T, B, H, hd).transpose(1, 2).contiguous()
+
+    z_in = heads(torch.einsum("tbd,dw->tbw", xt, p["wz"]).float())
+    i_in = heads(torch.einsum("tbd,dw->tbw", xf, p["wi"]))
+    f_in = heads(torch.einsum("tbd,dw->tbw", xf, p["wf"]) + p["bf"])
+    o_sig = heads(torch.sigmoid(
+        torch.einsum("tbd,dw->tbw", xt, p["wo_g"]).float()))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    if state is None:
+        cnh = torch.zeros((3, H, B, hd), **f32)
+        m0 = torch.full((H, B, hd), -math.inf, **f32)
+    else:
+        cnh = torch.stack([state[k].reshape(B, H, hd).transpose(0, 1)
+                           for k in ("c", "n", "h")])
+        m0 = state["m"].reshape(B, H, hd).transpose(0, 1).contiguous()
+    upd = com = None
+    if update_mask is not None or commit_upto is not None:
+        upd, com = _gate_masks(B, T, update_mask, commit_upto, x.device)
+        same = com is upd
+        upd = upd[:, None, :, None]  # (T, 1, B, 1): over (H, B, hd)
+        com = upd if same else com[:, None, :, None]
+    _, fg, ig, m_dyn, m_com = _stabilizer_chain(
+        F.logsigmoid(f_in), i_in, m0, upd, com)
+    R = p["r"]  # (H, hd, hd)
+    cnh_com = cnh if commit_upto is not None else None
+    hs, staged = [], [cnh]
+    for t in range(T):
+        c, n, h = cnh.unbind(0)
+        z = torch.tanh(z_in[t] + torch.bmm(h, R))
+        c_new = fg[t] * c + ig[t] * z
+        n_new = fg[t] * n + ig[t]
+        h_new = o_sig[t] * c_new / torch.clamp(n_new, min=1e-6)
+        new = torch.stack([c_new, n_new, h_new])
+        cnh = new if upd is None else torch.where(upd[t], new, cnh)
+        if cnh_com is not None:
+            cnh_com = torch.where(com[t], cnh, cnh_com)
+        hs.append(cnh[2])
+        if collect:
+            staged.append(cnh)
+
+    def back(a):  # (..., H, B, hd) -> (B, ..., W)
+        a = a.movedim(-2, 0)
+        return a.reshape(*a.shape[:-2], W)
+
+    h = back(torch.stack(hs)).to(x.dtype)  # (B, T, W)
+    y = torch.einsum("btw,wd->btd", h, p["wo"])
+    if collect:
+        c, n, hh = back(torch.stack(staged, 1)).unbind(1)
+        m = back(torch.cat([m0[None], m_dyn]))
+    else:
+        if cnh_com is not None:
+            cnh, m = cnh_com, m_com
+        else:
+            m = m_dyn[-1]
+        c, n, hh = back(cnh).unbind(1)
+        m = back(m)
+    return y, {"c": c, "n": n, "h": hh, "m": m}

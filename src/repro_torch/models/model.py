@@ -1,16 +1,23 @@
 """Model assembly of the port: embedding → decoder blocks → head
 (PyTorch counterpart of ``repro.models.model``): dense attention
 decoders (pre-norm, or parallel blocks as in Command R+), M-RoPE over
-stub embeddings (Qwen2-VL), capacity-dispatched MoE (Mixtral, Arctic)
-and the hybrid RG-LRU + local-attention stack (RecurrentGemma).
+stub embeddings (Qwen2-VL), capacity-dispatched MoE (Mixtral, Arctic),
+the hybrid RG-LRU + local-attention stack (RecurrentGemma), the
+attention-free xLSTM stack (mLSTM and sLSTM blocks, no MLP) and the
+encoder-decoder (SeamlessM4T: a bidirectional encoder over stub frame
+embeddings, ``encode``, and decoder blocks with cross-attention over its
+output, whose K/V ``build_cross_cache`` projects once per request).
 
 The reference groups layers into ``lax.scan`` stages over stacked
 parameters; here the blocks sit in an ``nn.ModuleList`` in the order the
 reference runs them (``cfg.layer_kinds``) and run in a Python loop. The
 cache holds one entry per layer: a ``(k, v, cache_pos)`` ring for an
 attention layer (``local_attn`` layers take a ring of ``local_window +
-headroom`` slots), a ``{"h", "conv"}`` dict for an RG-LRU layer (the
-reference keeps the same entries, stacked per scan stage).
+headroom`` slots), a ``{"h", "conv"}`` dict for an RG-LRU layer, a
+``{"C", "n", "m"}`` dict for an mLSTM layer and a ``{"c", "n", "h",
+"m"}`` dict for an sLSTM layer (the reference keeps the same entries,
+tuples for xLSTM, stacked per scan stage). The encoder's blocks sit in
+``Transformer.encoder``.
 
 Two forward shapes:
   * ``prefill`` — full-sequence compute over left-padded prompts, then
@@ -20,7 +27,9 @@ Two forward shapes:
     appended at per-row offsets, the attention caches commit by ring-slot
     overwrite (in place). With ``collect_states`` the recurrent layers
     return staged per-step states, which ``commit_staged_cache`` gathers
-    at the acceptance count into the cache, in place.
+    at the acceptance count into the cache, in place; without it they
+    commit in place every updated step, or with ``commit_upto`` the
+    reference's committed carry.
 """
 
 from __future__ import annotations
@@ -40,21 +49,17 @@ from repro_torch.models import layers as L
 
 
 ATTENTION = ("attn", "local_attn")
-RECURRENT = ("rglru",)
+RECURRENT = ("rglru", "mlstm", "slstm")
+ENC_PARTS = ("norm", "attn", "mlp_norm", "mlp")  # an encoder block
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves decoders of attention and RG-LRU blocks with an
-    MLP or MoE (so far): not xLSTM, not the encoder-decoder, not
-    ``d_ff == 0``."""
-    if (
-        not set(cfg.block_pattern) <= set(ATTENTION + RECURRENT)
-        or cfg.is_encoder_decoder or cfg.d_ff <= 0
-    ):
+    """Every block kind of the reference is ported; a config naming
+    another is refused."""
+    unknown = set(cfg.block_pattern) - set(ATTENTION + RECURRENT)
+    if unknown:
         raise NotImplementedError(
-            f"{cfg.name}: only decoders of attention and RG-LRU blocks "
-            "with an MLP or MoE are ported so far"
-        )
+            f"{cfg.name}: unknown block kinds {sorted(unknown)}")
 
 
 def has_recurrent(cfg: ModelConfig) -> bool:
@@ -63,21 +68,29 @@ def has_recurrent(cfg: ModelConfig) -> bool:
 
 def block_parts(cfg: ModelConfig, kind: str) -> Tuple[str, ...]:
     """A block's parameter groups, as the reference's ``_init_block``
-    lays them out: ``norm`` and the mixer (``attn`` or ``rglru``), then
-    ``mlp_norm`` + ``moe`` on an attention kind of an MoE config,
-    ``mlp`` alone for a parallel block (it shares ``norm``), else
-    ``mlp_norm`` + ``mlp``."""
-    mixer = "rglru" if kind in RECURRENT else "attn"
+    lays them out: ``norm`` and the mixer (``attn``, or the recurrent
+    kind's own name), ``cross_norm`` + ``cross`` after an attention
+    mixer of an encoder-decoder, then ``mlp_norm`` + ``moe`` on an
+    attention kind of an MoE config, ``mlp`` alone for a parallel block
+    (it shares ``norm``), ``mlp_norm`` + ``mlp`` otherwise, and nothing
+    when ``d_ff == 0`` (xLSTM)."""
+    parts = ("norm", kind if kind in RECURRENT else "attn")
+    if cfg.is_encoder_decoder and kind in ATTENTION:
+        parts += ("cross_norm", "cross")
     if cfg.num_experts > 0 and kind in ATTENTION:
-        return ("norm", mixer, "mlp_norm", "moe")
+        return parts + ("mlp_norm", "moe")
+    if cfg.d_ff <= 0:
+        return parts
     if cfg.parallel_block:
-        return ("norm", mixer, "mlp")
-    return ("norm", mixer, "mlp_norm", "mlp")
+        return parts + ("mlp",)
+    return parts + ("mlp_norm", "mlp")
 
 
 class Block(nn.Module):
-    """Pre-norm mixer (``attn`` for attention kinds, ``rglru`` for the
-    recurrent one) + MLP or MoE (``block_parts``). Parameters are nested
+    """Pre-norm mixer (``attn`` for attention kinds, ``rglru``, ``mlstm``
+    or ``slstm`` for the recurrent ones), an encoder-decoder's
+    cross-attention, and an MLP or MoE (``block_parts``; an encoder
+    block, kind ``"enc"``, has ``ENC_PARTS``). Parameters are nested
     ``ParameterDict``s in the reference's layouts and names, one
     attribute a group; ``parts`` names them in order."""
 
@@ -90,19 +103,28 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Parameter container of one decoder; ``forward`` /
-    ``prefill`` below are the functions that run it."""
+    """Parameter container of one decoder (with an encoder-decoder's
+    encoder blocks and their final norm); ``forward`` / ``prefill`` /
+    ``encode`` below are the functions that run it."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
                  final_norm: nn.ParameterDict,
-                 lm_head: Optional[torch.Tensor], blocks: List[Block]) -> None:
+                 lm_head: Optional[torch.Tensor], blocks: List[Block],
+                 encoder: Optional[List[Block]] = None,
+                 encoder_final_norm: Optional[nn.ParameterDict] = None
+                 ) -> None:
         super().__init__()
         check_supported(cfg)
+        if cfg.is_encoder_decoder != (encoder_final_norm is not None):
+            raise ValueError("an encoder-decoder needs its encoder, and "
+                             "only it has one")
         self.cfg = cfg
         self.embed = L._param(embed)
         self.final_norm = final_norm
         self.lm_head = None if lm_head is None else L._param(lm_head)
         self.layers = nn.ModuleList(blocks)
+        self.encoder = nn.ModuleList(encoder or [])
+        self.encoder_final_norm = encoder_final_norm
 
     @property
     def device(self) -> torch.device:
@@ -121,17 +143,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = L._dense_init((cfg.d_model, cfg.padded_vocab), dt, gen, dev)
-    init = {"norm": L.init_norm, "mlp_norm": L.init_norm,
-            "attn": L.init_attention, "rglru": L.init_rglru,
-            "mlp": L.init_mlp, "moe": L.init_moe}
-    blocks = [
-        Block(kind, **{
-            name: (init[name](cfg, dev) if name.endswith("norm")
-                   else init[name](cfg, gen, dev))
-            for name in block_parts(cfg, kind)})
-        for kind in cfg.layer_kinds
-    ]
-    return Transformer(cfg, embed, L.init_norm(cfg, dev), lm_head, blocks)
+    init = {"attn": L.init_attention, "rglru": L.init_rglru,
+            "mlstm": L.init_mlstm, "slstm": L.init_slstm,
+            "mlp": L.init_mlp, "moe": L.init_moe,
+            "cross": lambda c, g, d: L.init_attention(c, g, d, cross=True)}
+
+    def block(kind, parts):
+        return Block(kind, **{
+            name: (L.init_norm(cfg, dev) if name.endswith("norm")
+                   else init[name](cfg, gen, dev)) for name in parts})
+
+    blocks = [block(kind, block_parts(cfg, kind))
+              for kind in cfg.layer_kinds]
+    encoder = [block("enc", ENC_PARTS)
+               for _ in range(cfg.num_encoder_layers
+                              if cfg.is_encoder_decoder else 0)]
+    return Transformer(cfg, embed, L.init_norm(cfg, dev), lm_head, blocks,
+                       encoder, L.init_norm(cfg, dev)
+                       if cfg.is_encoder_decoder else None)
 
 
 # ---------------------------------------------------------------------------
@@ -144,19 +173,31 @@ LayerCache = Union[Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
 
 @dataclass
 class Cache:
-    layers: List[LayerCache]  # (k, v, cache_pos) or {"h", "conv"}
+    # (k, v, cache_pos), or a recurrent kind's state dict
+    layers: List[LayerCache]
     lengths: torch.Tensor  # (B,) int32 committed tokens per row
 
 
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                  headroom: int, dev) -> LayerCache:
-    if kind in RECURRENT:
-        W = cfg.rnn_width
+    W = cfg.rnn_width
+    H = max(cfg.num_heads, 1)
+    f32 = dict(dtype=torch.float32, device=dev)
+    if kind == "rglru":
         return {
-            "h": torch.zeros((batch, W), dtype=torch.float32, device=dev),
+            "h": torch.zeros((batch, W), **f32),
             "conv": torch.zeros((batch, cfg.conv_width - 1, W),
                                 dtype=L.torch_dtype(cfg.dtype), device=dev),
         }
+    if kind == "mlstm":
+        return {"C": torch.zeros((batch, H, W // H, W // H), **f32),
+                "n": torch.zeros((batch, H, W // H), **f32),
+                "m": torch.full((batch, H), -float("inf"), **f32)}
+    if kind == "slstm":
+        return {"c": torch.zeros((batch, W), **f32),
+                "n": torch.zeros((batch, W), **f32),
+                "h": torch.zeros((batch, W), **f32),
+                "m": torch.full((batch, W), -float("inf"), **f32)}
     window = cfg.local_window if kind == "local_attn" else cfg.sliding_window
     return L.init_kv_cache(cfg, batch, max_len, window, headroom, device=dev)
 
@@ -174,21 +215,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _run_block(blk: Block, x, cfg: ModelConfig, *, positions, cache, valid,
-               collect: bool, mrope_positions=None):
-    """Returns (x, cache entry, MoE aux loss or None)."""
+               collect: bool, commit_upto=None, mrope_positions=None,
+               enc_out=None, enc_mask=None, cross_kv=None):
+    """Returns (x, cache entry, MoE aux loss or None). A recurrent layer
+    run on a cache without ``collect`` commits in place: every updated
+    step, or the committed carry when ``commit_upto`` is given."""
     h = L.apply_norm(blk.norm, x, cfg)
     if blk.kind in RECURRENT:
-        y, h_fin, conv = L.apply_rglru(
-            blk.rglru, h, cfg, None if cache is None else cache["h"],
-            None if cache is None else cache["conv"], update_mask=valid,
-            collect=collect,
-        )
-        if cache is None or collect:
+        if blk.kind == "rglru":
+            y, h_fin, conv = L.apply_rglru(
+                blk.rglru, h, cfg, None if cache is None else cache["h"],
+                None if cache is None else cache["conv"], update_mask=valid,
+                commit_upto=commit_upto, collect=collect,
+            )
             new = {"h": h_fin, "conv": conv}
-        else:  # commit every updated step, in place
-            cache["h"].copy_(h_fin)
-            cache["conv"].copy_(conv)
+        else:
+            apply = L.apply_mlstm if blk.kind == "mlstm" else L.apply_slstm
+            y, new = apply(getattr(blk, blk.kind), h, cfg, cache,
+                           update_mask=valid, commit_upto=commit_upto,
+                           collect=collect)
+        if cache is not None and not collect:
+            for key in cache:
+                cache[key].copy_(new[key])
             new = cache
+        x = x + y
     else:
         window = (cfg.local_window if blk.kind == "local_attn"
                   else cfg.sliding_window)
@@ -196,21 +246,70 @@ def _run_block(blk: Block, x, cfg: ModelConfig, *, positions, cache, valid,
             blk.attn, h, cfg, positions=positions, window=window,
             kv_cache=cache, valid=valid, mrope_positions=mrope_positions,
         )
-    x = x + y
+        x = x + y
+        if cfg.is_encoder_decoder and (enc_out is not None
+                                       or cross_kv is not None):
+            if cross_kv is None:  # project the encoder output here
+                cross_kv = project_cross_kv(blk, enc_out)
+            yc, _ = L.attention_forward(
+                blk.cross, L.apply_norm(blk.cross_norm, x, cfg), cfg,
+                positions=positions, cross_kv=(*cross_kv, enc_mask))
+            x = x + yc
     if "moe" in blk.parts:
         y, aux = L.apply_moe(blk.moe, L.apply_norm(blk.mlp_norm, x, cfg), cfg)
         return x + y, new, aux
+    if "mlp" not in blk.parts:  # xLSTM: no MLP
+        return x, new, None
     # a parallel block's MLP reads the pre-attention h (Command R+)
     hm = h if cfg.parallel_block else L.apply_norm(blk.mlp_norm, x, cfg)
     return x + L.apply_mlp(blk.mlp, hm, cfg), new, None
 
 
 def _block_hidden(blk: Block, x, cfg: ModelConfig, positions, valid,
-                  mrope_positions):
+                  mrope_positions, enc_out, enc_mask):
     x, _, aux = _run_block(blk, x, cfg, positions=positions, cache=None,
                            valid=valid, collect=False,
-                           mrope_positions=mrope_positions)
+                           mrope_positions=mrope_positions,
+                           enc_out=enc_out, enc_mask=enc_mask)
     return x, aux
+
+
+def project_cross_kv(blk: Block, enc_out: torch.Tensor):
+    """A decoder block's cross-attention K/V (B, S, Hkv, hd) from the
+    encoder output (B, S, d)."""
+    return (torch.einsum("bsd,dhk->bshk", enc_out, blk.cross["wk"]),
+            torch.einsum("bsd,dhk->bshk", enc_out, blk.cross["wv"]))
+
+
+def build_cross_cache(params: Transformer, cfg: ModelConfig,
+                      enc_out: torch.Tensor) -> List[Optional[Tuple]]:
+    """Every decoder layer's cross-attention K/V from the encoder output,
+    projected once per request (the reference's decode fast path, which
+    saves 2·L·S_enc·d² flops a decode step). One ``(ck, cv)`` per layer,
+    None for a layer with no cross-attention: the port's per-layer
+    layout, where the reference returns per-stage tuples."""
+    return [project_cross_kv(blk, enc_out) if "cross" in blk.parts else None
+            for blk in params.layers]
+
+
+def encode(params: Transformer, cfg: ModelConfig, enc_embeds: torch.Tensor,
+           enc_mask: torch.Tensor) -> torch.Tensor:
+    """The bidirectional encoder over stub front-end embeddings (B, S, d)
+    (audio frames): each block's self-attention sees every valid frame
+    (``enc_mask`` (B, S) bool), its output is zeroed at invalid frames,
+    then the MLP; the final norm's output (B, S, d) in the model dtype
+    feeds the decoder's cross-attention."""
+    x = enc_embeds.to(L.torch_dtype(cfg.dtype))
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    for blk in params.encoder:
+        y, _ = L.attention_forward(
+            blk.attn, L.apply_norm(blk.norm, x, cfg), cfg,
+            positions=positions, bidirectional=True, valid=enc_mask)
+        x = x + torch.where(enc_mask[:, :, None], y, 0.0)
+        x = x + L.apply_mlp(blk.mlp, L.apply_norm(blk.mlp_norm, x, cfg), cfg)
+    return L.apply_norm(params.encoder_final_norm, x, cfg)
 
 
 def head(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -229,28 +328,40 @@ def forward(
     cache: Optional[Cache] = None,
     positions: Optional[torch.Tensor] = None,  # (B, T) int32
     valid: Optional[torch.Tensor] = None,  # (B, T) bool
+    commit_upto: Optional[torch.Tensor] = None,  # (B,) acceptance prefix
     mrope_positions: Optional[torch.Tensor] = None,  # (3, B, T)
+    enc_out: Optional[torch.Tensor] = None,  # (B, S, d) encoder output
+    enc_mask: Optional[torch.Tensor] = None,  # (B, S) bool
+    cross_cache: Optional[List] = None,  # build_cross_cache's output
     return_hidden: bool = False,
     collect_states: bool = False,
     remat: bool = False,
     return_aux: bool = False,
 ):
     """Returns (logits (B,T,V_padded) f32, cache | per-layer entries:
-    (k, v, pos) for attention, {"h", "conv"} final states for RG-LRU),
+    (k, v, pos) for attention, a recurrent kind's final state dict),
     and with ``return_aux`` a third value, the MoE layers' summed
     load-balance loss (a float32 0-d tensor, 0 without MoE: the
     reference's third return value, which only the learner reads).
 
     ``embeds`` (the stub of a vision front end) replaces the token
     embedding lookup, and ``mrope_positions`` (3, B, T) gives M-RoPE its
-    three position streams, as in the reference.
+    three position streams, as in the reference. An encoder-decoder's
+    blocks attend over the encoder output through ``enc_out`` (projected
+    in each layer) or ``cross_cache`` (projected once), keys masked by
+    ``enc_mask``; with neither, the cross-attention is skipped, as in
+    the reference.
 
     With a cache the layer caches are written in place and a ``Cache`` of
     the same tensors (lengths untouched) comes back. With
     ``collect_states`` as well, the recurrent layers' cache tensors are
     left as they were and the returned ``Cache`` holds their staged
-    per-step states instead (``apply_rglru(collect=True)``), for
-    ``commit_staged_cache``. ``return_hidden`` returns the final-norm
+    per-step states instead (``apply_rglru(collect=True)`` and its xLSTM
+    twins), for ``commit_staged_cache``. Without ``collect_states`` the
+    recurrent caches take, in place, the state after every updated step,
+    or with ``commit_upto`` (B,) the committed carry: the state after the
+    steps t < commit_upto (the reference's dual carry).
+    ``return_hidden`` returns the final-norm
     hidden states instead of logits (callers then use
     ``rl.grpo.chunked_token_logprobs``, so the (B, T, V) float32 logits
     never exist). ``remat`` checkpoints each block for the backward
@@ -277,14 +388,17 @@ def forward(
     for li, blk in enumerate(params.layers):
         if remat:
             x, aux = checkpoint(_block_hidden, blk, x, cfg, positions, valid,
-                                mrope_positions, use_reentrant=False)
+                                mrope_positions, enc_out, enc_mask,
+                                use_reentrant=False)
             kv = None
         else:
             c = cache.layers[li] if cache is not None else None
-            x, kv, aux = _run_block(blk, x, cfg, positions=positions,
-                                    cache=c, valid=valid,
-                                    collect=collect_states,
-                                    mrope_positions=mrope_positions)
+            x, kv, aux = _run_block(
+                blk, x, cfg, positions=positions, cache=c, valid=valid,
+                collect=collect_states, commit_upto=commit_upto,
+                mrope_positions=mrope_positions, enc_out=enc_out,
+                enc_mask=enc_mask,
+                cross_kv=None if cross_cache is None else cross_cache[li])
         if aux is not None:
             aux_total = aux_total + aux
         kv_out.append(kv)
@@ -296,11 +410,13 @@ def forward(
 
 def prefill(params: Transformer, cfg: ModelConfig, tokens, pad_mask,
             max_len: int, *, embeds=None, headroom: int = 64,
-            mrope_positions=None):
+            mrope_positions=None, enc_out=None, enc_mask=None):
     """Left-padded prompt prefill. tokens (B, Tp) or embeds (B, Tp, d),
-    pad_mask (B, Tp) bool (False = left pad). Returns (last_logits (B,
-    V), cache) with ``cache.lengths`` = per-row prompt lengths. Only the
-    last column's logits are computed (rows are right-aligned)."""
+    pad_mask (B, Tp) bool (False = left pad); an encoder-decoder's
+    prompt attends over ``enc_out`` (B, S, d) with ``enc_mask``. Returns
+    (last_logits (B, V), cache) with ``cache.lengths`` = per-row prompt
+    lengths. Only the last column's logits are computed (rows are
+    right-aligned)."""
     B, Tp = pad_mask.shape
     dev = pad_mask.device
     plen = pad_mask.sum(-1).to(torch.int32)
@@ -308,7 +424,8 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, pad_mask,
     positions = torch.where(pad_mask, positions, -1).to(torch.int32)
     hidden, kv = forward(params, cfg, tokens, embeds=embeds,
                          positions=positions, valid=pad_mask,
-                         mrope_positions=mrope_positions, return_hidden=True)
+                         mrope_positions=mrope_positions, enc_out=enc_out,
+                         enc_mask=enc_mask, return_hidden=True)
     last_logits = head(params, cfg, hidden[:, -1:])[:, 0]
     cache = init_cache(cfg, B, max_len, headroom, device=dev)
     bidx = torch.arange(B, device=dev)[:, None]

@@ -12,9 +12,9 @@ logits tile here, so the (B, S, V) float32 logits never exist.
 An MoE model's load-balance loss (``forward(return_aux=True)``) is added
 to the GRPO and SFT losses, as in the reference. A batch may carry the
 vision stub's ``embeds`` (replacing the token embedding lookup) and
-``mrope_positions`` (3, B, S); the encoder-decoder's ``enc_embeds`` /
-``enc_mask`` are not ported (``models.model.check_supported``) and
-raise.
+``mrope_positions`` (3, B, S); an encoder-decoder's batch carries
+``enc_embeds`` / ``enc_mask``, which the encoder runs first (as the
+reference's ``grpo_loss`` does), for the decoder's cross-attention.
 """
 
 from __future__ import annotations
@@ -29,9 +29,6 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
-
-_UNSUPPORTED_KEYS = ("enc_embeds", "enc_mask")
-
 
 @dataclass(frozen=True)
 class GRPOConfig:
@@ -102,15 +99,6 @@ def token_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(lp, (1, 0))
 
 
-def _check_batch(batch: Mapping[str, torch.Tensor]) -> None:
-    bad = [k for k in _UNSUPPORTED_KEYS if k in batch]
-    if bad:
-        raise NotImplementedError(
-            f"GRPO batch keys {bad} belong to model families the port does "
-            "not support yet (models.model.check_supported)"
-        )
-
-
 def grpo_loss(
     params: M.Transformer,
     cfg: ModelConfig,
@@ -120,12 +108,16 @@ def grpo_loss(
     """batch: tokens (B, S), resp_mask (B, S) bool, advantages (B,),
     old_logprobs (B, S) — ratio = 1 when old == new (single on-policy
     update). Returns (loss, metrics), both differentiable 0-d tensors."""
-    _check_batch(batch)
     tokens = batch["tokens"]
+    enc_out = None
+    enc_mask = batch.get("enc_mask")
+    if "enc_embeds" in batch:
+        enc_out = M.encode(params, cfg, batch["enc_embeds"], enc_mask)
     hidden, _, aux = M.forward(
         params, cfg, tokens, embeds=batch.get("embeds"),
-        mrope_positions=batch.get("mrope_positions"), remat=gcfg.remat,
-        return_hidden=True, return_aux=True)
+        mrope_positions=batch.get("mrope_positions"), enc_out=enc_out,
+        enc_mask=enc_mask, remat=gcfg.remat, return_hidden=True,
+        return_aux=True)
     lp = chunked_token_logprobs(params, cfg, hidden, tokens)
     mask = batch["resp_mask"].float()
     adv = batch["advantages"][:, None]
@@ -195,7 +187,6 @@ def make_sft_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig):
     stand-in for the pretrained checkpoint the paper post-trains."""
 
     def sft_step(params, opt_state, batch):
-        _check_batch(batch)
         tokens = batch["tokens"]
         hidden, _, aux = M.forward(params, cfg, tokens, return_hidden=True,
                                    return_aux=True)

@@ -365,3 +365,35 @@ def test_cli_commands_run_concurrently_and_none_outlives_the_phase():
         [[py, "-c", "import time; time.sleep(30)"]], dict(os.environ),
         timeout_s=0.5)
     assert rc != 0 and t < 10
+
+
+def test_phase12_xlstm_and_seamless_on_cpu():
+    """Phase 12 at small widths on the CPU: 12a's lock-step and
+    continuous runs of xLSTM (epoch identity, drafts accepted, every
+    token plain greedy's by one batched full-sequence forward, one
+    verify forward's op count), 12b's float32 rerun on a cut depth (the
+    argmax witness, and staged states gathered at n_commit equal to
+    ``commit_upto``'s committed carry bit for bit), and 12c's
+    encoder-decoder decode through the ring and the cross cache against
+    its full forward, then cut and in float32."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import model as M
+
+    cs = _chip_smoke()
+    traffic = dict(dev="cpu", limits=(6, 10), prompt_len=(5, 9))
+    cfg = smoke_variant(get_config("xlstm-125m")).replace(
+        num_layers=3, d_model=32, rnn_width=32)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    launches = cs.phase_xlstm(torch, np, "cpu", cfg, params, slots=2,
+                              n_problems=2, n_requests=4, **traffic)
+    assert launches["spec_verify_attention"] == 0
+    cfg = cs.cut_depth(torch, params, cfg, 2)
+    assert [b.kind for b in params.layers] == ["mlstm", "slstm"]
+    cs.phase_xlstm_f32(torch, np, "cpu", cfg, params, **traffic)
+    cfg = smoke_variant(get_config("seamless-m4t-medium")).replace(
+        d_model=32, num_heads=2, num_kv_heads=2, head_dim=16, d_ff=64)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    out = cs.phase_seamless(torch, np, "cpu", cfg, params, dev="cpu", B=2,
+                            S_enc=8, prompt=3, steps=4, f32_layers=1)
+    assert sorted(out) == ["bf16", "float32"]
+    assert params.cfg.num_layers == len(params.encoder) == 1

@@ -7,7 +7,9 @@ Same weights (JAX ``init_params`` through numpy), same prompts and
 problem ids, T = 0. Mixtral's smoke variant (MoE, whose capacity makes a
 token depend on its forward's other tokens, so identity also holds the
 port to the reference's batches: pads and dead rows routed too) and
-Command R+'s (parallel blocks) run the fused path. Two ``generate`` calls over the same problems, so the
+Command R+'s (parallel blocks) run the fused path, xLSTM's (mLSTM and
+sLSTM, staged states, no attention layer) the fused and the unfused
+paths. Two ``generate`` calls over the same problems, so the
 second drafts from the first one's trees. Checked for the fused path
 (``fuse_rounds="auto"``, scope ``problem``: device drafting through the
 suffix-match plain version) and the unfused path (``fuse_rounds="off"``,
@@ -59,10 +61,15 @@ HYBRID = jax_smoke_variant(jax_get_config("recurrentgemma-9b"))
 # same batches of tokens as the reference: pads and dead rows included.
 MOE = jax_smoke_variant(jax_get_config("mixtral-8x7b"))
 PARALLEL = jax_smoke_variant(jax_get_config("command-r-plus-104b"))
+# xLSTM's smoke variant (mlstm, slstm; no attention layer, so no ring and
+# no spec-verify; staged states for both blocks); weight seed 6 keeps the
+# top-2 gap above MIN_GAP
+XLSTM = jax_smoke_variant(jax_get_config("xlstm-125m"))
 FAMILIES = {"dense": (CFG, WEIGHT_SEED, (0, 2, 4)),
             "hybrid": (HYBRID, 4, (4,)),
             "moe": (MOE, 0, (4,)),
-            "parallel": (PARALLEL, 5, (4,))}
+            "parallel": (PARALLEL, 5, (4,)),
+            "xlstm": (XLSTM, 6, (4,))}
 MAX_NEW = [24, 12, 30, 18]
 PIDS = ["a", "b", "a", "c"]
 MIN_GAP = 1e-3  # 5x the cross-framework logits tolerance
@@ -119,6 +126,9 @@ def _min_top2_gap(jparams, prompts, outs, jcfg=CFG):
     # the main (fused) path only for the families whose layers, not
     # rounds, are new: each case is one more JAX compilation
     ("auto", "problem", "moe"), ("auto", "problem", "parallel"),
+    # xLSTM: fused and unfused rounds (its recurrent state, not its layers,
+    # is what the rounds carry)
+    ("auto", "problem", "xlstm"), ("off", "problem+request", "xlstm"),
 ])
 def test_generate_token_identical_to_jax(fuse, scope, family):
     jparams, jeng, teng = _engines(fuse, scope, family)

@@ -21,6 +21,7 @@ Every socket test sets an ``rpc_timeout`` and stops its service in a
 import json
 import random
 import socket
+import time
 
 import numpy as np
 import pytest
@@ -241,7 +242,15 @@ def _service_round_trip(Service, Client, f, other_client):
         restarted = sup.poll(force=True)
         assert restarted == [i] and svc.shard_alive(i)
         assert svc.book.version > v0
-        c.sync()
+        # The first sync may land on the killed shard's old connection:
+        # when the server closed it before its thread was back in recv
+        # (a loaded host), the kernel sent a FIN, the client reads EOF,
+        # which ``_rpc`` counts as a failure with no reconnect, and
+        # ``sync`` skips the shard. The next sync dials the republished
+        # address. Wait for that condition, not for a time.
+        deadline = time.monotonic() + 10.0
+        while c.stats["shard_restarts"] == 0 and time.monotonic() < deadline:
+            c.sync()
         assert c.stats["shard_restarts"] == 1
         # the other package's client dials the restarted addresses
         o = other_client(list(svc.addresses), worker_id="w1",

@@ -14,9 +14,13 @@
   flash backward past the window at S = 2048), for Mixtral's smoke
   pattern (MoE, its load-balance loss in the loss and the metrics) and
   for the Qwen2-VL backbone on a batch of stub ``embeds`` with three
-  distinct M-RoPE position streams; ``remat=True`` gives the
-  ``remat=False`` loss and gradients exactly, for the dense decoder and
-  the hybrid;
+  distinct M-RoPE position streams, for xLSTM's smoke pattern (mLSTM
+  and sLSTM blocks, no MLP; the gradient runs back through both loops)
+  and for the encoder-decoder on a batch of stub ``enc_embeds`` with a
+  ragged ``enc_mask`` (the encoder runs first, the decoder
+  cross-attends); loss and gradients all finite; ``remat=True`` gives
+  the ``remat=False`` loss and gradients exactly, for the dense decoder,
+  the hybrid, the MoE, xLSTM and the encoder-decoder;
 * three AdamW steps (warmup, cosine, weight decay and clipping all
   active) against ``apply_updates``: parameters, ``mu``, ``nu`` and the
   three metrics, float32 within rtol 1e-5, and bfloat16 parameters (the
@@ -64,6 +68,10 @@ HYBRID = dict(SMALL, arch="recurrentgemma-9b", num_kv_heads=1, rnn_width=64)
 MOE = dict(SMALL, arch="mixtral-8x7b")
 # the VLM backbone: M-RoPE sections summing to the rotary half of hd 16
 VLM = dict(SMALL, arch="qwen2-vl-2b", mrope_sections=(2, 3, 3))
+# xLSTM at the same width: mlstm, slstm, 4 heads of 16, no MLP
+XLSTM = dict(SMALL, arch="xlstm-125m", d_ff=0, rnn_width=64)
+# the encoder-decoder: 2 encoder and 2 decoder layers, GELU MLPs
+ENCDEC = dict(SMALL, arch="seamless-m4t-medium")
 
 
 def _params(jcfg, cfg, seed=0, dtype=None):
@@ -138,12 +146,21 @@ GRPO_CASES = {
     "hybrid_flash_2048": (dict(kl_coef=0.05), HYBRID, 2, 2048),
     "moe_surrogate": (dict(), MOE, 4, 40),
     "vlm_embeds": (dict(), VLM, 4, 40),
+    "xlstm_surrogate": (dict(kl_coef=0.05), XLSTM, 4, 40),
+    "encdec_enc_embeds": (dict(kl_coef=0.05), ENCDEC, 4, 40),
 }
 
 
 def _modality_inputs(cfg, B, S, seed):
-    """Stub vision embeddings and three distinct position streams."""
+    """Stub vision embeddings and three distinct position streams, or an
+    encoder-decoder's stub frames (S + 3 of them, the last row's mask cut
+    short)."""
     rng = np.random.default_rng(seed)
+    if cfg.is_encoder_decoder:
+        enc = rng.normal(size=(B, S + 3, cfg.d_model)).astype(np.float32)
+        mask = np.ones((B, S + 3), bool)
+        mask[-1, S // 2:] = False
+        return {"enc_embeds": enc, "enc_mask": mask}
     embeds = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
     t = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
     pos3 = np.stack([t, rng.integers(0, S, size=(B, S)),
@@ -162,6 +179,7 @@ def test_grpo_loss_and_grads_match_jax(case):
         jparams, jcfg, jnp.asarray(tokens)))
     told = grpo.compute_old_logprobs(params, cfg, torch.from_numpy(tokens))
     np.testing.assert_allclose(told.numpy(), jold, **LP_TOL)
+    # (both references score without the encoder: the ratios' old side)
     old = jold + noise  # ratios away from 1: clipping is active
     jg = jgrpo.GRPOConfig(**gkw)
     jbatch = {"tokens": jnp.asarray(tokens), "resp_mask": jnp.asarray(resp),
@@ -169,7 +187,7 @@ def test_grpo_loss_and_grads_match_jax(case):
     tb = {"tokens": torch.from_numpy(tokens), "resp_mask": torch.from_numpy(resp),
           "advantages": torch.from_numpy(adv),
           "old_logprobs": torch.from_numpy(old)}
-    if cfg.rope == "mrope":
+    if cfg.rope == "mrope" or cfg.is_encoder_decoder:
         extra = _modality_inputs(cfg, B, S, seed=4)
         jbatch.update({k: jnp.asarray(v) for k, v in extra.items()})
         tb.update({k: torch.from_numpy(v) for k, v in extra.items()})
@@ -189,6 +207,8 @@ def test_grpo_loss_and_grads_match_jax(case):
     for k in want:
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **GRAD_TOL)
     assert all(np.abs(v).max() > 0 for v in got.values())
+    assert np.isfinite(float(loss)) and all(
+        np.isfinite(v).all() for v in got.values())
 
 
 def _remat_gives_the_same_grads(over):
@@ -198,6 +218,9 @@ def _remat_gives_the_same_grads(over):
     tb = {"tokens": torch.from_numpy(tokens), "resp_mask": torch.from_numpy(resp),
           "advantages": torch.from_numpy(adv),
           "old_logprobs": torch.from_numpy(noise)}
+    if cfg.is_encoder_decoder:
+        tb.update({k: torch.from_numpy(v) for k, v in
+                   _modality_inputs(cfg, 4, 40, seed=7).items()})
     out = []
     for remat in (False, True):
         g = grpo.GRPOConfig(kl_coef=0.05, remat=remat)
@@ -221,13 +244,13 @@ def test_grpo_remat_gives_the_same_grads_moe():
     _remat_gives_the_same_grads(MOE)
 
 
-def test_grpo_refuses_modality_batches():
-    jcfg, cfg = _cfgs(**SMALL)
-    _, params = _params(jcfg, cfg)
-    tb = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-          "enc_embeds": torch.zeros((1, 8, cfg.d_model))}
-    with pytest.raises(NotImplementedError, match="enc_embeds"):
-        grpo.grpo_loss(params, cfg, grpo.GRPOConfig(), tb)
+def test_grpo_remat_gives_the_same_grads_xlstm():
+    _remat_gives_the_same_grads(XLSTM)
+
+
+def test_grpo_remat_gives_the_same_grads_encdec():
+    """The encoder's output reaches each checkpointed decoder block."""
+    _remat_gives_the_same_grads(ENCDEC)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -2,16 +2,20 @@
 decoders (Qwen3, Qwen2, Yi, ChatGLM3's partial RoPE with QKV bias,
 Command R+'s parallel blocks with LayerNorm and tied embeddings), the
 Qwen2-VL backbone's M-RoPE, the MoE decoders (Mixtral's sliding window,
-Arctic's dense residual) and the hybrid RG-LRU + local-attention stack
+Arctic's dense residual), the hybrid RG-LRU + local-attention stack
 (RecurrentGemma's smoke variant, and an 8-layer cut of it whose layers
-form a scanned stage of two units plus two remainder stages).
+form a scanned stage of two units plus two remainder stages), xLSTM's
+smoke variant (mLSTM + sLSTM, no MLP; and a 5-layer cut: two units
+scanned, one remainder layer) and the encoder-decoder's decoder run
+without an encoder output (its cross-attention skipped, as in the
+reference; ``tests/test_torch_encdec.py`` runs it with one).
 
 JAX ``init_params`` weights cross through numpy (``params_from_numpy``);
 prefill over left-padded prompts and one cached 5-token verify block go
 through both. Last-position logits and every layer's cache must agree
-within atol 2e-4, rtol 2e-4 for the dense configs (float32; the
-summation order differs between XLA and PyTorch) and within 1e-5 for the
-hybrid ones; cache_pos must be exact. The cached block runs the port's
+within atol 2e-4, rtol 2e-4 for the dense and xLSTM configs (float32;
+the summation order differs between XLA and PyTorch) and within 1e-5
+for the hybrid ones; cache_pos must be exact. The cached block runs the port's
 spec-verify and RG-LRU plain versions against JAX's XLA path; for a
 hybrid model it collects staged recurrent states, which
 ``commit_staged_cache`` gathers at per-row acceptance counts (0 for the
@@ -46,16 +50,23 @@ def port_params(jparams, cfg):
     return params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
 
 
+XLSTM_KEYS = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "h", "m")}
+
+
 def _jax_layer_caches(jcache, cfg):
     """Per-layer numpy entries from the JAX scan-staged cache: (k, v,
-    cpos) triples for attention, {"h", "conv"} dicts for RG-LRU."""
+    cpos) triples for attention, {"h", "conv"} dicts for RG-LRU, and the
+    xLSTM tuples as the port's dicts."""
     out = []
     for si, (unit, repeats) in enumerate(cfg.scan_stages):
         for r in range(repeats):
-            for ui in range(len(unit)):
-                out.append(jax.tree.map(
+            for ui, kind in enumerate(unit):
+                entry = jax.tree.map(
                     lambda a: np.asarray(a[r] if repeats > 1 else a),
-                    jcache.stages[si][ui]))
+                    jcache.stages[si][ui])
+                if kind in XLSTM_KEYS:
+                    entry = dict(zip(XLSTM_KEYS[kind], entry))
+                out.append(entry)
     return out
 
 
@@ -79,7 +90,12 @@ def _compare_caches(jcache, tcache, cfg, tol=TOL):
 
 def _configs(tiny_dense):
     hybrid = jax_smoke_variant(jax_get_config("recurrentgemma-9b"))
+    xlstm = jax_smoke_variant(jax_get_config("xlstm-125m"))
     return {
+        "xlstm_125m_smoke": xlstm,
+        "xlstm_125m_smoke_5_layers": xlstm.replace(num_layers=5),
+        "seamless_m4t_medium_smoke": jax_smoke_variant(
+            jax_get_config("seamless-m4t-medium")),
         "tiny_dense": tiny_dense,
         "qwen3_8b_smoke": jax_smoke_variant(jax_get_config("qwen3-8b")),
         "qwen2_1_5b_smoke": jax_smoke_variant(jax_get_config("qwen2-1.5b")),
@@ -100,14 +116,19 @@ NEW_ARCHS = ("yi-9b", "chatglm3-6b", "command-r-plus-104b", "qwen2-vl-2b",
     "tiny_dense", "qwen3_8b_smoke", "qwen2_1_5b_smoke",
     "recurrentgemma_9b_smoke", "recurrentgemma_9b_smoke_8_layers",
     "yi_9b_smoke", "chatglm3_6b_smoke", "command_r_plus_104b_smoke",
-    "qwen2_vl_2b_smoke", "mixtral_8x7b_smoke", "arctic_480b_smoke"])
+    "qwen2_vl_2b_smoke", "mixtral_8x7b_smoke", "arctic_480b_smoke",
+    "xlstm_125m_smoke", "xlstm_125m_smoke_5_layers",
+    "seamless_m4t_medium_smoke"])
 def test_prefill_and_cached_block_match_jax(tiny_dense, name):
     jcfg = _configs(tiny_dense)[name]
     assert jcfg.dtype == "float32"
     cfg = port_cfg(jcfg)
     recurrent = JM.has_recurrent(jcfg)
     assert TM.has_recurrent(cfg) == recurrent
-    tol = TOL_HYBRID if recurrent else TOL
+    # xLSTM takes the dense tolerance: a 1e-7 relative nudge of the 5-layer
+    # cut's input embeddings moves the reference's own logits by 8.5e-5
+    xlstm = "mlstm" in jcfg.block_pattern
+    tol = TOL_HYBRID if recurrent and not xlstm else TOL
     jparams = make_params(jcfg, seed=3)
     params = port_params(jparams, cfg)
     rng = np.random.default_rng(4)
@@ -153,7 +174,9 @@ def test_prefill_and_cached_block_match_jax(tiny_dense, name):
 
 @pytest.mark.parametrize("arch,n_layers", [("qwen3-8b", 2),
                                            ("recurrentgemma-9b", 6),
-                                           *((a, 2) for a in NEW_ARCHS)])
+                                           *((a, 2) for a in NEW_ARCHS),
+                                           ("xlstm-125m", 4),
+                                           ("seamless-m4t-medium", 2)])
 def test_init_params_shapes_and_scale(arch, n_layers):
     jcfg = jax_smoke_variant(jax_get_config(arch)).replace(
         num_layers=n_layers)
@@ -185,7 +208,9 @@ def test_init_params_shapes_and_scale(arch, n_layers):
             same_shapes(getattr(blk, group), jblk[group], (group,))
         # N(0,1)/sqrt(fan_in): the std of wq (wx) is 1/sqrt(d_model), like
         # JAX's; an expert stack (E, d, f) takes its fan-in from d
-        ws = [blk.rglru["wx"] if kind == "rglru" else blk.attn["wq"]]
+        first = {"rglru": "wx", "mlstm": "wq", "slstm": "wz"}
+        ws = [getattr(blk, kind)[first[kind]] if kind in first
+              else blk.attn["wq"]]
         if "moe" in blk.parts:
             ws += [blk.moe["wi"], blk.moe["router"]]
         for w in ws:
@@ -196,6 +221,16 @@ def test_init_params_shapes_and_scale(arch, n_layers):
             np.testing.assert_allclose(blk.rglru["lam"].numpy(),
                                        jblk["rglru"]["lam"][0], rtol=1e-5)
             assert abs(float(blk.rglru["conv"].std()) - 0.5) < 0.05
+    if cfg.is_encoder_decoder:  # encoder blocks stacked in the reference
+        assert len(params.encoder) == cfg.num_encoder_layers
+        for blk in params.encoder:
+            assert blk.parts == TM.ENC_PARTS
+            for group in blk.parts:
+                for k, v in getattr(blk, group).items():
+                    assert (tuple(v.shape) == ref["encoder"]["blocks"][group]
+                            [k].shape[1:]), (group, k)
+    else:
+        assert len(params.encoder) == 0 and "encoder" not in ref
     assert TM.param_count(params) == sum(a.size for a in jax.tree.leaves(ref))
 
 

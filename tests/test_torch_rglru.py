@@ -8,7 +8,9 @@
   ``_rglru_scan`` with committed = updated, as the serving path uses it.
 * ``apply_rglru`` against the JAX block on the same weights, for prefill
   (update mask over left pads) and verify (``collect=True``: staged
-  per-step h and conv contexts from a cached state, a frozen row).
+  per-step h and conv contexts from a cached state, a frozen row), and
+  the committed carry of ``commit_upto`` (h and the conv context) against
+  the reference's dual-carry scan, in [0, T] and past both ends.
 * A model of the CUDA kernel's decomposition (tiles of 32 steps by 32
   lanes, gates formed a tile at a time, the carry walked per lane, no
   load at a masked step) bit for bit against the plain version, and
@@ -265,11 +267,49 @@ def test_apply_rglru_verify_collect_matches_jax(block):
                                                                  (T + 1, W)))
 
 
-def test_apply_rglru_commit_upto_is_not_ported(block):
-    _, cfg, _, tp = block
-    x = torch.from_numpy(_x(cfg, 1, 2, 1))
-    with pytest.raises(NotImplementedError, match="commit_upto"):
-        TL.apply_rglru(tp, x, cfg, commit_upto=torch.zeros(1))
+# per row: commit nothing, a prefix, everything; then past the ends: -1
+# (the conv context's first index wraps to the last input), T + 1 (its
+# last tap reads past the end: NaN), -(T + cw) (the first tap wraps to
+# -1, still outside: NaN) and T + cw - 1 (every tap past the end)
+COMMIT_CASES = {"inside": lambda T, cw: [0, 2, T],
+                "outside": lambda T, cw: [-1, T + 1, -(T + cw)],
+                "far_outside": lambda T, cw: [T + cw - 1, -T - 40, T + 9]}
+
+
+@pytest.mark.parametrize("case", sorted(COMMIT_CASES))
+def test_apply_rglru_commit_upto_matches_jax_dual_carry(block, case):
+    """The port keeps the scan on its kernel and gathers the committed
+    carry from the scan's hs: ``cat([h0, hs], 1)[:, clamp(upto, 0, T)]``.
+    That is the reference's second carry (``_rglru_scan``): the dynamic
+    state changes only at updated steps, and step t commits iff it
+    updates and t < upto, so the committed state is the dynamic state
+    after step upto - 1 (h0 for upto <= 0, the last state for upto >=
+    T). The conv context follows ``jnp.take_along_axis``'s default
+    "fill" mode: a negative index counts from the end once, an index
+    still out of range reads NaN. A frozen row and a left-padded one."""
+    jcfg, cfg, jp, tp = block
+    B, T, W, cw = 3, 5, cfg.rnn_width, cfg.conv_width
+    rng = np.random.default_rng(10)
+    x = _x(cfg, B, T, 11)
+    h0 = rng.normal(size=(B, W)).astype(np.float32)
+    conv0 = rng.normal(size=(B, cw - 1, W)).astype(np.float32)
+    valid = np.ones((B, T), bool)
+    valid[1] = False  # a frozen row
+    valid[2, :2] = False  # left pads
+    upto = np.asarray(COMMIT_CASES[case](T, cw), np.int32)
+    jy, jh, jconv = JL.apply_rglru(
+        jp, jnp.asarray(x), jcfg, jnp.asarray(h0), jnp.asarray(conv0),
+        update_mask=jnp.asarray(valid), commit_upto=jnp.asarray(upto))
+    ty, th, tconv = TL.apply_rglru(
+        tp, torch.from_numpy(x), cfg, torch.from_numpy(h0),
+        torch.from_numpy(conv0), update_mask=torch.from_numpy(valid),
+        commit_upto=torch.from_numpy(upto))
+    for got, want in ((ty, jy), (th, jh), (tconv, jconv)):
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    nan = np.isnan(np.asarray(jconv))
+    np.testing.assert_array_equal(np.isnan(tconv.numpy()), nan)
+    assert nan.any() == (case != "inside")
 
 
 @pytest.mark.gpu

@@ -20,7 +20,10 @@ The hybrid cases (RecurrentGemma's smoke variant: RG-LRU + local
 attention) run ``copy_cache_rows`` over its ``{"h", "conv"}`` layer
 caches, ``generate_continuous`` (chunked, fused, one K bucket) against
 JAX, and a preempted request's resume by re-prefill, whose recurrent
-state comes out of the prefill.
+state comes out of the prefill. The xLSTM cases (its smoke variant:
+mLSTM + sLSTM, no attention layer) copy its ``{"C", "n", "m"}`` and
+``{"c", "n", "h", "m"}`` caches (-inf stabilizers included) and run
+``generate_continuous`` against JAX over the chunked forest.
 """
 
 import dataclasses
@@ -82,6 +85,14 @@ def hybrid_weights():
     return _weights("hybrid")
 
 
+@pytest.fixture(scope="module")
+def xlstm_weights():
+    return _weights("xlstm")
+
+
+XLSTM_KEYS = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "h", "m")}
+
+
 def _eng_kw(family):
     return dict(ENG_KW, block_buckets=FAMILIES[family][2])
 
@@ -102,14 +113,18 @@ def _port_engine(weights, fuse="auto", layout="auto", eng_kw=ENG_KW):
 # ---------------------------------------------------------------------------
 
 def _jax_layer_caches(jcache, cfg):
-    """Per-layer numpy entries: (k, v, cpos) or {"h", "conv"}."""
+    """Per-layer numpy entries: (k, v, cpos), {"h", "conv"}, or an xLSTM
+    state tuple as the port's dict."""
     out = []
     for si, (unit, repeats) in enumerate(cfg.scan_stages):
         for r in range(repeats):
-            for ui in range(len(unit)):
-                out.append(jax.tree.map(
+            for ui, kind in enumerate(unit):
+                entry = jax.tree.map(
                     lambda a: np.array(a[r] if repeats > 1 else a),
-                    jcache.stages[si][ui]))
+                    jcache.stages[si][ui])
+                if kind in XLSTM_KEYS:
+                    entry = dict(zip(XLSTM_KEYS[kind], entry))
+                out.append(entry)
     return out
 
 
@@ -136,11 +151,15 @@ def _jax_prefill(jparams, prompts, jcfg=CFG, Tp=16, max_len=64):
     pytest.param("dense", [1, 4, 4, 4], id="slots2"),
     pytest.param("hybrid", [2, 0, 4, 4], id="hybrid-slots0"),
     pytest.param("hybrid", [1, 4, 4, 4], id="hybrid-slots2"),
+    pytest.param("xlstm", [3, 0, 4, 4], id="xlstm-slots0"),
 ])
-def test_copy_cache_rows_equals_jax(weights, hybrid_weights, family, slots):
+def test_copy_cache_rows_equals_jax(weights, hybrid_weights, xlstm_weights,
+                                    family, slots):
     """Padded entries (``n_slots`` = 4) are dropped by both packages; a
-    hybrid model's RG-LRU layers copy both their ``h`` and ``conv``."""
-    jparams = (weights if family == "dense" else hybrid_weights)[0]
+    hybrid model's RG-LRU layers copy both their ``h`` and ``conv``, an
+    xLSTM model's layers every entry of their state."""
+    jparams = {"dense": weights, "hybrid": hybrid_weights,
+               "xlstm": xlstm_weights}[family][0]
     jcfg = FAMILIES[family][0]
     rng = np.random.default_rng(3)
     prompts = [[int(t) for t in rng.integers(2, 60, size=n)]
@@ -154,7 +173,7 @@ def test_copy_cache_rows_equals_jax(weights, hybrid_weights, family, slots):
     assert got is tdst  # in place
     wl, gl = _jax_layer_caches(want, jcfg), got.layers
     assert len(wl) == len(gl) == jcfg.num_layers
-    assert any(isinstance(g, dict) for g in gl) == (family == "hybrid")
+    assert any(isinstance(g, dict) for g in gl) == (family != "dense")
     for w, g in zip(jax.tree.leaves(wl), jax.tree.leaves(gl)):
         np.testing.assert_array_equal(w, g.numpy())
     np.testing.assert_array_equal(np.asarray(want.lengths),
@@ -218,10 +237,15 @@ def test_sample_token_rows_matches_jax(temperature):
     pytest.param("off", "flat", "dense", id="off-flat"),
     pytest.param("off", "chunked", "dense", id="off-chunked"),
     pytest.param("auto", "chunked", "hybrid", id="auto-chunked-hybrid"),
+    # xLSTM continuous over the chunked forest (its flat forest runs in
+    # the lock-step cases of tests/test_torch_engine.py)
+    pytest.param("auto", "chunked", "xlstm", id="auto-chunked-xlstm"),
 ])
 def test_generate_continuous_token_identical_to_jax(weights, hybrid_weights,
-                                                    fuse, layout, family):
-    w = weights if family == "dense" else hybrid_weights
+                                                    xlstm_weights, fuse,
+                                                    layout, family):
+    w = {"dense": weights, "hybrid": hybrid_weights,
+         "xlstm": xlstm_weights}[family]
     jparams = w[0]
     jcfg = FAMILIES[family][0]
     eng_kw = _eng_kw(family)
@@ -357,3 +381,47 @@ def test_unported_serve_options_raise(weights, tmp_path):
         _prompts(), PIDS, slots=SLOTS, max_new_tokens=MAX_NEW,
         journal_keys=[str(i) for i in range(len(PIDS))], resume=salvage)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the serve CLI: xLSTM serves, the encoder-decoder is refused
+# ---------------------------------------------------------------------------
+
+SERVE_CLI = {
+    "xlstm-lockstep": (["--arch", "xlstm-125m", "--rounds", "2"],
+                       "tokens="),
+    "xlstm-continuous": (["--arch", "xlstm-125m", "--rounds", "2",
+                          "--continuous", "--slots", "4", "--requests", "8"],
+                         "reqs / 4 slots"),
+    "encdec-refused": (["--arch", "seamless-m4t-medium"],
+                       "enc-dec serving smoke isn't wired through "
+                       "SpecEngine"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_CLI))
+def test_serve_cli_xlstm_and_encdec_refusal(case):
+    """``launch.serve --smoke --device cpu``: xLSTM-125M's smoke variant
+    serves lock-step and continuous, one line a round; the
+    encoder-decoder exits non-zero with the reference's reason (the
+    reference's ``SpecEngine`` does not serve one either)."""
+    import os
+    import subprocess
+    import sys
+
+    args, want = SERVE_CLI[case]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               OMP_NUM_THREADS="2")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args, "--smoke",
+         "--device", "cpu"], cwd=root, env=env, capture_output=True,
+        text=True, timeout=300)
+    if case == "encdec-refused":
+        assert out.returncode != 0 and want in out.stderr
+        return
+    assert out.returncode == 0, out.stderr[-2000:]
+    rounds = [ln for ln in out.stdout.splitlines()
+              if ln.startswith("round ")]
+    assert len(rounds) == 2 and all(want in ln and "device=cpu" in ln
+                                    for ln in rounds), out.stdout
