@@ -109,7 +109,8 @@ non-zero; no phase's error is caught):
        time and peak memory;
    8d. after ``set_params``, a third epoch of 8b's traffic, every token
        plain greedy's under the updated weights;
-   8e. ``Trainer.run``: the pattern task (8 problems), 4 prompts a step,
+   8e. ``Trainer.run`` on the first 7 of the 28 layers
+       (``TRAINER_LAYERS``): the pattern task (8 problems), 4 prompts a step,
        G = 2, 32 new tokens, 4 SFT warmup steps (the CE must fall) and 4
        GRPO steps at T = 0.6, spec-verify once per attention layer per
        round in every rollout and the drafting kernel in every rollout
@@ -235,14 +236,50 @@ non-zero; no phase's error is caught):
        ``forward(enc_out=)`` over the same tokens and every token within
        it of that forward's top; then on the first 2 encoder and decoder
        layers upcast to float32, every token the full forward's argmax.
+13. the launch tooling's workloads on the card, beside the dry run's
+   count of the same work on the one card's mesh (``launch.dryrun``:
+   meta tensors, NVIDIA H100 data-sheet peaks; counted in a process
+   started with the script, ``start_p13_counts``):
+   13a. (right after phase 5, on its Qwen3-8B weights, every earlier
+       cache freed) the paper's economics: ``workloads.make_decode_fn``'s
+       decode_32k and verify_8 steps at B 8 (the per-device share of 128
+       over the 16-way data axis) on the workloads' cache layout, 33,024
+       slots at ``SLOT_MULTIPLE`` 256, filled with seeded K/V, every slot
+       valid, lengths 32,768: layer 0's spec-verify launch at this ring,
+       on V that lights one lane a hd-th of the ring, within ``SV_TOL``
+       of the plain version, which moves by more than 10 x its atol
+       without the split plan's middle split or with it twice; the verify
+       step's next tokens equal ``verify_block`` on the same forward's
+       logits and its lengths advance by 1 + accepted; each step's time
+       (CUDA events, median of ``P13_REPS``), its kernels' device time
+       (``torch.profiler``) and peak memory beside its floor (weights and
+       ring read once, the counted FLOPs) and the counted eager traffic's
+       t_compute, t_memory and peak_memory; the measured verify/decode
+       ratio beside the counted one; spec-verify once per layer a step;
+   13b. (after phase 12) one GRPO + AdamW step
+       (``workloads.make_train_fn``: group 8, remat, lr 3e-4) of
+       xLSTM-125M at its published config, B 16, S cut to 128
+       (``XLSTM_TRAIN_S``): the loss at ratio 1 within ``SURROGATE_RTOL``
+       of its closed form, every gradient finite and non-zero somewhere,
+       every parameter moved; the step's time and peak memory beside its
+       floor (weights, gradients and AdamW moments each moved once, the
+       counted FLOPs) and the counted eager traffic and peak;
+   13c. the same for SeamlessM4T-medium (12 + 12 layers) at B 12 (B 16
+       does not fit the card: ``SEAMLESS_TRAIN_BATCH``), S 4,096, stub
+       ``enc_embeds`` of 1,024 frames;
+   13d. (with phase 6) the dry run's CLIs: ``launch.dryrun --arch
+       qwen3-8b --shape verify_8``, ``launch.train --arch xlstm-125m
+       --dry-run``, ``launch.serve --arch qwen3-8b --dry-run --shape
+       verify_8`` and ``launch.hillclimb --pair C``, each exit 0 with a
+       record that parses.
 
 The last lines are the card line, the per-kernel JSON line and the
 result line ``{"ok": true, "device": {...}}``. A kernel's ``launches``
 there sum every path that runs it, each counted from 0 (flat drafting:
 phases 4 and 7 (R = 1 and R = 4), phase 5's flat run and phases 8, 9
 and 10c; chunked drafting: phase 5's and phase 7's chunked runs and
-phases 10a and 10b; spec-verify at hd 128: phases 4, 5, 10a and 10b in
-bf16; at hd 256 and the RG-LRU scan: phases 7 and 9; at Qwen2-1.5B's
+phases 10a and 10b; spec-verify at hd 128: phases 4, 5, 10a, 10b and 13a
+in bf16; at hd 256 and the RG-LRU scan: phases 7 and 9; at Qwen2-1.5B's
 shape, ``spec_verify_attention_qwen2``: phases 8 and 10c in bf16; the
 float32 instantiation has entries of its own, timed at the shape its
 run launched most (kept launches, cycled): ``spec_verify_attention_f32``
@@ -281,11 +318,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published H100 SXM peaks (NVIDIA data sheet), the bound's denominators.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SV_TOL = {"bfloat16": dict(atol=3e-2, rtol=1e-2),
           "float32": dict(atol=3e-5, rtol=1e-2)}
+# Timed calls of a plain version that takes tens to hundreds of
+# milliseconds (drafting, the scans): each was just run once to be
+# compared, so no warm-up; its time is a yardstick, not a gate.
+PLAIN_SLOW_REPS = 2
 
 
 def fail(msg: str) -> None:
@@ -390,26 +428,39 @@ def sv_inputs(torch, np, B, T, Hq, Hkv, hd, S1, dtype, seed, min_len,
             torch.from_numpy(cpos).cuda(), torch.from_numpy(positions).cuda())
 
 
+def roofline_ms(nbytes, flops, dtype="bfloat16"):
+    """(ms, "bytes" or "operations"): the least time to move ``nbytes``
+    once and do ``flops`` operations in ``dtype``, the larger of the two
+    at the card's data-sheet peaks (``launch.mesh``)."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS
+
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def sv_bound_ms(np, args, window, dtype):
     """Least time for the same work: each valid K/V slot, q, positions
     and cache_pos read once, the output written once; flops of QK and PV
-    over the visible (row, slot) pairs only."""
+    over the visible (row, slot) pairs only. The kernel's ``work`` counts
+    every slot valid and visible; the slots this run's cache_pos leaves
+    out are taken off it."""
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+
     q, k, _, cpos, pos = args
     B, T, Hq, hd = q.shape
-    Hkv = k.shape[2]
+    S1, Hkv = k.shape[1], k.shape[2]
     esz = q.element_size()
     cp = cpos.cpu().numpy()
     qp = pos.cpu().numpy()
-    valid_slots = int((cp >= 0).sum())
-    nbytes = (2 * q.numel() * esz + cp.size * 4 + qp.size * 4
-              + 2 * valid_slots * Hkv * hd * esz)
+    every_flops, every_bytes = sv_ops.work(B, T, Hq, Hkv, S1, hd, esz)
+    invalid_slots = int((cp < 0).sum())
+    nbytes = every_bytes - 2 * invalid_slots * Hkv * hd * esz
     vis = (cp[:, None, :] >= 0) & (cp[:, None, :] <= qp[:, :, None])
     if window > 0:
         vis &= cp[:, None, :] > qp[:, :, None] - window
-    flops = 4.0 * int(vis.sum()) * Hq * hd
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return roofline_ms(nbytes, every_flops * int(vis.sum()) / vis.size,
+                       dtype)
 
 
 def sv_plan_line(torch, B, T, Hq, Hkv, hd, S1, dtype="bfloat16"):
@@ -978,9 +1029,11 @@ def suffix_match_bound_ms(np, got, tails, roots, budgets, forest, *, chunked,
     for name, w, g in zip(("match_len", "n_prop", "props"), outs, got):
         check(np.array_equal(w, g.cpu().numpy()),
               f"the read walk's {name} differs from the kernel's")
+    from repro_torch.launch.mesh import HBM_BW
+
     B = tails.shape[0]
     nbytes = 4 * (entries + n_query + 2 * B + B * n_prop_max)
-    return nbytes / HBM_BYTES_PER_S * 1e3, entries
+    return nbytes / HBM_BW * 1e3, entries
 
 
 def flat_case(torch, np, dev, layout="flat", **pack_kw):
@@ -1078,7 +1131,8 @@ def phase_suffix_match(torch, np, timer, card):
     ms = timer.ms(lambda: sm_ops.suffix_match_propose_cuda(
         forest, *args, n_prop_max=K, min_match=1), 50)
     plain_ms = timer.ms(lambda: suffix_match_propose_ref(
-        *args, *forest, n_prop_max=K, min_match=1), 5, warmup=1)
+        *args, *forest, n_prop_max=K, min_match=1), PLAIN_SLOW_REPS,
+        warmup=0)
     bound_ms, entries = suffix_match_bound_ms(
         np, got, *args, forest, chunked=False, n_prop_max=K, min_match=1)
     log(f"suffix_match timing: kernel {ms * 1e3:.1f} us, plain "
@@ -1177,7 +1231,7 @@ def phase_suffix_match_chunked(torch, np, timer, card):
     flat_ms = timer.ms(lambda: sm_ops.suffix_match_propose_cuda(
         ff, *fargs, **kw), 50)
     plain_ms = timer.ms(lambda: suffix_match_propose_chunked_ref(
-        *args, *cf, **kw), 5, warmup=1)
+        *args, *cf, **kw), PLAIN_SLOW_REPS, warmup=0)
     bound_ms, entries = suffix_match_bound_ms(np, got, *args, cf,
                                               chunked=True, **kw)
     flat_bound_ms, flat_entries = suffix_match_bound_ms(
@@ -1211,10 +1265,6 @@ def rglru_inputs(torch, np, B, T, W, seed):
             for a in arrs]
 
 
-# float32 operations a (b, t, w) step of the scan does: log_a (2 products),
-# a and exp(2 log_a) (2 exp, 1 product), 1 - e, clip (2), sqrt, i·x,
-# mult·gx, a·h, + gx
-RGLRU_OPS_PER_STEP = 13
 # The verify block's T on the main path: its one K bucket (16) + the head.
 VERIFY_T = 17
 
@@ -1223,23 +1273,24 @@ def rglru_bytes(B, T, W, mask, skip_masked=True):
     """Bytes the scan's result depends on, and the steps it updates: x, r
     and i at the updated steps (at every step with ``skip_masked`` False,
     the count before the kernel skipped masked steps), hs written once,
-    h0, Λ, h_final and the (B, T) mask once."""
+    h0, Λ, h_final and the (B, T) mask once: the kernel's ``work`` (every
+    step updated) less x, r and i at the steps this mask skips."""
+    from repro_torch.kernels.rglru import ops as rg_ops
+
     kept = B * T if mask is None or not skip_masked else int(mask.sum())
-    nbytes = 4 * (3 * kept * W + B * T * W + 2 * B * W + W)
-    if mask is not None:
-        nbytes += mask.numel()
-    return nbytes, kept
+    every = rg_ops.work(B, T, W, mask is not None)[1]
+    return int(every) - 4 * 3 * (B * T - kept) * W, kept
 
 
 def rglru_bound_ms(x, mask, skip_masked=True):
     """Least time for the same work, the larger of: ``rglru_bytes`` at the
     HBM rate; the scan's float32 operations at the updated steps at the
     card's float32 rate. Returns (ms, which bounds it)."""
+    from repro_torch.kernels.rglru import ops as rg_ops
+
     B, T, W = x.shape
     nbytes, kept = rglru_bytes(B, T, W, mask, skip_masked)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = RGLRU_OPS_PER_STEP * kept * W / PEAK_FLOPS["float32"] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return roofline_ms(nbytes, rg_ops.OPS_PER_STEP * kept * W, "float32")
 
 
 def rglru_launch_split(by_shape, verify_t=VERIFY_T):
@@ -1307,7 +1358,8 @@ def rglru_case(torch, np, timer, card, label, B, T, W, mk, seed):
         return copies[it["i"] % len(copies)]
 
     ms = timer.ms(lambda: rg_ops.rglru_scan_cuda(*nxt(), mask), 50)
-    plain_ms = timer.ms(lambda: rglru_scan_ref(*nxt(), mask), 5, warmup=1)
+    plain_ms = timer.ms(lambda: rglru_scan_ref(*nxt(), mask),
+                        PLAIN_SLOW_REPS, warmup=0)
     bound_ms, bound_by = rglru_bound_ms(copies[0][0], mask)
     every_ms, _ = rglru_bound_ms(copies[0][0], mask, skip_masked=False)
     log(f"rglru_scan {label} (B={B} T={T} W={W}, mask: {mk}): bit-identical "
@@ -1609,7 +1661,8 @@ def time_path_case(torch, np, timer, card, spy, where):
         check(torch.equal(g, w), f"{where}: the path case's {name} differs "
               "from the plain version")
     ms = timer.ms(lambda: spy.real(forest, *q, **kw), 50)
-    plain_ms = timer.ms(lambda: spy.plain(forest, *q, **kw), 5, warmup=1)
+    plain_ms = timer.ms(lambda: spy.plain(forest, *q, **kw),
+                        PLAIN_SLOW_REPS, warmup=0)
     bound_ms, entries = suffix_match_bound_ms(
         np, got, *q, forest, chunked=spy.chunked, **kw)
     B, m = q[0].shape
@@ -1677,11 +1730,16 @@ def lockstep_requests(np, vocab, prompt_len=(128, 256)):
 # the script's time (widths stay the published ones): 10b's float32 drain
 # and resume on the first 6 of Qwen3-8B's 36 layers, phase 7's continuous
 # run on the first 14 of RecurrentGemma-9B's 38 (the lock-step runs, R = 1
-# and R = 4, keep all 38), 10c's trainers on 7 of Qwen2-1.5B's 28 (8's RL
-# loop keeps all 28), and phase 9 (``HYBRID_TRAIN_LAYERS``).
+# and R = 4, keep all 38), 10c's trainers on 7 of Qwen2-1.5B's 28 (8a-8d
+# keep all 28), and phase 9 (``HYBRID_TRAIN_LAYERS``).
 F32_RESUME_LAYERS = 6
 HYBRID_SERVE_LAYERS = 14
 MULTIWORKER_LAYERS = 7
+# 8e's ``Trainer.run`` (and its checkpoint resume) on the first 7 of
+# Qwen2-1.5B's 28 layers, to make room for phase 13: its checkpoint is
+# 5.23 GiB instead of 14.38, whose save and load took ~50 s on an NVIDIA
+# H100 80GB HBM3 host (700 W); 8a-8d keep 28
+TRAINER_LAYERS = 7
 
 
 def cut_depth(torch, params, cfg, n):
@@ -3369,7 +3427,8 @@ def phase_rl(torch, np, timer, card):
                                 pids, un)
     del eng, params
     torch.cuda.empty_cache()
-    l8e = phase_trainer(torch, np, card)
+    l8e = phase_trainer(torch, np, card,
+                        cfg=cfg.replace(num_layers=TRAINER_LAYERS))
     torch.cuda.empty_cache()
     total = Counter()
     for run in (l8b, l8d, l8e):
@@ -3398,11 +3457,6 @@ HYBRID_TRAIN_LAYERS = 3
 # The GRPO step's sequence length in 9b (prompts of 2,100 and 2,200 tokens
 # and 64 new ones, packed): the backward kernel's training shape.
 TRAIN_S = 2272
-# float32 operations a (b, t, w) step of the backward does: log a (2
-# products), a and exp(2 log a) (2 exp, a product), 1 - e, the clip (2),
-# the square root, the division, i·x, and the carry's chain (14 products
-# and sums)
-RGLRU_BWD_OPS_PER_STEP = 25
 # (label, B, T, W, mask): the GRPO step's shape (no mask, as training
 # runs it), the same with left pads, a ragged width and a width that is
 # not a multiple of 4
@@ -3442,19 +3496,22 @@ def rglru_bwd_bytes(B, T, W, mask):
     """Bytes the backward's result depends on, and the updated steps: x,
     r, i and h_{t-1} at the updated steps, dhs at every step, dx, dr and di
     written at every step (32 bytes a (b, t, w) without a mask), h0,
-    dh_final and dh0, Λ and dΛ once, and the mask."""
+    dh_final and dh0, Λ and dΛ once, and the mask: the kernel's
+    ``bwd_work`` (every step updated) less x, r, i and h_{t-1} at the
+    steps this mask skips."""
+    from repro_torch.kernels.rglru import ops as rg_ops
+
     kept = B * T if mask is None else int(mask.sum())
-    nbytes = 4 * (4 * kept * W + 4 * B * T * W + 3 * B * W + 2 * W)
-    if mask is not None:
-        nbytes += mask.numel()
-    return nbytes, kept
+    every = rg_ops.bwd_work(B, T, W, mask is not None)[1]
+    return int(every) - 4 * 4 * (B * T - kept) * W, kept
 
 
 def rglru_bwd_bound_ms(B, T, W, mask):
+    from repro_torch.kernels.rglru import ops as rg_ops
+
     nbytes, kept = rglru_bwd_bytes(B, T, W, mask)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = RGLRU_BWD_OPS_PER_STEP * kept * W / PEAK_FLOPS["float32"] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return roofline_ms(nbytes, rg_ops.BWD_OPS_PER_STEP * kept * W,
+                       "float32")
 
 
 def rglru_long_launches(by_shape, long_t=2048):
@@ -3496,7 +3553,7 @@ def rglru_bwd_case(torch, np, timer, card, label, B, T, W, mk, seed):
             check(torch.equal(g, w), f"{where} {name}: not bit-identical to "
                   f"the plain version (max |err| {e})")
     ms = timer.ms(lambda: rg_ops.rglru_scan_bwd_cuda(*args), 20)
-    plain_ms = timer.ms(lambda: rglru_scan_bwd_ref(*args), 2, warmup=1)
+    plain_ms = timer.ms(lambda: rglru_scan_bwd_ref(*args), 1, warmup=0)
     bound_ms, bound_by = rglru_bwd_bound_ms(B, T, W, mask)
     log(f"{where}: dx, dr, di, dh0 bit-identical to the plain version, dΛ "
         f"{'bit-identical' if dlam_exact else 'within the tolerance'} (max "
@@ -4332,6 +4389,450 @@ def phase_seamless(torch, np, card, cfg, params, dev="cuda", B=4,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the launch tooling's count beside the card
+# ---------------------------------------------------------------------------
+
+# The per-device share of each workload's global batch over the production
+# mesh's 16-way data axis: decode_32k and verify_8 (128), train_4k (256).
+P13_BATCH = 8
+P13_TRAIN_BATCH = 16
+# 13c's batch, cut from 16: SeamlessM4T's step at B 16 and B 14 ran out
+# of an NVIDIA H100 80GB HBM3's memory (700 W; the dry run counts 83.06
+# GB at B 16, 64.62 at 12: the 256,512-entry head's float32 logits chunks
+# and the encoder's saved scores grow with B); B 12 fits (B 13 untried)
+SEAMLESS_TRAIN_BATCH = 12
+# 13b's sequence, cut from train_4k's 4,096: xLSTM's blocks step T in
+# PyTorch, ~1,740 kernel launches a token in a 12-layer train step
+# (forward, recompute and backward; counted by the dry run's op count),
+# so S 4,096 would issue ~7 million launches, minutes of host time.
+XLSTM_TRAIN_S = 128
+P13_REPS = 7  # timed calls a step (the median is kept), after 2 warm-ups
+P13_LEAD_US = 50_000  # device wait before a whole step's start event
+
+
+def p13_jobs():
+    """{key: (arch, shape)} of the steps phase 13 counts: 13a's decode_32k
+    and verify_8, 13b's and 13c's train steps."""
+    from repro_torch.launch import workloads as W
+
+    return {
+        "decode_32k": ("qwen3-8b", W.with_batch(W.SHAPES["decode_32k"],
+                                                P13_BATCH)),
+        "verify_8": ("qwen3-8b", W.with_batch(W.SHAPES["verify_8"],
+                                              P13_BATCH)),
+        "13b": ("xlstm-125m", W.InputShape("train_4k", XLSTM_TRAIN_S,
+                                           P13_TRAIN_BATCH, "train")),
+        "13c": ("seamless-m4t-medium", W.InputShape(
+            "train_4k", 4096, SEAMLESS_TRAIN_BATCH, "train")),
+    }
+
+
+def start_p13_counts():
+    """Start the dry run's counts of ``p13_jobs`` in a process of their
+    own: they need no card and take ~30 s of one core (13b's peak is
+    counted at four (layers, T) points), which then overlap phases 1-12.
+    Returns (the executor, {key: future of the record}); the caller shuts
+    the executor down (so does the interpreter's exit, if a phase fails
+    first)."""
+    import concurrent.futures
+    import multiprocessing
+
+    ex = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    return ex, {key: ex.submit(p13_counted, arch, shape)
+                for key, (arch, shape) in p13_jobs().items()}
+
+
+def p13_counted(arch, shape, cfg=None):
+    """The dry run's record for ``shape`` on the one card's mesh (of
+    ``cfg`` where given, else of ``arch``'s published config)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_local_mesh
+
+    rec = D.dry_run_one(arch, shape.name, mesh=make_local_mesh(),
+                        shape=shape, verbose=False, cfg_override=cfg)
+    check(rec["status"] == "ok", f"dry run of {arch} {shape}: {rec}")
+    return rec
+
+
+def counted_line(rec):
+    """A dry-run record's counted terms (NVIDIA H100 data-sheet peaks).
+    Its bytes are the port's eager traffic: every op's operands and
+    results, the plain-PyTorch flash tiles and slice gradients among
+    them, not the least a step must move (the phases' floor)."""
+    exact = "" if rec["peak_memory_exact"] else ", extended in T"
+    return (f"counted eager traffic: {rec['total_flops'] / 1e12:.3f} TFLOP,"
+            f" {rec['total_bytes'] / 1e9:.2f} GB, t_compute "
+            f"{rec['t_compute_s'] * 1e3:.3f} ms, t_memory "
+            f"{rec['t_memory_s'] * 1e3:.3f} ms ({rec['dominant']}), "
+            f"peak_memory {rec['peak_memory'] / 1e9:.2f} GB "
+            f"({rec['bytes_per_device'] / 1e9:.2f} GB state{exact})")
+
+
+def tensor_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def device_events(torch, fn):
+    """(device ms summed over one call's kernel events, their count) by
+    ``torch.profiler``, or (None, why) where it shows none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:  # instrumentation only: a tracer that fails says so
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as exc:
+        return None, f"not measured (profiler: {exc})"
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return None, "not measured (no device events)"
+    return sum(e.time_range.elapsed_us() for e in evs) / 1e3, len(evs)
+
+
+def step_samples(torch, timer, fn, reps=P13_REPS, warmup=2,
+                 lead_us=P13_LEAD_US, dev="cuda"):
+    """Per-call ms of ``reps`` calls of a whole step by CUDA events, each
+    after an L2 flush and a device wait of ``lead_us`` that lets the host
+    enqueue ahead of the start event (a step issues thousands of
+    launches, so the window can still hold host time where the host
+    falls behind)."""
+    for _ in range(warmup):
+        fn()
+    sync(torch, dev)
+    out = []
+    for _ in range(reps):
+        if dev != "cuda":  # a rehearsal: the host's clock
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+            continue
+        timer.flush_buf.zero_()
+        torch.cuda._sleep(int(lead_us * timer.cycles_per_us))
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e))
+    return out
+
+
+def phase_verify_economics(torch, np, card, cfg, params, timer,
+                           dev="cuda", B=P13_BATCH, reps=P13_REPS,
+                           counts=None):
+    """13a: the paper's economics on the card. Qwen3-8B's decode_32k and
+    verify_8 steps (``workloads.make_decode_fn``) at B 8 on the
+    workloads' cache layout (33,024 slots at ``SLOT_MULTIPLE`` 256),
+    filled with seeded K/V, every slot valid and visible, lengths 32,768:
+    both steps read the whole ring. Gates: layer 0's spec-verify launch
+    at this ring within ``SV_TOL`` of the plain version, on values a
+    dropped or doubled split would move by more than 10 x its atol
+    (checked on the plain version); the verify step's next tokens equal
+    ``verify_block`` on that step's logits and its lengths advance by
+    1 + accepted (rows 0-3 draft the model's own first token, so each
+    accepts at least one). Each step's time (CUDA events, median of
+    ``P13_REPS``), its kernels' device time (``torch.profiler``) and its
+    peak memory beside its floor (``roofline_ms``) and the dry run's count
+    of the same work on the one card's mesh (from ``counts``, futures of
+    ``start_p13_counts``, where given). Returns the steps' kernel
+    launches (the timed calls and their warm-ups)."""
+    from repro_torch.core.verify import verify_block
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
+    from repro_torch.launch import workloads as W
+    from repro_torch.models import model as M
+
+    where = f"13a {cfg.name}"
+    K = W.VERIFY_K
+    n_sm = (torch.cuda.get_device_properties(0).multi_processor_count
+            if dev == "cuda" else 132)  # the H100 SXM's, rehearsed on CPU
+    dshape = W.with_batch(W.SHAPES["decode_32k"], B)
+    vshape = W.with_batch(W.SHAPES["verify_8"], B)
+    S = dshape.seq_len
+    cache = M.init_cache(cfg, B, S + K + 2, headroom=K + 8, device=dev,
+                         slot_multiple=W.SLOT_MULTIPLE)
+    S1 = cache.layers[0][0].shape[1]
+    g = torch.Generator(device=dev).manual_seed(13)
+    tags = (torch.arange(S1, dtype=torch.int32, device=dev) % S)[None]
+    for k, v, cpos in cache.layers:
+        k.normal_(generator=g)
+        v.normal_(generator=g)
+        cpos.copy_(tags.expand_as(cpos))
+    cache.lengths.fill_(S)
+    ring_gb = sum(t.numel() * t.element_size() for e in cache.layers
+                  for t in e) / 1e9
+    log(f"{where}: ring of {S1} slots a row (S {S} + {K + 2} rounded up to "
+        f"{W.SLOT_MULTIPLE}), B {B}, {cfg.num_layers} layers: {ring_gb:.2f} "
+        f"GB of seeded K/V, every slot valid, lengths {S}  [{card}]")
+    # gate: one layer's launch at this ring against the plain version, on
+    # values that tell its splits apart. Scores are about N(0, 1), so
+    # every slot weighs alike; V adds hd to one lane of each kv head for
+    # each hd-th of the ring (the lane turned by 37 a head), so every
+    # output lane is about 1, and a split the kernel dropped or took twice
+    # moves the ~hd / n_split lanes it lights by about 1.
+    Hq, hd, Hkv = cfg.num_heads, cfg.head_dim, cfg.num_kv_heads
+    q = torch.randn((B, K + 1, Hq, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    pos = (S + torch.arange(K + 1, dtype=torch.int32, device=dev))[None] \
+        .expand(B, K + 1).contiguous()
+    k0, v0, c0 = cache.layers[0]
+    lane = (torch.arange(S1, device=dev)[:, None] * hd // S1
+            + 37 * torch.arange(Hkv, device=dev)[None]) % hd
+    vg = v0 + (torch.nn.functional.one_hot(lane, hd) * hd).to(v0.dtype)
+    got = sv_ops.spec_verify_attention(q, k0, vg, c0, pos).float()
+    want = spec_verify_attention_ref(q, k0, vg, c0, pos).float()
+    err = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, **SV_TOL["bfloat16"])),
+          f"{where}: spec-verify at the {S1}-slot ring departs from the "
+          f"plain version by {err:.3e}")
+    # what the gate would see of a kernel that dropped the plan's middle
+    # split, or took it twice: the plain version without those slots, and
+    # with them appended again
+    plan = sv_ops.split_plan(B, K + 1, Hq, Hkv, S1, hd, n_sm)
+    span = plan.tiles_per_split * plan.tile
+    lo = (plan.n_split // 2) * span
+    hi = min(lo + span, S1)
+    c_drop = c0.clone()
+    c_drop[:, lo:hi] = -1
+    dropped = spec_verify_attention_ref(q, k0, vg, c_drop, pos).float()
+    twice = spec_verify_attention_ref(
+        q, torch.cat([k0, k0[:, lo:hi]], 1), torch.cat([vg, vg[:, lo:hi]], 1),
+        torch.cat([c0, c0[:, lo:hi]], 1), pos).float()
+    e_drop = float((dropped - want).abs().max())
+    e_twice = float((twice - want).abs().max())
+    atol = SV_TOL["bfloat16"]["atol"]
+    check(min(e_drop, e_twice) > 10 * atol,
+          f"{where}: a dropped or doubled split moves the output by only "
+          f"{e_drop:.3e} / {e_twice:.3e}: the gate could not see it")
+    plans = "" if dev != "cuda" else (
+        f"; {sv_plan_line(torch, B, K + 1, Hq, Hkv, hd, S1)}"
+        f"; decode: {sv_plan_line(torch, B, 1, Hq, Hkv, hd, S1)}")
+    log(f"{where}: layer 0's spec-verify launch (B {B}, T {K + 1}, ring "
+        f"{S1}, V lighting a lane a {S1 // hd}-slot range) within "
+        f"{SV_TOL['bfloat16']} of the plain version, max |err| {err:.3e} "
+        f"(outputs up to {float(want.abs().max()):.3f}); the plain version "
+        f"without split {plan.n_split // 2} of {plan.n_split} (slots "
+        f"{lo}-{hi}) departs by {e_drop:.3f}, with it twice by "
+        f"{e_twice:.3f}{plans}  [{card}]")
+    del q, vg, lane, got, want, c_drop, dropped, twice
+    # the least a step moves: every weight but the input embedding (B x T
+    # rows of it) and the whole ring, each read once
+    floor_bytes = tensor_bytes(params.parameters()) + ring_gb * 1e9
+    if params.lm_head is not None:
+        floor_bytes -= tensor_bytes([params.embed])
+    dec = W.make_decode_fn(cfg, dshape)
+    ver = W.make_decode_fn(cfg, vshape)
+    head = torch.randint(2, cfg.vocab_size, (B, 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    dbatch = {"block": head}
+    # the steps leave ``cache``'s lengths alone (each returns a new
+    # Cache) and rewrite the same slots: every call does the same work.
+    # Rows 0-3 draft the token a (B, K+1) forward predicts at their head:
+    # the block's first position sees only the cache and the head, and a
+    # forward of the same shape rounds it alike, so each accepts it
+    drafts = torch.randint(2, cfg.vocab_size, (B, K), generator=g,
+                           device=dev, dtype=torch.int32)
+    ones = torch.ones((B, K + 1), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        logits, _ = M.forward(params, cfg, torch.cat([head, drafts], 1),
+                              cache=cache, valid=ones)
+    drafts[:4, 0] = logits[:4, 0, : cfg.vocab_size].argmax(-1).to(
+        torch.int32)
+    block = torch.cat([head, drafts], 1)
+    budgets = torch.full((B,), K, dtype=torch.int32, device=dev)
+    vbatch = {"block": block, "budgets": budgets}
+    # gate: the step's tokens and lengths against verify_block on the
+    # same forward's logits
+    nxt, c1 = ver(params, cache, vbatch)
+    with torch.no_grad():
+        logits, _ = M.forward(params, cfg, block, cache=cache, valid=ones)
+    res = verify_block(logits[:, :, : cfg.vocab_size], block, budgets)
+    acc = res.accepted.cpu().numpy()
+    check(bool(torch.equal(nxt, res.next_token)),
+          f"{where}: the verify step's tokens differ from verify_block's")
+    check(bool(torch.equal(c1.lengths.cpu(),
+                           (S + 1 + res.accepted).to(torch.int32).cpu())),
+          f"{where}: lengths {c1.lengths.tolist()} do not advance by 1 + "
+          f"accepted {acc.tolist()}")
+    check(bool((acc[:4] >= 1).all()),
+          f"{where}: rows drafting the model's own token accepted {acc}")
+    del logits, c1
+    sync(torch, dev)
+    reset_launches()
+    out = {}
+    for name, fn, shape in (("decode_32k", lambda: dec(params, cache, dbatch),
+                             dshape),
+                            ("verify_8", lambda: ver(params, cache, vbatch),
+                             vshape)):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        times = step_samples(torch, timer, fn, reps=reps, dev=dev)
+        peak = (torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda"
+                else float("nan"))
+        busy, n_ev = (device_events(torch, fn) if dev == "cuda"
+                      else (None, "not measured (CPU)"))
+        rec = (counts[name].result() if counts else
+               p13_counted("qwen3-8b", shape, None if dev == "cuda" else cfg))
+        counted = max(rec["t_compute_s"], rec["t_memory_s"]) * 1e3
+        bound, by = roofline_ms(floor_bytes, rec["total_flops"])
+        ms = float(np.median(times))
+        busy_s = (n_ev if busy is None else
+                  f"{busy:.3f} ms in {n_ev} device events "
+                  f"(floor/busy {bound / busy:.3f})")
+        log(f"{where} {name} (B {B}, T {1 if shape.kind == 'decode' else K + 1}): "
+            f"{ms:.3f} ms a step (median of {len(times)}: "
+            f"{min(times):.3f}-{max(times):.3f}), floor {bound:.3f} ms "
+            f"({by}: {floor_bytes / 1e9:.2f} GB of weights and ring read "
+            f"once, the counted FLOPs), floor/time {bound / ms:.3f}; "
+            f"kernels {busy_s}; peak memory {peak:.2f} GB; "
+            f"{counted_line(rec)}  [{card}]")
+        out[name] = (ms, busy, counted, rec)
+    launches = read_launches()
+    n_calls = 2 * (reps + 2 + 1)
+    check(dev != "cuda"
+          or launches["spec_verify_attention"] == cfg.num_layers * n_calls,
+          f"{where}: {launches['spec_verify_attention']} spec-verify "
+          f"launches, expected {cfg.num_layers} layers x {n_calls} steps")
+    (dms, dbusy, dcount, _), (vms, vbusy, vcount, _) = (out["decode_32k"],
+                                                        out["verify_8"])
+    busy_ratio = ("not measured" if dbusy is None or vbusy is None
+                  else f"{vbusy / dbusy:.3f}")
+    log(f"{where}: verify/decode {vms / dms:.3f} measured (kernels' device "
+        f"time {busy_ratio}), {vcount / dcount:.3f} counted; a verify pass "
+        f"scores {K + 1} tokens, so at full acceptance a token costs "
+        f"{vms / dms / (K + 1):.3f} of a decode step  [{card}]")
+    del cache
+    return launches
+
+
+def phase_grpo_card(torch, np, card, arch, B, S, tag, dev="cuda",
+                    cfg=None, counted=None):
+    """13b / 13c: one GRPO + AdamW step (``workloads.make_train_fn``:
+    group 8, remat, lr 3e-4) of ``arch`` at its published config, random
+    bf16 weights from seed 0, on a seeded batch of B × S tokens (the
+    second half the response; an encoder-decoder's batch adds stub
+    ``enc_embeds`` of ``S_ENC`` frames, one row's mask cut to three
+    quarters) with ``old_logprobs`` from the same weights. Gates, as 9b's:
+    the loss finite and, at ratio 1, within ``SURROGATE_RTOL`` of
+    -sum(adv·mask)/sum(mask); every gradient (read by a spy on the step's
+    AdamW call) finite and non-zero somewhere; AdamW moved the
+    parameters. Reports the step's time and peak memory beside its floor
+    (``roofline_ms``) and the dry run's count of the same work on the one
+    card's mesh (``counted``, a future of ``start_p13_counts``, where
+    given). ``cfg`` (with
+    ``dev="cpu"``) rehearses it at a small width."""
+    from repro_torch.launch import workloads as W
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.rl import grpo
+
+    gc.collect()
+    if dev == "cuda":  # the step's peak leaves a sixth of the card free
+        torch.cuda.empty_cache()
+    if cfg is None:
+        cfg, params = full_width_model(torch, arch)
+    else:
+        params = M.init_params(cfg, seed=0, device=dev)
+    where = f"{tag} {cfg.name}"
+    M.set_trainable(params)
+    g = torch.Generator(device=dev).manual_seed(131)
+    tokens = torch.randint(2, cfg.vocab_size, (B, S), generator=g,
+                           device=dev, dtype=torch.int32)
+    resp = torch.zeros((B, S), dtype=torch.bool, device=dev)
+    resp[:, S // 2:] = True
+    adv = np.random.default_rng(132).normal(size=B).astype(np.float32)
+    check(bool((adv != 0).all()), f"{where}: an advantage is 0")
+    batch = {"tokens": tokens, "resp_mask": resp,
+             "advantages": torch.tensor(adv, device=dev)}
+    with torch.no_grad():
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            enc_mask = torch.ones((B, W.S_ENC), dtype=torch.bool, device=dev)
+            enc_mask[-1, 3 * W.S_ENC // 4:] = False
+            batch["enc_embeds"] = torch.randn(
+                (B, W.S_ENC, cfg.d_model), generator=g, device=dev).to(
+                    L.torch_dtype(cfg.dtype))
+            batch["enc_mask"] = enc_mask
+            enc_out = M.encode(params, cfg, batch["enc_embeds"], enc_mask)
+        hidden, _ = M.forward(params, cfg, tokens, enc_out=enc_out,
+                              enc_mask=batch.get("enc_mask"),
+                              return_hidden=True)
+        batch["old_logprobs"] = grpo.chunked_token_logprobs(
+            params, cfg, hidden, tokens)
+        del hidden, enc_out
+    before = {k: p.detach().clone() for k, p in params.named_parameters()}
+    seen = {}
+    real = adamw.apply_updates
+
+    def spy(ocfg, p, grads, state):
+        seen["n"] = len(grads)
+        seen["bad"] = [k for k, v in grads.items()
+                       if not bool(torch.isfinite(v).all())]
+        seen["zero"] = [k for k, v in grads.items() if not bool(v.any())]
+        return real(ocfg, p, grads, state)
+
+    step = W.make_train_fn(cfg)
+    opt = adamw.init_state(params)
+    # the least a step moves: the weights read and written, their
+    # gradients written and read, the AdamW moments read and written,
+    # each once (the saved activations, which the layout decides, left out)
+    floor_bytes = 2 * (2 * tensor_bytes(params.parameters())
+                       + tensor_bytes([*opt.mu.values(), *opt.nu.values()]))
+    sync(torch, dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    adamw.apply_updates = spy
+    try:
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        sync(torch, dev)
+        t_step = time.perf_counter() - t0
+    finally:
+        adamw.apply_updates = real
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda"
+            else float("nan"))
+    loss = float(loss)
+    want = float(-(adv[:, None] * resp.cpu().numpy()).sum()
+                 / resp.cpu().numpy().sum())
+    check(np.isfinite(loss) and abs(loss - want) <= SURROGATE_RTOL
+          * abs(want), f"{where}: loss {loss} at ratio 1, expected {want}")
+    n_params = len(before)
+    check(seen.get("n") == n_params, f"{where}: the step's AdamW saw "
+          f"{seen.get('n')} gradients of {n_params} parameters")
+    check(not seen["bad"], f"{where}: non-finite gradients in "
+          f"{seen['bad'][:4]}")
+    check(not seen["zero"], f"{where}: all-zero gradients in "
+          f"{seen['zero'][:4]}")
+    moved = sum(not torch.equal(before[k], p.detach())
+                for k, p in params.named_parameters())
+    check(moved == n_params, f"{where}: AdamW moved {moved} of {n_params} "
+          "parameters")
+    shape = W.InputShape("train_4k", S, B, "train")
+    rec = (counted.result() if counted else
+           p13_counted(arch, shape, None if dev == "cuda" else cfg))
+    bound, by = roofline_ms(floor_bytes, rec["total_flops"])
+    log(f"{where} GRPO step (B {B}, S {S}"
+        f"{f', S_ENC {W.S_ENC}' if cfg.is_encoder_decoder else ''}, remat, "
+        f"AdamW): loss {loss:.6f} at ratio 1 (expected {want:.6f}); "
+        f"{n_params} gradients finite and non-zero, every parameter moved; "
+        f"one step {t_step:.3f} s (the first at this shape), floor "
+        f"{bound / 1e3:.4f} s ({by}: {floor_bytes / 1e9:.2f} GB of weights,"
+        f" gradients and moments each moved once, the counted FLOPs), "
+        f"floor/time {bound / 1e3 / t_step:.4f}; peak memory {peak:.2f} GB; "
+        f"{counted_line(rec)}  [{card}]")
+    del params, opt, batch, before
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return t_step, peak, rec
+
+
 def run_concurrently(cmds, env, timeout_s=600):
     """Start every command at once (their output to temporary files, so
     no pipe fills) and wait for all; returns per command its exit code,
@@ -4378,8 +4879,11 @@ def run_concurrently(cmds, env, timeout_s=600):
 
 
 def phase_cli(card):
-    """Phase 6's CLIs and 10d, all started at once (each is small; run
-    one after another they took ~95 s): the serving CLI with two workers
+    """Phase 6's CLIs, 10d and 13d, all started at once (each is small;
+    run one after another they took ~95 s). 13d: the dry run's CLIs
+    (``launch.dryrun``, ``launch.train --dry-run``, ``launch.serve
+    --dry-run --shape verify_8``, ``launch.hillclimb --pair C``) each exit
+    0 and print a record that parses. 10d: the serving CLI with two workers
     over the history service (shards as ``python -m
     repro_torch.history.service`` subprocesses, supervised), continuous
     serving, journals and a trace, whose trace must validate and whose
@@ -4406,6 +4910,15 @@ def phase_cli(card):
                  "--smoke", *args] for mod, args in cli]
         cmds.append([sys.executable, "-m", "repro_torch.launch.serve",
                      *args10d])
+        # 13d: the dry run's CLIs (meta tensors: no card, no kernel)
+        hc_out = os.path.join(d, "hillclimb.json")
+        dry = [("dryrun", ["--arch", "qwen3-8b", "--shape", "verify_8"]),
+               ("train", ["--arch", "xlstm-125m", "--dry-run"]),
+               ("serve", ["--arch", "qwen3-8b", "--dry-run", "--shape",
+                          "verify_8"]),
+               ("hillclimb", ["--pair", "C", "--out", hc_out])]
+        cmds += [[sys.executable, "-m", f"repro_torch.launch.{mod}", *args]
+                 for mod, args in dry]
         t0 = time.perf_counter()
         res = run_concurrently(cmds, env)
         for (mod, args), (rc, tail, t) in zip(cli, res):
@@ -4413,7 +4926,22 @@ def phase_cli(card):
                   f"{' | '.join(tail)}")
             log(f"{mod} CLI {' '.join(args)} ok in {t:.1f} s [{card}]: "
                 f"{' | '.join(tail)}")
-        rc, tail, t = res[-1]
+        for (mod, args), (rc, tail, t) in zip(dry, res[len(cli) + 1:]):
+            check(rc == 0, f"13d {mod} CLI {' '.join(args)} exited {rc}: "
+                  f"{' | '.join(tail)}")
+            recs = [json.loads(ln) for ln in tail if ln.startswith("{")]
+            check(bool(recs) and all(r.get("status", "ok") == "ok"
+                                     for r in recs),
+                  f"13d {mod} CLI printed no record: {' | '.join(tail)}")
+            rec = recs[-1]
+            what = (f"cost ratio {rec['cost_ratio_C']:.3f}" if mod ==
+                    "hillclimb" else f"{rec['arch']} {rec['shape']} "
+                    f"{rec['mesh']}: {counted_line(rec)}")
+            log(f"13d {mod} CLI {' '.join(args[:4])} ok in {t:.1f} s: "
+                f"{what}  [{card}]")
+        with open(hc_out) as f:
+            check(json.load(f)[0]["pair"] == "C", "13d: hillclimb's report")
+        rc, tail, t = res[len(cli)]
         check(rc == 0, f"10d serve CLI exited {rc}: {' | '.join(tail)}")
         with open(os.path.join(d, "trace.json")) as f:
             doc = json.load(f)
@@ -4429,7 +4957,7 @@ def phase_cli(card):
         log(f"10d serve CLI {' '.join(args10d[:-4])} ok in {t:.1f} s "
             f"[{card}]: trace of {len(doc['traceEvents'])} events valid, "
             f"journals {journal_summary(sess)}: {' | '.join(tail)}")
-    log(f"the six CLIs, started at once, in {time.perf_counter() - t0:.1f} "
+    log(f"the ten CLIs, started at once, in {time.perf_counter() - t0:.1f} "
         f"s  [{card}]")
 
 
@@ -4452,6 +4980,7 @@ def main() -> None:
     count = torch.cuda.device_count()
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| {kind} x{count}")
+    p13_pool, p13_counts = start_p13_counts()
 
     from repro_torch.kernels import _build
 
@@ -4490,9 +5019,18 @@ def main() -> None:
     lock, flat_spy, lock_runs = phase_main_path(torch, np, card, cfg, params)
     cont, chunked_spy, cont_runs = phase_continuous(torch, np, card, cfg,
                                                     params)
+    # phase 13a: the decode_32k and verify_8 workloads at the full ring, on
+    # the same weights, every earlier cache freed first
+    stamp("phases 4-5")
+    gc.collect()
+    torch.cuda.empty_cache()
+    l13a = phase_verify_economics(torch, np, card, cfg, params, timer,
+                                  counts=p13_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("phase 13a")
     # phase 10a/10b: phase 5's traffic with telemetry and the journal, and
     # a drain with a journal resume, on the same weights
-    stamp("phases 4-5")
     l10a, _ = phase_telemetry(torch, np, card, cfg, params, cont_runs,
                               cont["chunked"])
     stamp("phase 10a")
@@ -4509,7 +5047,8 @@ def main() -> None:
     params.cfg = cfg = cfg.replace(dtype="float32")
     l10b, sv10b = phase_drain_resume(torch, np, card, cfg, params)
     stamp("phase 10b")
-    for run in (lock, cont["chunked"], cont["flat"], micro, l10a, l10b16):
+    for run in (lock, cont["chunked"], cont["flat"], micro, l10a, l10b16,
+                l13a):
         add(run)
     # the float32 instantiation of spec-verify, at 10b's shape
     add(l10b, skip=("spec_verify_attention",))
@@ -4637,6 +5176,14 @@ def main() -> None:
     del timer, runs12
     log(f"phase 12: {time.perf_counter() - t12:.1f} s  [{card}]")
     stamp("phase 12")
+    # phase 13b/13c: a GRPO step of xLSTM-125M and of SeamlessM4T-medium
+    # at their published configs, the dry run's count beside each
+    for tag, (arch, shape) in p13_jobs().items():
+        if tag in ("13b", "13c"):
+            phase_grpo_card(torch, np, card, arch, shape.global_batch,
+                            shape.seq_len, tag, counted=p13_counts[tag])
+    p13_pool.shutdown()
+    stamp("phase 13b-c")
     # the scan's launches by shape class (phases 7 and 9)
     verify_n, prefill_n = rglru_launch_split(rglru_shapes)
     long_n = rglru_long_launches(rglru_shapes)

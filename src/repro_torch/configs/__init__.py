@@ -7,7 +7,7 @@ and reduced smoke variants for CPU tests."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 from . import (
     arctic_480b,
@@ -39,6 +39,21 @@ _MODULES = (
 )
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
+
+# The 10 assigned architectures (qwen3-8b is the paper's own, extra): the
+# dry run's ``--all`` sweep.
+ASSIGNED: List[str] = [
+    "mixtral-8x7b",
+    "command-r-plus-104b",
+    "recurrentgemma-9b",
+    "chatglm3-6b",
+    "arctic-480b",
+    "xlstm-125m",
+    "seamless-m4t-medium",
+    "qwen2-1.5b",
+    "yi-9b",
+    "qwen2-vl-2b",
+]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -88,6 +103,7 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
 __all__ = [
     "ModelConfig",
     "REGISTRY",
+    "ASSIGNED",
     "get_config",
     "smoke_variant",
     "count_params",

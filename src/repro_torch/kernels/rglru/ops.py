@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import work as _work
 from repro_torch.kernels.rglru.ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 # Launches of the CUDA kernels by these wrappers (one per call on CUDA), in
@@ -144,19 +145,58 @@ def rglru_scan_bwd_residency(T: int) -> Tuple[int, int]:
     return ctas.value, smem.value
 
 
+# float32 operations a (b, t, w) step of the forward does: log_a (2
+# products), a and exp(2 log_a) (2 exp, 1 product), 1 - e, clip (2), sqrt,
+# i·x, mult·gx, a·h, + gx
+OPS_PER_STEP = 13
+# and of the backward: log a (2 products), a and exp(2 log a) (2 exp, a
+# product), 1 - e, the clip (2), the square root, the division, i·x, and
+# the carry's chain (14 products and sums)
+BWD_OPS_PER_STEP = 25
+
+
+def work(B: int, T: int, W: int, masked: bool) -> Tuple[float, float]:
+    """(flops, bytes) of one forward launch from shapes alone: x, r and
+    i read at the updated steps, hs written once, h0, Λ, h_final and the
+    mask once. A meta tensor has no mask values, so every step counts as
+    updated (``chip_smoke.rglru_bytes`` takes off the steps a real mask
+    skips)."""
+    nbytes = 4 * (3 * B * T * W + B * T * W + 2 * B * W + W)
+    nbytes += B * T if masked else 0
+    return float(OPS_PER_STEP * B * T * W), float(nbytes)
+
+
+def bwd_work(B: int, T: int, W: int, masked: bool) -> Tuple[float, float]:
+    """(flops, bytes) of one backward launch: x, r, i and h_{t-1} at the
+    updated steps (every step on meta; ``chip_smoke.rglru_bwd_bytes``
+    takes off the steps a real mask skips), dhs read and dx, dr, di
+    written at every step, h0, dh_final, dh0, Λ, dΛ and the mask once."""
+    nbytes = 4 * (4 * B * T * W + 4 * B * T * W + 3 * B * W + 2 * W)
+    nbytes += B * T if masked else 0
+    return float(BWD_OPS_PER_STEP * B * T * W), float(nbytes)
+
+
 def rglru_scan_bwd(x, r, i, lam, h0, hs, dhs, dh_final,
                    mask: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, ...]:
     """The scan's backward: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors; for meta tensors outputs of the shapes,
+    nothing launched, and ``bwd_work`` reported (``kernels.work``)."""
     if x.is_cuda:
         return rglru_scan_bwd_cuda(x, r, i, lam, h0, hs, dhs, dh_final, mask)
+    if x.is_meta:
+        _work.report("rglru_scan_bwd", *bwd_work(*x.shape, mask is not None))
+        return (torch.empty_like(x), torch.empty_like(r), torch.empty_like(i),
+                torch.empty_like(lam), torch.empty_like(h0))
     return rglru_scan_bwd_ref(x, r, i, lam, h0, hs, dhs, dh_final, mask)
 
 
 def _scan_fwd(x, r, i, lam, h0, mask):
     if x.is_cuda:
         return rglru_scan_cuda(x, r, i, lam, h0, mask)
+    if x.is_meta:
+        _work.report("rglru_scan", *work(*x.shape, mask is not None))
+        return torch.empty_like(x), torch.empty_like(h0)
     return rglru_scan_ref(x, r, i, lam, h0, mask)
 
 
@@ -183,7 +223,8 @@ def rglru_scan(x, r, i, lam, h0, mask: Optional[torch.Tensor] = None
     """(hs (B, T, W), h_final (B, W)) of the RG-LRU recurrence over x, r,
     i (B, T, W) float32 from h0 (B, W), steps where ``mask`` (B, T) is
     False keeping h: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors; differentiable through ``RGLRUScan`` where autograd
+    for CPU tensors, the kernel's reported ``work`` for meta tensors;
+    differentiable through ``RGLRUScan`` where autograd
     records."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, r, i, lam, h0)):

@@ -36,6 +36,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import work as _work
 from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
 
 # Launches of the CUDA kernel by this wrapper (one per call on CUDA).
@@ -226,16 +227,37 @@ def spec_verify_attention_cuda(q, k, v, cache_pos, positions, *,
     return out
 
 
+def work(B: int, T: int, Hq: int, Hkv: int, S1: int, hd: int,
+         esz: int) -> Tuple[float, float]:
+    """(flops, bytes) of one launch from shapes alone: q read and the
+    output written once, cache_pos and positions once, K and V of every
+    slot once; QKᵀ and PV over every (row, slot) pair. A meta tensor has no
+    cache_pos values, so every slot counts as valid and visible: the most
+    the kernel reads at this shape (a ring filled past its size, as the
+    dry run's 32k context). ``chip_smoke.sv_bound_ms`` takes off the
+    slots a real cache_pos leaves out."""
+    nbytes = (2 * B * T * Hq * hd * esz + 4 * B * S1 + 4 * B * T
+              + 2 * B * S1 * Hkv * hd * esz)
+    return 4.0 * B * T * S1 * Hq * hd, float(nbytes)
+
+
 def spec_verify_attention(q, k, v, cache_pos, positions, *,
                           window: int = 0,
                           softcap: float = 0.0) -> torch.Tensor:
     """(B, T, Hq, hd) attention of the draft block against the ring
     cache: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors; for meta tensors an output of the shape, nothing launched,
+    and the kernel's ``work`` reported (``kernels.work``)."""
     if q.is_cuda:
         return spec_verify_attention_cuda(
             q, k, v, cache_pos, positions, window=window, softcap=softcap
         )
+    if q.is_meta:
+        B, T, Hq, hd = q.shape
+        _work.report("spec_verify_attention",
+                     *work(B, T, Hq, k.shape[2], k.shape[1], hd,
+                           q.element_size()))
+        return torch.empty_like(q)
     return spec_verify_attention_ref(
         q, k, v, cache_pos, positions, window=window, softcap=softcap
     )

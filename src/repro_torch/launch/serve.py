@@ -39,7 +39,11 @@ history service each worker journals to ``D/w<k>.wal``.
 F`` writes a Perfetto/Chrome trace of the run (spans and per-rollout
 flight events, one track per worker).
 
-``--dry-run`` is refused: it waits for ``launch/dryrun``. An
+``--dry-run`` counts the full config's serve step (``--shape``:
+``decode_32k`` by default, ``long_500k`` or ``verify_8``) on the
+production mesh (``--multi-pod``: 2×16×16) with ``launch.dryrun``: on
+meta tensors, allocating nothing on any device, so it runs with or
+without a card; it prints the record as one JSON line. An
 encoder-decoder (``--arch seamless-m4t-medium``) is refused with the
 reference's reason: its ``SpecEngine`` does not serve one either.
 """
@@ -171,11 +175,23 @@ def main() -> None:
                     help="write a Perfetto/Chrome trace-event JSON of the "
                          "run")
     ap.add_argument("--dry-run", action="store_true",
-                    help="not ported: waits for launch/dryrun")
+                    help="count the full config's serve step on the "
+                         "production mesh (launch.dryrun, meta tensors)")
+    ap.add_argument("--shape", default="decode_32k",
+                    choices=["decode_32k", "long_500k", "verify_8"],
+                    help="with --dry-run: the serve workload")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --dry-run: the 2x16x16 mesh")
     args = ap.parse_args()
     if args.dry_run:
-        ap.error("--dry-run is not ported to repro_torch yet (it needs "
-                 "launch/dryrun)")
+        import json
+
+        from repro_torch.launch import dryrun
+
+        rec = dryrun.dry_run_one(args.arch, args.shape,
+                                 multi_pod=args.multi_pod)
+        print(json.dumps(rec, default=str), flush=True)
+        raise SystemExit(0 if rec["status"] in ("ok", "skipped") else 1)
     if not args.smoke:
         ap.error("only --smoke serving is ported so far")
     if args.save_history and not args.history_dir:

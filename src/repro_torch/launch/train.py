@@ -14,15 +14,16 @@ backward kernel).
 tokenizer's vocabulary) on the synthetic pattern task; without it the
 full published config trains, random weights from the seed. It runs on
 CUDA unless ``--device cpu`` is given, and prints one JSON line a step.
-``--dry-run`` (lower the full config's train step on a mesh) needs
-``launch/dryrun``, which is not ported yet: it exits non-zero.
+``--dry-run`` counts the full config's train step (``train_4k``) on the
+production mesh (``--multi-pod``: 2×16×16) with ``launch.dryrun``: on
+meta tensors, allocating nothing on any device, so it runs with or
+without a card; it prints the record as one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import sys
 
 
 def main() -> None:
@@ -31,7 +32,10 @@ def main() -> None:
     ap.add_argument("--smoke", action="store_true",
                     help="train the reduced variant")
     ap.add_argument("--dry-run", action="store_true",
-                    help="not ported yet (needs launch/dryrun)")
+                    help="count the full config's train step on the "
+                         "production mesh (launch.dryrun, meta tensors)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --dry-run: the 2x16x16 mesh")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--no-das", action="store_true")
     ap.add_argument("--device", default="cuda",
@@ -40,9 +44,12 @@ def main() -> None:
     args = ap.parse_args()
 
     if args.dry_run:
-        print("--dry-run needs repro_torch.launch.dryrun, which is not "
-              "ported yet", file=sys.stderr)
-        raise SystemExit(2)
+        from repro_torch.launch import dryrun
+
+        rec = dryrun.dry_run_one(args.arch, "train_4k",
+                                 multi_pod=args.multi_pod)
+        print(json.dumps(rec, default=str), flush=True)
+        raise SystemExit(0 if rec["status"] in ("ok", "skipped") else 1)
 
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.core.drafter import DrafterConfig

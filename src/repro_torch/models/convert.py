@@ -46,6 +46,7 @@ from repro_torch.models.model import (
     Transformer,
     block_parts,
     check_supported,
+    params_tree,
 )
 
 
@@ -113,44 +114,6 @@ def params_to_numpy(params: Transformer, cfg: ModelConfig) -> Dict[str, Any]:
     each scanned stage's leaves, and the encoder's blocks, stacked along
     a leading layer axis, as float32 numpy arrays (bfloat16 widens
     exactly)."""
-    def arr(t):
-        return t.detach().float().cpu().numpy()
-
-    def pd(d):
-        return {k: pd(v) if isinstance(v, nn.ParameterDict) else arr(v)
-                for k, v in d.items()}
-
-    def stack(parts):
-        if isinstance(parts[0], dict):
-            return {k: stack([p[k] for p in parts]) for k in parts[0]}
-        return np.stack(parts)
-
-    layers = list(params.layers)
-    stages: List[Any] = []
-    li = 0
-    for unit, repeats in cfg.scan_stages:
-        reps = []
-        for _ in range(repeats):
-            unit_p = []
-            for kind in unit:
-                blk = layers[li]
-                li += 1
-                unit_p.append({name: pd(getattr(blk, name))
-                               for name in blk.parts})
-            reps.append(tuple(unit_p))
-        if repeats > 1:
-            reps = [tuple(stack([r[ui] for r in reps])
-                          for ui in range(len(unit)))]
-        stages.append(reps[0])
-    tree: Dict[str, Any] = {"embed": arr(params.embed),
-                            "final_norm": pd(params.final_norm),
-                            "stages": stages}
-    if params.lm_head is not None:
-        tree["lm_head"] = arr(params.lm_head)
-    if params.encoder_final_norm is not None:
-        tree["encoder"] = {
-            "blocks": stack([{name: pd(getattr(blk, name))
-                              for name in blk.parts}
-                             for blk in params.encoder]),
-            "final_norm": pd(params.encoder_final_norm)}
-    return tree
+    return params_tree(params, cfg,
+                       lambda t, ax: t.detach().float().cpu().numpy(),
+                       np.stack)

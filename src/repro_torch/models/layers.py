@@ -59,7 +59,10 @@ def _dense_init(shape, dtype, gen: torch.Generator, device,
     """N(0, 1)·scale with scale = 1/sqrt(fan_in) (fan_in = shape[0], or
     shape[1] for an ``experts`` stack (E, in, out), as
     ``repro.models.layers._dense_init`` takes it), drawn in float32 on
-    ``device`` and cast to ``dtype``."""
+    ``device`` and cast to ``dtype``. On the meta device nothing is drawn
+    (``gen`` may be None): an empty tensor of the shape and dtype."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
     if experts:
         fan_in = shape[1]
@@ -419,17 +422,24 @@ def attention_forward(
 
 def init_kv_cache(
     cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
-    headroom: int = 64, device=None,
+    headroom: int = 64, device=None, slot_multiple: int = 1,
 ):
     """Zero cache for one attention layer (+1 trash slot); ring-sized
-    (window + headroom) when windowed."""
+    (window + headroom) when windowed. ``slot_multiple`` rounds the slot
+    count up (256 in the launch workloads, so that the slot dim can shard
+    over a mesh's model axis where kv_heads cannot), as the reference
+    does: the ring modulus is then ``slots - 1``, at least the retention
+    needed, and the extra slots are never written (cache_pos stays -1)."""
     S = min(max_len, window + headroom) if window > 0 else max_len
+    slots = S + 1
+    if slot_multiple > 1:
+        slots = -(-slots // slot_multiple) * slot_multiple
     hd, Hkv = cfg.head_dim, cfg.num_kv_heads
     dt = torch_dtype(cfg.dtype)
     return (
-        torch.zeros((batch, S + 1, Hkv, hd), dtype=dt, device=device),
-        torch.zeros((batch, S + 1, Hkv, hd), dtype=dt, device=device),
-        torch.full((batch, S + 1), -1, dtype=torch.int32, device=device),
+        torch.zeros((batch, slots, Hkv, hd), dtype=dt, device=device),
+        torch.zeros((batch, slots, Hkv, hd), dtype=dt, device=device),
+        torch.full((batch, slots), -1, dtype=torch.int32, device=device),
     )
 
 

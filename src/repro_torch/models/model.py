@@ -133,10 +133,13 @@ class Transformer(nn.Module):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
     """Random weights drawn from ``seed`` straight on ``device`` in
-    ``cfg.dtype`` (the full-width model never exists on the host)."""
+    ``cfg.dtype`` (the full-width model never exists on the host). On the
+    meta device (``device="meta"``, the dry run) nothing is drawn and
+    nothing allocated: every parameter has its shape and dtype only."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(int(seed)))
     dt = L.torch_dtype(cfg.dtype)
     embed = L._dense_init((cfg.padded_vocab, cfg.d_model), dt, gen, dev,
                           scale=0.02)
@@ -179,7 +182,7 @@ class Cache:
 
 
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                 headroom: int, dev) -> LayerCache:
+                 headroom: int, dev, slot_multiple: int = 1) -> LayerCache:
     W = cfg.rnn_width
     H = max(cfg.num_heads, 1)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -199,15 +202,159 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                 "h": torch.zeros((batch, W), **f32),
                 "m": torch.full((batch, W), -float("inf"), **f32)}
     window = cfg.local_window if kind == "local_attn" else cfg.sliding_window
-    return L.init_kv_cache(cfg, batch, max_len, window, headroom, device=dev)
+    return L.init_kv_cache(cfg, batch, max_len, window, headroom, device=dev,
+                           slot_multiple=slot_multiple)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               headroom: int = 64, device=None) -> Cache:
+               headroom: int = 64, device=None,
+               slot_multiple: int = 1) -> Cache:
+    """A fresh cache; ``slot_multiple`` rounds each attention ring's slot
+    count up (``L.init_kv_cache``). On the meta device it allocates
+    nothing."""
     dev = resolve_device(device)
-    layers = [_layer_cache(cfg, kind, batch, max_len, headroom, dev)
+    layers = [_layer_cache(cfg, kind, batch, max_len, headroom, dev,
+                           slot_multiple)
               for kind in cfg.layer_kinds]
     return Cache(layers, torch.zeros(batch, dtype=torch.int32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# abstract shapes and logical axes (the dry run's counterpart of the
+# reference's ``Param`` trees)
+# ---------------------------------------------------------------------------
+
+_NORM_AXES = {"scale": (None,), "bias": (None,)}
+_MLP_AXES = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+             "wo": ("mlp", "embed")}
+# each parameter group's leaves and their logical axes, as the reference's
+# ``init_*`` functions give them (``repro.models.layers``); a cross
+# attention takes the attention's, every ``*norm`` group the norm's
+PARAM_AXES = {
+    "attn": {"wq": ("embed", "heads", "head_dim"),
+             "wk": ("embed", "kv_heads", "head_dim"),
+             "wv": ("embed", "kv_heads", "head_dim"),
+             "wo": ("heads", "head_dim", "embed"),
+             "bq": ("heads", "head_dim"),
+             "bk": ("kv_heads", "head_dim"),
+             "bv": ("kv_heads", "head_dim")},
+    "mlp": _MLP_AXES,
+    "moe": {"router": ("embed", None),
+            "wi": ("experts", "embed", "mlp"),
+            "wg": ("experts", "embed", "mlp"),
+            "wo": ("experts", "mlp", "embed"),
+            "dense": _MLP_AXES},
+    "rglru": {"wx": ("embed", "mlp"), "wy": ("embed", "mlp"),
+              "wo": ("mlp", "embed"), "conv": (None, "mlp"),
+              "w_a": ("mlp",), "w_i": ("mlp",), "lam": ("mlp",)},
+    "mlstm": {"wq": ("embed", "mlp"), "wk": ("embed", "mlp"),
+              "wv": ("embed", "mlp"), "wi": ("embed", None),
+              "wf": ("embed", None), "bf": (None,),
+              "wo_gate": ("embed", "mlp"), "wo": ("mlp", "embed")},
+    "slstm": {"wz": ("embed", "mlp"), "wi": ("embed", "mlp"),
+              "wf": ("embed", "mlp"), "wo_g": ("embed", "mlp"),
+              "r": (None, None, None), "bf": ("mlp",),
+              "wo": ("mlp", "embed")},
+}
+
+
+def _group_axes(group: str):
+    if group.endswith("norm"):
+        return _NORM_AXES
+    return PARAM_AXES["attn" if group == "cross" else group]
+
+
+def params_tree(params: Transformer, cfg: ModelConfig, leaf, stack):
+    """The reference's parameter tree ``{"embed", "final_norm",
+    ["lm_head"], "stages", ["encoder"]}`` over the port's parameters:
+    ``leaf(tensor, logical axes)`` gives each leaf, ``stack(list)`` joins
+    the per-layer leaves of a scanned stage (``cfg.scan_stages``) and of
+    the encoder's blocks along a leading layer axis.
+    ``convert.params_to_numpy``, ``param_shapes`` and
+    ``param_logical_axes`` are its three readings."""
+    def group(d, axes):
+        return {k: (group(v, axes[k]) if isinstance(v, nn.ParameterDict)
+                    else leaf(v, axes[k])) for k, v in d.items()}
+
+    def block(blk):
+        return {name: group(getattr(blk, name), _group_axes(name))
+                for name in blk.parts}
+
+    def stacked(parts):
+        if isinstance(parts[0], dict):
+            return {k: stacked([p[k] for p in parts]) for k in parts[0]}
+        return stack(parts)
+
+    layers = iter(params.layers)
+    stages = []
+    for unit, repeats in cfg.scan_stages:
+        reps = [tuple(block(next(layers)) for _ in unit)
+                for _ in range(repeats)]
+        stages.append(tuple(stacked([r[ui] for r in reps])
+                            for ui in range(len(unit)))
+                      if repeats > 1 else reps[0])
+    tree = {"embed": leaf(params.embed, ("vocab", "embed")),
+            "final_norm": group(params.final_norm, _NORM_AXES),
+            "stages": stages}
+    if params.lm_head is not None:
+        tree["lm_head"] = leaf(params.lm_head, ("embed", "vocab"))
+    if params.encoder_final_norm is not None:
+        tree["encoder"] = {
+            "blocks": stacked([block(blk) for blk in params.encoder]),
+            "final_norm": group(params.encoder_final_norm, _NORM_AXES)}
+    return tree
+
+
+def param_shapes(cfg: ModelConfig):
+    """The parameter tree (``params_tree``) as meta tensors of each
+    leaf's shape and dtype: nothing drawn, nothing allocated."""
+    return params_tree(init_params(cfg, device="meta"), cfg,
+                       lambda t, ax: t.detach(), torch.stack)
+
+
+def param_logical_axes(cfg: ModelConfig):
+    """The logical axes of each leaf of ``param_shapes``' tree; a stacked
+    leaf's axes start with ``"layers"``, as the reference's
+    ``stack_params`` gives them. With ``param_shapes`` the counterpart of
+    the reference's ``split_tree(param_shapes(cfg))``."""
+    return params_tree(init_params(cfg, device="meta"), cfg,
+                       lambda t, ax: ax, lambda parts: ("layers",) + parts[0])
+
+
+def _layer_cache_axes(cfg: ModelConfig, kind: str, mesh_model: int):
+    """Logical axes of one layer's cache entry (``_layer_cache``'s
+    layout). An attention ring shards its kv heads over the model axis
+    where they divide it, else its slots (context-parallel decode)."""
+    if kind in ATTENTION:
+        if mesh_model > 0 and cfg.num_kv_heads % mesh_model == 0:
+            kv = ("batch", None, "kv_heads", "head_dim")
+            cp = ("batch", None)
+        else:
+            kv = ("batch", "kv_seq", "kv_heads", "head_dim")
+            cp = ("batch", "kv_seq")
+        return (kv, kv, cp)
+    if kind == "rglru":
+        return {"h": ("batch", "mlp"), "conv": ("batch", None, "mlp")}
+    if kind == "mlstm":
+        return {"C": ("batch", "heads", None, None),
+                "n": ("batch", "heads", None), "m": ("batch", "heads")}
+    return {k: ("batch", "mlp") for k in ("c", "n", "h", "m")}
+
+
+def cache_logical_axes(cfg: ModelConfig, mesh_model: int = 16) -> Cache:
+    """Axes of ``init_cache``'s Cache, one entry a layer (the reference's
+    stacked leading ``"layers"`` axis has no counterpart: the port's
+    cache is per layer, and the rules replicate that axis anyway)."""
+    return Cache([_layer_cache_axes(cfg, kind, mesh_model)
+                  for kind in cfg.layer_kinds], ("batch",))
+
+
+def cross_cache_logical_axes(cfg: ModelConfig) -> List[Optional[Tuple]]:
+    """Axes of ``build_cross_cache``'s output: ``(ck, cv)`` axes for a
+    layer with cross-attention, None for one without."""
+    ax = ("batch", None, "kv_heads", "head_dim")
+    return [(ax, ax) if cfg.is_encoder_decoder and kind in ATTENTION
+            else None for kind in cfg.layer_kinds]
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ kernel's work. Integers only: bit-identical. The RG-LRU scan's bound
 counts the bytes of the steps its mask updates, counted here by hand;
 its launches split by shape into the JSON line's entries. The scan's
 backward bound counts x, r, i and h_{t-1} at the updated steps and the
-rest at every step. Phases 10 and 11 are rehearsed at small widths on the
-CPU, where the kernels' plain versions run and the launch gates are off.
+rest at every step. Phases 10 to 13 are rehearsed at small widths on
+the CPU, where the kernels' plain versions run and the launch gates are
+off.
 """
 
 import importlib.util
@@ -397,3 +398,36 @@ def test_phase12_xlstm_and_seamless_on_cpu():
                             S_enc=8, prompt=3, steps=4, f32_layers=1)
     assert sorted(out) == ["bf16", "float32"]
     assert params.cfg.num_layers == len(params.encoder) == 1
+
+
+def test_phase13_workloads_on_cpu():
+    """Phase 13 at small widths on the CPU: 13a's decode_32k and verify_8
+    steps on the workloads' 33,024-slot ring (every slot valid, lengths
+    32,768; the verify step against ``verify_block`` on its logits, rows
+    drafting the model's own token accepting), and 13b/13c's GRPO steps
+    of xLSTM and the encoder-decoder (the loss at ratio 1, every gradient
+    finite and non-zero, every parameter moved), each beside the dry
+    run's count of the same small config."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cs = _chip_smoke()
+    cfg = get_config("qwen3-8b").replace(
+        num_layers=2, d_model=32, num_heads=4, num_kv_heads=2, head_dim=32,
+        d_ff=64, vocab_size=300, vocab_pad_multiple=64)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    launches = cs.phase_verify_economics(torch, np, "cpu", cfg, params, None,
+                                         dev="cpu", reps=1)
+    assert launches["spec_verify_attention"] == 0  # plain versions on CPU
+    xlstm = get_config("xlstm-125m").replace(
+        num_layers=2, d_model=32, num_heads=2, num_kv_heads=2, rnn_width=32,
+        vocab_size=300, vocab_pad_multiple=64)
+    t, _, rec = cs.phase_grpo_card(torch, np, "cpu", "xlstm-125m", 4, 24,
+                                   "13b", dev="cpu", cfg=xlstm)
+    assert t > 0 and rec["shape"] == "train_4k" and rec["mesh"] == "1x1"
+    encdec = get_config("seamless-m4t-medium").replace(
+        num_layers=2, num_encoder_layers=2, d_model=32, num_heads=2,
+        num_kv_heads=2, head_dim=16, d_ff=64, vocab_size=300,
+        vocab_pad_multiple=64)
+    cs.phase_grpo_card(torch, np, "cpu", "seamless-m4t-medium", 2, 16, "13c",
+                       dev="cpu", cfg=encdec)

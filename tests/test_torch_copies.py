@@ -146,6 +146,14 @@ def test_suffix_array_copy_matches_original():
         assert ta.propose(ctx, 4) == ja.propose(ctx, 4)
 
 
+def test_assigned_archs_equal_the_reference():
+    from repro.configs import ASSIGNED as JASSIGNED
+    from repro_torch.configs import ASSIGNED, REGISTRY
+
+    assert ASSIGNED == JASSIGNED and len(ASSIGNED) == 10
+    assert set(ASSIGNED) <= set(REGISTRY) and "qwen3-8b" not in ASSIGNED
+
+
 def test_registered_configs_equal_the_reference():
     import dataclasses
 

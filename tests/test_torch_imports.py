@@ -34,6 +34,20 @@ def test_port_has_modules_to_check():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
 
 
+LAUNCH_TOOLING = ("mesh", "sharding", "workloads", "analysis", "dryrun",
+                  "hillclimb")
+
+
+def test_launch_tooling_is_checked():
+    """The dry run's six modules are among the files walked above (the
+    JAX-free counterparts of ``repro.launch``'s), and so is the kernels'
+    work registry their meta branches report to."""
+    launch = ROOT / "src" / "repro_torch" / "launch"
+    for name in LAUNCH_TOOLING:
+        assert launch / f"{name}.py" in FILES, name
+    assert ROOT / "src" / "repro_torch" / "kernels" / "work.py" in FILES
+
+
 def _reference_module_strings(path: Path):
     """``"repro..."`` module names handed to ``-m`` in an argument list,
     or to ``importlib.import_module``/``__import__``: a subprocess or a

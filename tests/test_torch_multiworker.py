@@ -180,14 +180,14 @@ def test_multiworker_checkpoint_resumes_token_identical(weights, tmp_path):
         [h["reward_mean"] for h in hist[2:]]
 
 
-def _serve_cli(*args, timeout=300):
+def _serve_cli(*args, timeout=300, env_extra=None):
     import os
     import subprocess
     import sys
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
-               OMP_NUM_THREADS="1")
+               OMP_NUM_THREADS="1", **(env_extra or {}))
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", *args],
         cwd=root, env=env, capture_output=True, text=True, timeout=timeout)
@@ -198,7 +198,8 @@ def test_serve_cli_with_service_journal_metrics_and_trace(tmp_path):
     subprocess shards, supervised, continuous, journals, a metrics
     endpoint and a trace; the trace validates and every journal session
     finished. A second run over the same journal directory recovers it.
-    ``--dry-run`` stays refused."""
+    ``--dry-run --shape verify_8`` counts the full config's verify step
+    without a card and prints its record."""
     import json
 
     from repro_torch import obs
@@ -229,5 +230,10 @@ def test_serve_cli_with_service_journal_metrics_and_trace(tmp_path):
         proc = _serve_cli(*args1)
         assert proc.returncode == 0, proc.stderr[-3000:]
     assert "journal recovery" in proc.stderr and "warm start" in proc.stderr
-    proc = _serve_cli("--arch", "qwen2-1.5b", "--dry-run")
-    assert proc.returncode != 0 and "--dry-run" in proc.stderr
+    proc = _serve_cli("--arch", "qwen2-1.5b", "--dry-run", "--shape",
+                      "verify_8", env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (rec["status"], rec["shape"], rec["mesh"]) == (
+        "ok", "verify_8", "16x16")
+    assert rec["kernel_launches"] == {"spec_verify_attention": 28}
