@@ -22,7 +22,8 @@ non-zero; no phase's error is caught):
    edge cases within the float32 tolerance (a window with a softcap, T =
    1, rows that see nothing, hd 32 with G = 16, hd 64, hd 256 with a
    window and 16/1 heads, G = 6, G = 16, softcap 30, a ring of 20,000
-   slots), its batch invariance bit for bit at 10b's shape (a B-8 launch
+   slots; head dims 24 and 40, which the wrapper zero-pads to 32 and
+   64), its batch invariance bit for bit at 10b's shape (a B-8 launch
    against two B-4 launches and 17 T-1 launches; a row against redrawn
    other rows) and its timing at 10b's and 10c's shapes (path fill and a
    full ring: kernel, plain, SDPA, bound, plan and ptxas report); the
@@ -272,6 +273,36 @@ non-zero; no phase's error is caught):
        --dry-run``, ``launch.serve --arch qwen3-8b --dry-run --shape
        verify_8`` and ``launch.hillclimb --pair C``, each exit 0 with a
        record that parses.
+14. the paper's RL run through the port's entry points' own configs
+   (``examples/torch_rl_math.py`` and ``torch_rl_code.py``, float32):
+   14a. (after 13b-c) rl_math at the 100m preset (12 layers, d_model 768,
+       12/4 heads of 64, d_ff 2048) at T 0: one trainer runs the SFT
+       warmup (``P14_SFT`` steps: the example's 10 leave no EOS), whose
+       weights every arm loads (a fresh GRPO optimizer, an empty drafter,
+       one generator seed each): the plain arm (``--no-das``), the
+       example's DAS arm (scope ``problem+request``: per-row host
+       drafting, as in the reference) and a DAS arm with scope
+       ``problem`` (drafting through the flat kernel), ``P14_STEPS``
+       GRPO steps each in turns. Gates: the SFT CE falls; every rollout
+       token-identical across the arms with equal rewards, ``loss`` and
+       ``grad_norm`` within rtol 1e-5; fewer forwards with DAS from the
+       second rollout on; some rollout ends in EOS; one prefill and one
+       spec-verify launch per attention layer per verify round in every
+       rollout (the plain arm's all at T 1), its kept launches within the
+       float32 tolerance; the drafting kernel in every rollout of the
+       scope-``problem`` arm from its second epoch on, bit-identical to
+       its plain version, and never in the others. Logged per step and
+       arm: rollout and train time, forwards, accepted per round, J under
+       the default ``LatencyModel``, lengths, EOS share, budgets by length
+       class, reward, loss, grad norm; the rollout times summed and their
+       ratios;
+   14b. the same preset at the example's T 0.6, plain and DAS from 14a's
+       SFT weights: finite losses, a non-zero grad norm in each arm, the
+       launch gates; the reward curves and rollout times side by side;
+   14c. rl_code's own config (3 layers, d_model 128, 4/2 heads of 32) at
+       T 0, plain and DAS: 14a's identity and launch gates;
+   and (with phase 6's CLIs) ``examples/torch_quickstart.py`` (prints
+   ``LOSSLESS``) and ``torch_serve_spec.py --rounds 3``.
 
 The last lines are the card line, the per-kernel JSON line and the
 result line ``{"ok": true, "device": {...}}``. A kernel's ``launches``
@@ -288,8 +319,10 @@ at Qwen3-8B's (10b) and ``spec_verify_attention_qwen2_f32`` at Qwen2-
 spec-verify launches have an entry of their own, timed on that run's
 kept launches: ``spec_verify_attention_{yi,chatglm3,command_r,
 qwen2_vl,mixtral,arctic}``, and so have 12c's bf16 and float32 runs,
-``spec_verify_attention_seamless`` and ``..._seamless_f32``; the
-drafting kernels count phases 11 and 12's launches too); the drafting
+``spec_verify_attention_seamless`` and ``..._seamless_f32``, and phase
+14's float32 runs, ``spec_verify_attention_rl100m_f32`` (14a and 14b)
+and ``..._rlcode_f32`` (14c); the drafting kernels count phases 11, 12
+and 14's launches too); the drafting
 kernels' times and bounds there are at the path's own shapes (phases
 3b and 3c are logged). The scan has an entry per shape class, split by
 the wrapper's launches by (B, T): ``rglru_scan`` at the verify shape
@@ -472,6 +505,7 @@ def sv_plan_line(torch, B, T, Hq, Hkv, hd, S1, dtype="bfloat16"):
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     f32 = dtype == "float32"
+    hd = sv_ops.padded_head_dim(hd)  # the head dim the launch runs at
     plan = (sv_ops.f32_split_plan if f32 else sv_ops.split_plan)(
         B, T, Hq, Hkv, S1, hd, n_sm)
     TG = T * (Hq // Hkv)
@@ -522,6 +556,14 @@ SV_EDGE_CASES = [
     ("softcap 30", 2, 17, 8, 4, 128, 513, 0, 30.0, (1, 490), 48, "float32"),
     ("ring of 20,000 slots", 1, 17, 32, 8, 128, 20000, 0, 0.0, (15000, None),
      49, "float32"),
+    # head dims the wrapper zero-pads to the next built one: the
+    # quickstart's 4/2 heads of 24 and the 10m preset's 8/4 heads of 40
+    ("hd 24 padded to 32, 4/2 heads", 2, 1, 4, 2, 24, 129, 0, 0.0, (1, 100),
+     50, "float32"),
+    ("hd 40 padded to 64, 8/4 heads", 2, 9, 8, 4, 40, 257, 0, 0.0, (1, 240),
+     51, "float32"),
+    ("hd 24 padded to 32, 4/2 heads", 2, 5, 4, 2, 24, 129, 0, 0.0, (1, 100),
+     52, "bfloat16"),
 ]
 
 
@@ -1484,7 +1526,8 @@ class SvSpy:
     """Wraps ``spec_verify_attention_cuda`` on the main path: keeps the
     inputs (the cache tensors copied) and the output of each epoch's
     first launch and of every ``EVERY``-th, to be held against the plain
-    version after the run, outside its timing. Adds no launch. After
+    version after the run, outside its timing, and counts every launch by
+    its block's T (``by_t``). Adds no launch. After
     ``check``, ``case`` holds up to four kept launches of the shape kept
     most (``time_sv_path_case``) and ``worst`` the largest error."""
 
@@ -1497,6 +1540,7 @@ class SvSpy:
         self.real = sv_ops.spec_verify_attention_cuda
         self.kept = []
         self.n = 0
+        self.by_t = Counter()  # launches by the block's T
         self.first = True
 
     def new_epoch(self):
@@ -1504,6 +1548,7 @@ class SvSpy:
 
     def __call__(self, q, k, v, cache_pos, positions, **kw):
         out = self.real(q, k, v, cache_pos, positions, **kw)
+        self.by_t[q.shape[1]] += 1
         if self.first or self.n % self.EVERY == 0:
             self.kept.append(tuple(t.clone() for t in (
                 q, k, v, cache_pos, positions, out)) + (kw,))
@@ -4833,6 +4878,368 @@ def phase_grpo_card(torch, np, card, arch, B, S, tag, dev="cuda",
     return t_step, peak, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the paper's RL run through the examples' own configs
+# ---------------------------------------------------------------------------
+
+# Steps a run: 14a at T 0 (three epochs of rl_math's 16 problems, 8
+# prompts a step), 14b at the example's T 0.6, 14c rl_code at T 0.
+P14_STEPS = {"14a": 6, "14b": 8, "14c": 4}
+# rl_math's SFT warmup for phase 14, raised from the example's default of
+# 10 (--sft-warmup): at the 100m preset 10 steps leave the CE at 0.97 and
+# every T 0 rollout at the 64-token limit (no EOS: no learned lengths);
+# 20 leave it at 0.066 with 10 of 16 rows ending in EOS, 6 at the limit
+# (the long tail), 40 at 0.0011 with every row exact. rl_code keeps its
+# own 15.
+P14_SFT = 20
+
+
+def example(name):
+    """``examples/<name>.py`` as a module: phase 14 takes the entry
+    points' own configs from them."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def p14_trainers(mod, argv, arms, dev, sd=None, sft=0, **over):
+    """One ``Trainer`` per arm (name -> (extra flags, drafter scope or
+    None for the example's)) on the example ``mod``'s configs for ``argv``
+    with ``over`` replacing trainer-config fields, each with its SFT
+    warmup off: without ``sd`` the first arm runs ``sft`` warmup steps
+    (``Trainer.sft_warmup``, its own optimizer) and its weights become
+    ``sd``. Every arm loads ``sd`` into its policy and hands it to its
+    engine (``set_params``), so the arms start GRPO from the same weights,
+    a fresh GRPO optimizer each, an empty drafter history and the same
+    generator seed. Returns (trainers, the SFT losses, sd)."""
+    import dataclasses
+
+    from repro_torch.rl.trainer import Trainer
+
+    trs, losses = {}, []
+    for name, (flags, scope) in arms.items():
+        cfg, task, tcfg = mod.configs(mod.parse_args([*argv, *flags]))
+        tcfg = dataclasses.replace(tcfg, sft_warmup_steps=0, **over)
+        if scope is not None:
+            tcfg.drafter = dataclasses.replace(tcfg.drafter, scope=scope)
+        tr = Trainer(cfg, task, tcfg, device=dev)
+        if sd is None:
+            tr.sft_warmup(sft)
+            losses = list(tr.sft_losses)
+            sd = {k: v.detach().clone()
+                  for k, v in tr.params.state_dict().items()}
+        tr.params.load_state_dict(sd)
+        tr.engine.set_params(tr.params)
+        trs[name] = tr
+    return trs, losses, sd
+
+
+class P14Watch:
+    """Wraps one arm's ``worker.rollout`` and its engine's
+    ``_round_budgets``: per rollout the responses, rewards and stats, the
+    epoch, each kernel's launches during it (spec-verify's also by its
+    block's T, from ``sv_spy``) and every round's active rows and budgets.
+    Adds no launch and no host sync."""
+
+    def __init__(self, np, tr, sv_spy):
+        self.tr = tr
+        self.rolls = []
+        self._rounds = []
+        orig, orig_b = tr.worker.rollout, tr.engine._round_budgets
+
+        def budgets(pids, emitted, active, remaining):
+            b = orig_b(pids, emitted, active, remaining)
+            self._rounds.append((np.array(active, bool), np.array(b)))
+            return b
+
+        def rollout(*a, **k):
+            before, by_t = read_launches(), Counter(sv_spy.by_t)
+            self._rounds = []
+            batch = orig(*a, **k)
+            after = read_launches()
+            d = {key: after[key] - before[key] for key in (
+                "spec_verify_attention", "suffix_match_propose",
+                "suffix_match_propose_chunked")}
+            self.rolls.append(dict(
+                responses=[list(map(int, r)) for r in batch.responses],
+                rewards=np.array(batch.rewards), stats=batch.stats,
+                epoch=tr._epoch, launches=d,
+                by_t=Counter(sv_spy.by_t) - by_t, rounds=self._rounds))
+            return batch
+
+        tr.worker.rollout = rollout
+        tr.engine._round_budgets = budgets
+
+
+def p14_run(trs, steps):
+    """The arms' GRPO steps in turns (step k of every arm, then k + 1),
+    so that a host's drift reaches each arm alike; returns each arm's
+    step records."""
+    for k in range(1, steps + 1):
+        for tr in trs.values():
+            tr.run(steps=k)
+    return {name: tr.history for name, tr in trs.items()}
+
+
+def p14_lengths(np, roll, max_new, lp):
+    """(p50, p90, max, EOS share, {class: mean budget a round}) of one
+    rollout: a row shorter than ``max_new`` ended in EOS; a row's class is
+    its final length's under the length policy's thresholds, its budget
+    the mean over the rounds it was active."""
+    from repro_torch.core.length_policy import CLASS_NAMES
+
+    lens = np.array([len(r) for r in roll["responses"]])
+    cls = np.array([lp.classify_length(n) for n in lens])
+    spent = np.zeros(len(lens))
+    seen = np.zeros(len(lens))
+    for active, b in roll["rounds"]:
+        spent += np.where(active, b, 0)
+        seen += active
+    per = {}
+    for c, name in enumerate(CLASS_NAMES):
+        rows = (cls == c) & (seen > 0)
+        per[name] = (float(spent[rows].sum() / seen[rows].sum())
+                     if rows.any() else None)
+    return (float(np.percentile(lens, 50)), float(np.percentile(lens, 90)),
+            int(lens.max()), float((lens < max_new).mean()), per)
+
+
+def p14_report(np, tag, watches, hists, max_new, card):
+    """Per step and arm: rollout and train time, forwards, accepted per
+    round, J under the default ``LatencyModel``, lengths, EOS share,
+    budgets by length class, reward, loss and grad norm; then the rollout
+    times summed and their ratios to the first (plain) arm's. Returns the
+    EOS share over every rollout of every arm."""
+    from repro_torch.core.budget import LatencyModel
+
+    lat = LatencyModel()
+    eos = []
+    for name, w in watches.items():
+        lp = w.tr.engine.length_policy
+        for roll, h in zip(w.rolls, hists[name]):
+            st = roll["stats"]
+            p50, p90, mx, share, per = p14_lengths(np, roll, max_new, lp)
+            eos.append(share)
+            bud = "/".join("-" if v is None else f"{v:.2f}"
+                           for v in per.values())
+            log(f"{tag} {name} step {h['step'] + 1} (epoch {h['epoch'] + 1}"
+                f"): rollout {h['gen_time_s']:.3f} s, n_fwd {st.n_fwd}, "
+                f"accepted/round {st.acceptance_per_round:.2f}, J "
+                f"{st.modeled_latency(lat):.1f}, lengths p50/p90/max "
+                f"{p50:.0f}/{p90:.0f}/{mx}, EOS {share:.3f}, budget a round "
+                f"short/medium/long {bud}, reward_mean "
+                f"{h['reward_mean']:.4f}, loss {h['loss']:.6g}, grad_norm "
+                f"{h['grad_norm']:.6g}, train step {h['train_time_s']:.3f} s"
+                f"  [{card}]")
+        log(f"{tag} {name}: length thresholds (short below, long above) "
+            f"{tuple(round(t, 1) for t in lp.thresholds())}")
+    gen = {n: sum(h["gen_time_s"] for h in hist) for n, hist in hists.items()}
+    base = next(iter(gen))
+    log(f"{tag} rollout time summed over {len(hists[base])} steps: " +
+        ", ".join(f"{n} {t:.3f} s" for n, t in gen.items()) + "; " +
+        ", ".join(f"{base}/{n} {gen[base] / t:.3f}" for n, t in gen.items()
+                  if n != base) + f"  [{card}]")
+    return float(np.mean(eos))
+
+
+def p14_identity(np, tag, hists, watches, card, base="plain"):
+    """Each arm against the ``base`` arm at T 0: every rollout token for
+    token and reward for reward, ``loss`` and ``grad_norm`` within rtol
+    1e-5 (bit-equality logged), and fewer forwards summed from the second
+    rollout on. At T 0 a GRPO group's samples are equal, so every
+    advantage and ``grad_norm`` is 0 (checked): the loss comparison
+    confirms a zero update in each arm, no more."""
+    bit = {}
+    for name, hist in hists.items():
+        check(all(h["grad_norm"] == 0 for h in hist),
+              f"{tag} {name}: a non-zero grad_norm at T 0 "
+              f"{[h['grad_norm'] for h in hist]}")
+    fwd = {n: sum(h["n_fwd"] for h in hist[1:]) for n, hist in hists.items()}
+    for name, w in watches.items():
+        if name == base:
+            continue
+        for i, (a, b) in enumerate(zip(w.rolls, watches[base].rolls)):
+            check(a["responses"] == b["responses"],
+                  f"{tag} {name} rollout {i + 1}: tokens differ from the "
+                  f"{base} arm's")
+            check(np.array_equal(a["rewards"], b["rewards"]),
+                  f"{tag} {name} rollout {i + 1}: rewards differ")
+        bit[name] = True
+        for ha, hb in zip(hists[name], hists[base]):
+            check(ha["reward_mean"] == hb["reward_mean"],
+                  f"{tag} {name} step {ha['step'] + 1}: reward_mean")
+            for key in ("loss", "grad_norm"):
+                check(bool(np.isclose(ha[key], hb[key], rtol=1e-5, atol=0)),
+                      f"{tag} {name} step {ha['step'] + 1}: {key} "
+                      f"{ha[key]!r} against {hb[key]!r}")
+                bit[name] &= ha[key] == hb[key]
+        check(fwd[name] < fwd[base],
+              f"{tag} {name}: {fwd[name]} forwards from the second rollout "
+              f"on, the {base} arm {fwd[base]}")
+    log(f"{tag}: every arm's rollouts token-identical to the {base} arm's "
+        f"with equal rewards at T 0; loss and grad_norm within rtol 1e-5 "
+        f"(bit-equal: {bit}; grad_norm 0 in every step, a zero update); "
+        f"forwards from the second rollout on {fwd}  "
+        f"[{card}]")
+
+
+def p14_launch_gates(tag, cfg, watches, dev, card, device_arm=None):
+    """Per rollout of every arm: one prefill (n_rounds = n_fwd - 1) and,
+    on the card, one spec-verify launch per attention layer per verify
+    round, the plain arm's all at T 1 (its decode steps); the flat
+    drafting kernel in every rollout of ``device_arm`` from its second
+    epoch on (scope ``problem``: the first epoch has no history), and
+    never in the other arms (the plain arm drafts nothing; the examples'
+    scope ``problem+request`` keeps per-row host sessions, as the
+    reference does); the chunked kernel never (lock-step ``generate``)."""
+    n_attn = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds)
+    by_t, drafting = {}, {}
+    for name, w in watches.items():
+        by_t[name] = Counter()
+        drafting[name] = [(r["launches"]["suffix_match_propose"],
+                           r["launches"]["suffix_match_propose_chunked"])
+                          for r in w.rolls]
+        for i, r in enumerate(w.rolls):
+            st, la, where = r["stats"], r["launches"], f"{tag} {name} " \
+                f"rollout {i + 1}"
+            check(st.n_rounds == st.n_fwd - 1,
+                  f"{where}: {st.n_rounds} rounds, {st.n_fwd} forwards")
+            by_t[name] += r["by_t"]
+            if dev != "cuda":
+                continue
+            sv = la["spec_verify_attention"]
+            check(sv == n_attn * st.n_rounds == sum(r["by_t"].values()),
+                  f"{where}: {sv} spec-verify launches, expected {n_attn} "
+                  f"x {st.n_rounds} verify rounds")
+            check(name != "plain" or set(r["by_t"]) == {1},
+                  f"{where}: the plain arm launched spec-verify at T "
+                  f"{sorted(r['by_t'])}")
+            check(la["suffix_match_propose_chunked"] == 0,
+                  f"{where}: the chunked drafting kernel launched")
+            sm = la["suffix_match_propose"]
+            if name == device_arm:
+                check(r["epoch"] == 0 or sm > 0,
+                      f"{where} (epoch {r['epoch'] + 1}) never launched the "
+                      "drafting kernel")
+            else:
+                check(sm == 0, f"{where}: {sm} drafting kernel launches")
+    log(f"{tag}: spec-verify launches by the block's T {dict(by_t)} (one "
+        f"a verify round in each of {n_attn} attention layers; the "
+        f"prefill none); (flat, chunked) drafting launches a rollout "
+        f"{drafting}  [{card}]")
+
+
+def phase_rl_examples(torch, np, card, timer=None, dev="cuda",
+                      preset="100m", steps=None, sft=P14_SFT, max_new=None):
+    """Phase 14: ``examples/torch_rl_math.py``'s and ``torch_rl_code.py``'s
+    own configs on the card, SFT-warmed weights (learned lengths, EOS),
+    DAS on and off. 14a (T 0: the plain arm, the example's DAS arm and a
+    DAS arm drafting through the device kernel, scope ``problem``) gates
+    identity; 14b (T 0.6, from 14a's SFT weights) learns; 14c is
+    rl_code's twin of 14a. Returns the launches by JSON entry and, with a
+    ``timer``, spec-verify's entries at the two new head layouts."""
+    steps = {**P14_STEPS, **(steps or {})}
+    rlm, rlc = example("torch_rl_math"), example("torch_rl_code")
+    extra = [] if max_new is None else ["--max-new", str(max_new)]
+    max_new = rlm.parse_args(extra).max_new
+    plain, das = (["--no-das"], None), ([], None)
+    t0 = time.perf_counter()
+    reset_launches()
+    with SvSpy() as sv_a, SmSpy(chunked=False) as sm_a:
+        trs, sft_losses, sd = p14_trainers(
+            rlm, ["--preset", preset, "--temperature", "0", *extra],
+            {"plain": plain, "DAS": das,
+             "DAS device-drafted": ([], "problem")}, dev, sft=sft)
+        cfg = trs["plain"].cfg
+        log(f"14a {cfg.name} ({cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+            f"{cfg.head_dim}, float32) SFT warmup CE by step: "
+            f"{', '.join(f'{x:.4f}' for x in sft_losses)}  [{card}]")
+        check(sft_losses[-1] < sft_losses[0],
+              f"14a: SFT loss did not fall: {sft_losses}")
+        watches = {n: P14Watch(np, tr, sv_a) for n, tr in trs.items()}
+        hists = p14_run(trs, steps["14a"])
+    for tr in trs.values():
+        tr.close()
+    eos = p14_report(np, "14a", watches, hists, max_new, card)
+    p14_launch_gates("14a", cfg, watches, dev, card,
+                     device_arm="DAS device-drafted")
+    p14_identity(np, "14a", hists, watches, card)
+    check(eos > 0, f"14a: no rollout ended in EOS before {max_new} tokens")
+    la = read_launches()
+    del trs, watches
+    errs = {}
+    if dev == "cuda":
+        sv_a.check(torch, card, "14a")
+        sm_a.check(torch, card, "14a DAS device-drafted")
+        errs["rl100m"] = sv_a.worst
+    # 14b: the example's own temperature, both arms from the SFT weights
+    reset_launches()
+    with SvSpy() as sv_b:
+        trs, _, _ = p14_trainers(rlm, ["--preset", preset, *extra],
+                                 {"plain": plain, "DAS": das}, dev, sd=sd)
+        watches = {n: P14Watch(np, tr, sv_b) for n, tr in trs.items()}
+        hists = p14_run(trs, steps["14b"])
+    for tr in trs.values():
+        tr.close()
+    p14_report(np, "14b", watches, hists, max_new, card)
+    p14_launch_gates("14b", cfg, watches, dev, card)
+    for name, hist in hists.items():
+        check(all(np.isfinite(h["loss"]) for h in hist),
+              f"14b {name}: a loss is not finite")
+        check(any(h["grad_norm"] > 0 for h in hist),
+              f"14b {name}: every grad_norm is 0")
+    log("14b reward_mean by step: " + "; ".join(
+        f"{n} {[round(h['reward_mean'], 4) for h in hist]}"
+        for n, hist in hists.items()) + f"  [{card}]")
+    lb = read_launches()
+    del trs, watches, sd
+    if dev == "cuda":
+        sv_b.check(torch, card, "14b")
+        errs["rl100m"] = max(errs["rl100m"], sv_b.worst)
+    # 14c: rl_code's own config at T 0, DAS on and off
+    reset_launches()
+    code_sft = rlc.configs(rlc.parse_args([]))[2].sft_warmup_steps
+    with SvSpy() as sv_c:
+        trs, sft_c, _ = p14_trainers(rlc, [], {"plain": plain, "DAS": das},
+                                     dev, sft=code_sft, temperature=0.0)
+        watches = {n: P14Watch(np, tr, sv_c) for n, tr in trs.items()}
+        hists = p14_run(trs, steps["14c"])
+    for tr in trs.values():
+        tr.close()
+    ccfg = trs["plain"].cfg
+    log(f"14c {ccfg.name} SFT warmup CE {sft_c[0]:.4f} -> {sft_c[-1]:.4f} "
+        f"({len(sft_c)} steps)  [{card}]")
+    p14_report(np, "14c", watches, hists,
+               trs["plain"].tcfg.max_new_tokens, card)
+    check(sft_c[-1] < sft_c[0], f"14c: SFT loss did not fall: {sft_c}")
+    p14_launch_gates("14c", ccfg, watches, dev, card)
+    p14_identity(np, "14c", hists, watches, card)
+    lc = read_launches()
+    del trs, watches
+    if dev == "cuda":
+        sv_c.check(torch, card, "14c")
+        errs["rlcode"] = sv_c.worst
+    log(f"phase 14 in {time.perf_counter() - t0:.1f} s  [{card}]")
+    launches = Counter({
+        "suffix_match_propose": la["suffix_match_propose"],
+        "spec_verify_attention_rl100m_f32": (la["spec_verify_attention"]
+                                             + lb["spec_verify_attention"]),
+        "spec_verify_attention_rlcode_f32": lc["spec_verify_attention"]})
+    entries = []
+    if timer is not None:
+        for key, spy, what in (("rl100m", sv_a, f"14a {cfg.name}"),
+                               ("rlcode", sv_c, f"14c {ccfg.name}")):
+            entries.append(time_sv_path_case(
+                torch, np, timer, card, spy,
+                f"spec_verify_attention_{key}_f32", what, errs[key]))
+    return launches, entries
+
+
 def run_concurrently(cmds, env, timeout_s=600):
     """Start every command at once (their output to temporary files, so
     no pipe fills) and wait for all; returns per command its exit code,
@@ -4878,8 +5285,15 @@ def run_concurrently(cmds, env, timeout_s=600):
             out.close()
 
 
+# Phase 14's entry points run as CLIs: (example, flags, a line of its
+# output that says it ran through)
+EXAMPLE_CLIS = [("torch_quickstart", [], "LOSSLESS"),
+                ("torch_serve_spec", ["--rounds", "3"], "round 2")]
+
+
 def phase_cli(card):
-    """Phase 6's CLIs, 10d and 13d, all started at once (each is small;
+    """Phase 6's CLIs, 10d, 13d and phase 14's two serving examples
+    (``EXAMPLE_CLIS``), all started at once (each is small;
     run one after another they took ~95 s). 13d: the dry run's CLIs
     (``launch.dryrun``, ``launch.train --dry-run``, ``launch.serve
     --dry-run --shape verify_8``, ``launch.hillclimb --pair C``) each exit
@@ -4919,8 +5333,19 @@ def phase_cli(card):
                ("hillclimb", ["--pair", "C", "--out", hc_out])]
         cmds += [[sys.executable, "-m", f"repro_torch.launch.{mod}", *args]
                  for mod, args in dry]
+        # phase 14's CLIs: the examples that serve (the RL ones run in
+        # phase 14 itself)
+        cmds += [[sys.executable, f"examples/{name}.py", *args]
+                 for name, args, _ in EXAMPLE_CLIS]
         t0 = time.perf_counter()
         res = run_concurrently(cmds, env)
+        for (name, args, line), (rc, tail, t) in zip(
+                EXAMPLE_CLIS, res[len(cli) + 1 + len(dry):]):
+            check(rc == 0 and any(line in ln for ln in tail),
+                  f"14 {name} {' '.join(args)} exited {rc} without "
+                  f"{line!r}: {' | '.join(tail)}")
+            log(f"14 {name} {' '.join(args)} ok in {t:.1f} s [{card}]: "
+                f"{' | '.join(tail)}")
         for (mod, args), (rc, tail, t) in zip(cli, res):
             check(rc == 0, f"{mod} CLI {' '.join(args)} exited {rc}: "
                   f"{' | '.join(tail)}")
@@ -4957,8 +5382,8 @@ def phase_cli(card):
         log(f"10d serve CLI {' '.join(args10d[:-4])} ok in {t:.1f} s "
             f"[{card}]: trace of {len(doc['traceEvents'])} events valid, "
             f"journals {journal_summary(sess)}: {' | '.join(tail)}")
-    log(f"the ten CLIs, started at once, in {time.perf_counter() - t0:.1f} "
-        f"s  [{card}]")
+    log(f"the {len(cmds)} CLIs, started at once, in "
+        f"{time.perf_counter() - t0:.1f} s  [{card}]")
 
 
 def main() -> None:
@@ -5184,6 +5609,16 @@ def main() -> None:
                             shape.seq_len, tag, counted=p13_counts[tag])
     p13_pool.shutdown()
     stamp("phase 13b-c")
+    # phase 14: the paper's RL run through the examples' own configs
+    # (SFT-warmed 100m policy, DAS on and off; rl_code's twin)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timer = Timer(torch)
+    l14, entries14 = phase_rl_examples(torch, np, card, timer)
+    del timer
+    kernels.update({k["name"]: k for k in entries14})
+    launches.update(l14)
+    stamp("phase 14")
     # the scan's launches by shape class (phases 7 and 9)
     verify_n, prefill_n = rglru_launch_split(rglru_shapes)
     long_n = rglru_long_launches(rglru_shapes)

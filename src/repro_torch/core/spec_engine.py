@@ -146,6 +146,10 @@ class RolloutStats:
     def mean_accepted_per_fwd(self) -> float:
         return self.n_toks_emitted / max(self.n_fwd, 1)
 
+    def modeled_latency(self, lat: LatencyModel) -> float:
+        """The paper's latency model J over this rollout's counts."""
+        return lat.t_total(self.n_fwd, self.n_toks_proposed)
+
 
 def _emit_scan(
     cand: np.ndarray,  # (B, K+1) candidate emissions per row

@@ -5,9 +5,14 @@ and launches on the current stream; for CPU tensors it runs the plain
 version (``ref.py``). There is no fallback between the two: a CUDA
 tensor the kernel cannot take raises.
 
-Unlike the TPU wrapper it pads nothing: the kernel reads queries in the
-model's ``(B, T, Hq, hd)`` layout and regroups them per kv head itself
-(rows ``t*G + g``), and masks the ragged end of the cache.
+Unlike the TPU wrapper it pads no row or slot: the kernel reads queries
+in the model's ``(B, T, Hq, hd)`` layout and regroups them per kv head
+itself (rows ``t*G + g``), and masks the ragged end of the cache. The
+kernels are built for head dims 32, 64, 128 and 256; a smaller head dim
+(the examples' 24, the 10m preset's 40) is zero-padded to the next of
+them (``padded_head_dim``) with the scale of the real one: zero columns
+add nothing to a score, and the output's first ``hd`` columns are the
+answer.
 
 Both kernels split the ring's tiles among CTAs (split-KV), and a combine
 kernel merges a row's partials in split order; the plans come from
@@ -160,6 +165,18 @@ def f32_split_plan(B: int, T: int, Hq: int, Hkv: int, S1: int, hd: int,
 
 _SMS: Dict[int, int] = {}
 
+# The head dims the kernels are instantiated for.
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+def padded_head_dim(hd: int) -> int:
+    """The head dim a launch at ``hd`` runs at: the smallest of
+    ``HEAD_DIMS`` that holds it."""
+    for h in HEAD_DIMS:
+        if hd <= h:
+            return h
+    raise ValueError(f"spec_verify: head_dim {hd} above {HEAD_DIMS[-1]}")
+
 
 def _sm_count(device: torch.device) -> int:
     """The card's SM count, read once per device."""
@@ -181,9 +198,8 @@ def _check(q, k, v, cache_pos, positions) -> None:
     Bk, S, Hkv, hdk = k.shape
     if Bk != B or hdk != hd or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"spec_verify: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if hd not in (32, 64, 128, 256):
-        raise ValueError(f"spec_verify: head_dim {hd} not in (32, 64, 128, "
-                         "256)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"spec_verify: head_dim {hd} not in {HEAD_DIMS}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("spec_verify: q, k and v must share one dtype")
     if tuple(cache_pos.shape) != (B, S) or tuple(positions.shape) != (B, T):
@@ -201,8 +217,18 @@ def _check(q, k, v, cache_pos, positions) -> None:
 def spec_verify_attention_cuda(q, k, v, cache_pos, positions, *,
                                window: int = 0,
                                softcap: float = 0.0) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only)."""
+    """Launch the CUDA kernel (CUDA tensors only). At a head dim that no
+    kernel is built for (24, 40: the examples' tiny models) q and the
+    whole K and V ring are zero-padded to ``padded_head_dim`` at every
+    launch, a copy of the ring beside the kernel that ``work()`` does not
+    count; a config at such a head dim would allocate its cache padded
+    instead."""
     global LAUNCHES
+    hd_real = q.shape[-1]
+    hd_run = padded_head_dim(hd_real)
+    if hd_run != hd_real:
+        q, k, v = (torch.nn.functional.pad(t, (0, hd_run - hd_real))
+                   for t in (q, k, v))
     _check(q, k, v, cache_pos, positions)
     B, T, Hq, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -211,7 +237,7 @@ def spec_verify_attention_cuda(q, k, v, cache_pos, positions, *,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_pos.data_ptr(),
             positions.data_ptr(), out.data_ptr())
     shape = (B, T, Hq, Hkv, S, hd, int(window), float(softcap),
-             float(1.0 / hd ** 0.5))
+             float(1.0 / hd_real ** 0.5))
     bf16 = q.dtype == torch.bfloat16
     n_sm = _sm_count(q.device)
     plan = (split_plan if bf16 else f32_split_plan)(B, T, Hq, Hkv, S, hd,
@@ -224,7 +250,7 @@ def spec_verify_attention_cuda(q, k, v, cache_pos, positions, *,
         plan.tiles_per_split, *cut, _build.cuda_stream_ptr(q.device))
     _build.check(err, "spec_verify_attention launch")
     LAUNCHES += 1
-    return out
+    return out if hd_run == hd_real else out[..., :hd_real].contiguous()
 
 
 def work(B: int, T: int, Hq: int, Hkv: int, S1: int, hd: int,

@@ -431,3 +431,36 @@ def test_phase13_workloads_on_cpu():
         vocab_pad_multiple=64)
     cs.phase_grpo_card(torch, np, "cpu", "seamless-m4t-medium", 2, 16, "13c",
                        dev="cpu", cfg=encdec)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the port's side: beside the suite's other
+    workers a thread a core waits in every parallel region on threads
+    that are off the CPU (phase 14's rehearsal took 135 s instead of 8 s
+    beside eight busy processes on 8 cores), and these tiny models gain
+    nothing from more. ``tests/test_torch_examples.py`` and
+    ``tests/test_torch_engine.py`` import it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_phase14_rl_examples_on_cpu(one_torch_thread):
+    """Phase 14 at rl_math's tiny preset on the CPU: 14a's three arms at
+    T 0 (plain, the example's DAS, DAS drafting through the device path)
+    token-identical with equal rewards, losses and grad norms and fewer
+    DAS forwards, the SFT CE falling and some rollout ending in EOS; 14b
+    at T 0.6 from the same SFT weights with a non-zero grad norm in each
+    arm; 14c rl_code's twin of 14a. No launch on the CPU. The tiny
+    preset ends rows in EOS after the example's own 10 SFT steps (more
+    make its T 0.6 samples equal within each group: zero advantages)."""
+    cs = _chip_smoke()
+    launches, entries = cs.phase_rl_examples(
+        torch, np, "cpu", dev="cpu", preset="tiny",
+        steps={"14a": 3, "14b": 2, "14c": 3}, sft=10, max_new=16)
+    assert entries == [] and sum(launches.values()) == 0
+    assert set(launches) == {"suffix_match_propose",
+                             "spec_verify_attention_rl100m_f32",
+                             "spec_verify_attention_rlcode_f32"}

@@ -20,6 +20,11 @@ Greedy parity across frameworks needs no near-tie on the emitted path:
 the logits agree to ~2e-4 (tests/test_torch_model.py), so the test
 asserts that JAX's top-2 logit gap at every emitted position stays above
 1e-3. The weight and prompt seeds below were chosen so that it does.
+
+``RolloutStats.modeled_latency`` (the paper's latency model J) equals
+the reference's on the same counts, and DAS lowers it on the pattern task
+once a first epoch has built history (``tests/test_system.py``'s check,
+on the port).
 """
 
 import dataclasses
@@ -28,6 +33,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from conftest import make_params
 from repro.configs import get_config as jax_get_config
@@ -42,6 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.drafter import DrafterConfig, SuffixDrafter
 from repro_torch.core.spec_engine import EngineConfig, SpecEngine
 from repro_torch.models.convert import params_from_numpy
+from test_torch_chip_smoke import one_torch_thread  # noqa: F401
 
 CFG = JModelConfig(
     name="engine-dense", family="dense", num_layers=2, d_model=64,
@@ -150,3 +157,61 @@ def test_generate_token_identical_to_jax(fuse, scope, family):
     assert total_accepted > 0, "the case must exercise accepted drafts"
     if fuse == "auto":
         assert teng.drafter.stats["batched_proposes"] > 0
+
+
+@pytest.mark.parametrize("n_fwd,n_toks", [(0, 0), (14, 568), (65, 1040),
+                                          (3, 7)])
+def test_modeled_latency_equals_jax(n_fwd, n_toks):
+    from repro.core.budget import LatencyModel as JLatencyModel
+    from repro.core.spec_engine import RolloutStats as JRolloutStats
+    from repro_torch.core.budget import LatencyModel
+    from repro_torch.core.spec_engine import RolloutStats
+
+    for kw in ({}, dict(c_base=10.0, c_tok=0.01),
+               dict(c_base=2.5, c_tok=0.125, overhead=3.0)):
+        want = JRolloutStats(n_fwd=n_fwd, n_toks_proposed=n_toks)\
+            .modeled_latency(JLatencyModel(**kw))
+        got = RolloutStats(n_fwd=n_fwd, n_toks_proposed=n_toks)\
+            .modeled_latency(LatencyModel(**kw))
+        assert got == want, kw
+
+
+def test_modeled_latency_improves_with_das(one_torch_thread):
+    """``tests/test_system.py``'s check on the port: epoch 2's DAS rollout
+    of the pattern task costs less under J than the plain rollout."""
+    from repro.data.tokenizer import TOKENIZER
+    from repro_torch.core.budget import LatencyModel
+    from repro_torch.data.tasks import PatternTask
+    from repro_torch.rl.rollout import RolloutWorker
+
+    jcfg = JModelConfig(
+        name="sys", family="dense", num_layers=2, d_model=96, num_heads=4,
+        num_kv_heads=2, d_ff=192, vocab_size=TOKENIZER.vocab_size,
+        vocab_pad_multiple=8, dtype="float32",
+    )
+    cfg = ModelConfig(**dataclasses.asdict(jcfg))
+    params = params_from_numpy(
+        jax.tree.map(np.asarray, make_params(jcfg)), cfg, "cpu")
+    task = PatternTask(n_problems=6, mean_len=14.0, sigma=0.7, max_len=40,
+                       seed=3)
+    probs = task.problems()
+    lat = LatencyModel(c_base=10.0, c_tok=0.01)
+    base = SpecEngine(params, cfg, EngineConfig(
+        spec_enabled=False, max_new_tokens=30, eos_token=1), device="cpu")
+    das = SpecEngine(
+        params, cfg,
+        EngineConfig(spec_enabled=True, max_new_tokens=30, eos_token=1,
+                     use_budget_solver=False),
+        drafter=SuffixDrafter(DrafterConfig(scope="problem+request",
+                                            min_match=2)),
+        latency=lat, device="cpu")
+    w0 = RolloutWorker(base, task, group_size=1)
+    w1 = RolloutWorker(das, task, group_size=1)
+    b0 = w0.rollout(probs)
+    w1.rollout(probs)  # epoch 0: builds history
+    das.begin_iteration(1)
+    b1 = w1.rollout(probs)
+    assert b1.responses == b0.responses
+    t0 = b0.stats.modeled_latency(lat)
+    t1 = b1.stats.modeled_latency(lat)
+    assert t1 < t0, (t0, t1)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package. Checked on the AST,
+``chip_smoke.py``, nor an ``examples/torch_*.py`` entry point) imports
+JAX or the JAX package. Checked on the AST,
 so nothing is imported to check it."""
 
 import ast
@@ -10,7 +11,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
-]
+] + sorted((ROOT / "examples").glob("torch_*.py"))
 _BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -32,6 +33,9 @@ def test_port_imports_no_jax_and_no_reference_package(path):
 
 def test_port_has_modules_to_check():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
+    examples = {p.name for p in FILES if p.parent.name == "examples"}
+    assert examples == {f"torch_{n}.py" for n in (
+        "quickstart", "serve_spec", "rl_math", "rl_code")}
 
 
 LAUNCH_TOOLING = ("mesh", "sharding", "workloads", "analysis", "dryrun",

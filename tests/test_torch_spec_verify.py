@@ -9,7 +9,8 @@ to covering every slot once, the float32 one also to not moving with the
 batch, and partials merged in a plan's split order to the unsplit plain
 version and the JAX kernel. The CUDA kernels are held against the plain
 version in the ``gpu`` tests (and in ``chip_smoke.py``), the float32
-kernel also to its batch invariance, bit for bit.
+kernel also to its batch invariance, bit for bit, and at head dims the
+wrapper zero-pads to a built one.
 """
 
 import jax.numpy as jnp
@@ -91,8 +92,15 @@ def test_cpu_wrapper_runs_the_plain_version_without_launching():
     assert sv_ops.LAUNCHES == before and torch.isfinite(out).all()
 
 
+# the examples' head layouts the wrapper pads: 4/2 heads of 24, 8/4 of 40
+PADDED_CASES = [(2, 1, 4, 2, 24, 129, 0, 0.0, "float32"),
+                (2, 5, 4, 2, 24, 129, 0, 0.0, "bfloat16"),
+                (2, 9, 8, 4, 40, 257, 0, 0.0, "float32")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T,Hq,Hkv,hd,S,window,softcap,dtype", CASES)
+@pytest.mark.parametrize("B,T,Hq,Hkv,hd,S,window,softcap,dtype",
+                         CASES + PADDED_CASES)
 def test_cuda_kernel_matches_plain(B, T, Hq, Hkv, hd, S, window, softcap,
                                    dtype):
     if not torch.cuda.is_available():
@@ -105,6 +113,20 @@ def test_cuda_kernel_matches_plain(B, T, Hq, Hkv, hd, S, window, softcap,
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("hd,want", [(24, 32), (32, 32), (40, 64), (64, 64),
+                                     (96, 128), (200, 256), (256, 256)])
+def test_padded_head_dim(hd, want):
+    """A head dim the kernels are not built for runs at the next one
+    (zero columns): the examples' 24 at 32, the 10m preset's 40 at 64."""
+    assert sv_ops.padded_head_dim(hd) == want
+    assert want in sv_ops.HEAD_DIMS
+
+
+def test_padded_head_dim_refuses_above_the_largest():
+    with pytest.raises(ValueError, match="above 256"):
+        sv_ops.padded_head_dim(320)
 
 
 # ---- split-KV: the bfloat16 kernel's plan and combine ----------------------
