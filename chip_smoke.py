@@ -8,7 +8,7 @@ imports only ``repro_torch``, torch and numpy. Phases (any failure exits
 non-zero; no phase's error is caught):
 
 1. device: the card's name and power limit (nvidia-smi), torch's view;
-2. build: the four CUDA sources from ``src/repro_torch/csrc`` with nvcc
+2. build: the six CUDA sources from ``src/repro_torch/csrc`` with nvcc
    for sm_90a, in parallel, with the ptxas register/shared-memory report;
 3. kernels against their plain PyTorch versions at main-path shapes
    (spec-verify attention within the bfloat16 tolerance at Qwen3-8B's
@@ -42,7 +42,17 @@ non-zero; no phase's error is caught):
    prefill shape (B 8, T 256, left pads), the longest prompt (B 1, T
    2047), a ragged width and a width not a multiple of 4, after the
    timer's floor (an empty kernel); phase 7's most frequent admission
-   shape follows phase 7), with kernel / plain /
+   shape follows phase 7); 3e: the xLSTM recurrences' four kernels
+   (mLSTM and sLSTM, forward and backward) within ``XLSTM_TOL`` of their
+   plain versions at ``XLSTM_CASES``: 12a's verify shape with staged
+   states and with a committed carry (commit_upto from -1 to T + 4), its
+   prefill shape with left pads, a training shape (B 16, T 256) forward
+   and backward in bf16 and in float32, the float32 one's backward also
+   held to ``torch.autograd.grad`` through the plain forward, the edges (a tie in the stabilizer's max, the first
+   update from m = -inf, left pads and a frozen row, hd 64 and 40, T not
+   a multiple of the checkpoint interval, 64 rows) and 13b's train_4k
+   shape (B 16, T 4,096), each backward bit-identical from run to run;
+   with kernel / plain /
    library times (CUDA events, L2 flushed before every launch, and a
    device-side wait before each start event so that the wrappers' host
    work stays out of the window) and each kernel's bound (for
@@ -78,10 +88,10 @@ non-zero; no phase's error is caught):
 6. the serving CLI as subprocesses (lock-step, ``--continuous``, and the
    hybrid model) and the training CLI (``--smoke``, Qwen2-1.5B and the
    hybrid), last of all, started at once with 10d's;
-7. RecurrentGemma-9B at full width (the Qwen3-8B weights freed first):
-   phase 4's lock-step traffic, and again with R = 4 as in phase 4, then
-   on its first 14 layers (``HYBRID_SERVE_LAYERS``) phase 5's continuous
-   traffic (chunked forest only), gated as there, with one RG-LRU launch
+7. RecurrentGemma-9B at full width on its first 14 layers
+   (``HYBRID_SERVE_LAYERS``; the Qwen3-8B weights freed first): phase
+   4's lock-step traffic, and again with R = 4 as in phase 4, then phase
+   5's continuous traffic (chunked forest only), gated as there, with one RG-LRU launch
    per recurrent layer per forward and plain greedy's forwards run on
    the plain scan;
    then (phases 8 and 9, below) the RL loops; then the small float32 variants
@@ -221,7 +231,8 @@ non-zero; no phase's error is caught):
        the weights upcast to float32 (xLSTM amplifies a bf16 rounding
        past any logit tolerance: 12b is the exact witness); the wall a
        round and one verify forward's kernel launches (``torch.profiler``)
-       and wall;
+       and wall; one mLSTM or sLSTM kernel launch per layer of its kind
+       per forward (gated, as in 12b);
    12b. the same lock-step traffic in float32 on the first 4 layers
        (``XLSTM_F32_LAYERS``): epoch 2 equal to epoch 1 and every token
        plain greedy's argmax (DAS's output identity, exact), and the
@@ -259,12 +270,15 @@ non-zero; no phase's error is caught):
        ratio beside the counted one; spec-verify once per layer a step;
    13b. (after phase 12) one GRPO + AdamW step
        (``workloads.make_train_fn``: group 8, remat, lr 3e-4) of
-       xLSTM-125M at its published config, B 16, S cut to 128
-       (``XLSTM_TRAIN_S``): the loss at ratio 1 within ``SURROGATE_RTOL``
+       xLSTM-125M at its published config, B 16, train_4k's own S 4,096
+       (``XLSTM_TRAIN_S``), each mLSTM and sLSTM layer two forward
+       launches (remat) and one backward (gated):
+       the loss at ratio 1 within ``SURROGATE_RTOL``
        of its closed form, every gradient finite and non-zero somewhere,
-       every parameter moved; the step's time and peak memory beside its
-       floor (weights, gradients and AdamW moments each moved once, the
-       counted FLOPs) and the counted eager traffic and peak;
+       every parameter moved; the step's time (the first at the shape,
+       then a second, warm) and peak memory beside its floor (weights,
+       gradients and AdamW moments each moved once, the counted FLOPs)
+       and the counted eager traffic and peak;
    13c. the same for SeamlessM4T-medium (12 + 12 layers) at B 12 (B 16
        does not fit the card: ``SEAMLESS_TRAIN_BATCH``), S 4,096, stub
        ``enc_embeds`` of 1,024 frames;
@@ -322,7 +336,10 @@ qwen2_vl,mixtral,arctic}``, and so have 12c's bf16 and float32 runs,
 ``spec_verify_attention_seamless`` and ``..._seamless_f32``, and phase
 14's float32 runs, ``spec_verify_attention_rl100m_f32`` (14a and 14b)
 and ``..._rlcode_f32`` (14c); the drafting kernels count phases 11, 12
-and 14's launches too); the drafting
+and 14's launches too; the xLSTM kernels: ``mlstm_scan`` and
+``slstm_scan`` phases 12a and 12b, timed at 12a's verify shape,
+``..._scan_train`` and ``..._scan_bwd`` 13b's step, timed at its shape
+in 3e); the drafting
 kernels' times and bounds there are at the path's own shapes (phases
 3b and 3c are logged). The scan has an entry per shape class, split by
 the wrapper's launches by (B, T): ``rglru_scan`` at the verify shape
@@ -1454,6 +1471,355 @@ def phase_rglru(torch, np, timer, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the xLSTM recurrences (mLSTM and sLSTM), forward and backward
+# ---------------------------------------------------------------------------
+
+# Gates: max |kernel - plain| over the finite entries, divided by max(1,
+# max |plain|) (non-finite entries, the -inf of a fresh stabilizer, equal).
+# The kernels and the plain versions round every state update alike; they
+# part in the order of their sums (the mLSTM's read over hd rows, the
+# sLSTM's h R, the backwards' adjoint sums over columns and (t, b)), a few
+# float32 ulps a step that the recurrence carries over T.
+XLSTM_TOL = {"fwd": 1e-4, "bwd": 1e-3}
+XLSTM_HEADS, XLSTM_HD = 4, 192  # xLSTM-125M's heads
+XLSTM_LONG_T = 2048  # launches at T >= this are the training entries'
+# (tag, B, T, head dim, dtype, state, masks, commit_upto?, collect, the
+# backward's checkpoint interval or None for the forward alone)
+XLSTM_CASES = [
+    ("verify", 8, VERIFY_T, XLSTM_HD, "bfloat16", "carried", "frozen row",
+     False, True, None),
+    ("commit", 8, VERIFY_T, XLSTM_HD, "bfloat16", "carried", "frozen row",
+     True, False, None),
+    ("prefill", 8, 256, XLSTM_HD, "bfloat16", "fresh", "left pads", False,
+     False, None),
+    ("train", 16, 256, XLSTM_HD, "bfloat16", "fresh", None, False, False,
+     64),
+    ("train_f32", 16, 256, XLSTM_HD, "float32", "carried", "left pads",
+     False, False, 64),
+    ("edges", 3, 37, 64, "float32", "tie", "left pads + frozen row", False,
+     False, 5),
+    ("ragged", 2, 9, 40, "float32", "fresh", None, False, False, 4),
+    ("rows", 64, 40, XLSTM_HD, "float32", "carried", "left pads", False,
+     False, 16),
+    ("train_4k", 16, 4096, XLSTM_HD, "bfloat16", "fresh", None, False,
+     False, 64),
+]
+# the case whose backward kernels are also held to torch.autograd.grad
+# through the plain forward loops, at XLSTM_TOL["bwd"]: full width, K 64,
+# float32 (autograd through the bf16 products rounds their adjoints to
+# bf16, 2^-8 of the scale, where the kernels keep them in float32)
+XLSTM_AUTOGRAD_CASE = "train_f32"
+
+
+def xl_err(torch, g, w, what):
+    """(max |g - w|, that over max(1, max |w|)) over w's finite entries;
+    the non-finite entries must be equal."""
+    fin = torch.isfinite(w)
+    check(torch.equal(fin, torch.isfinite(g)), f"{what}: non-finite entries "
+          "differ")
+    check(torch.equal(g[~fin], w[~fin]), f"{what}: non-finite values differ")
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    d = float((g[fin].double() - w[fin].double()).abs().max())
+    return d, d / max(1.0, float(w[fin].abs().max()))
+
+
+def xl_masks(torch, np, rng, kind, B, T, dev):
+    if kind is None:
+        return None
+    upd = np.ones((T, B), bool)
+    if "left pads" in kind:
+        for b in range(B):
+            upd[:rng.integers(0, max(1, T // 2)), b] = False
+    if "frozen row" in kind:
+        upd[:, B - 1] = False
+    return torch.from_numpy(upd).to(dev)
+
+
+def xl_commit(torch, B, T, upd, dev):
+    """commit_upto per row (0, inside, T and past both ends), as
+    ``_gate_masks`` turns it into the committed mask."""
+    upto = torch.tensor([(-1, 0, 1, T // 2, T - 1, T, T + 4, 3)[b % 8]
+                         for b in range(B)], device=dev)
+    t = torch.arange(T, device=dev)[:, None]
+    return upd & (t < upto[None, :])
+
+
+def mlstm_inputs(torch, np, B, T, hd, dtype, state, masks, seed, dev="cuda",
+                 H=XLSTM_HEADS):
+    """Seeded mLSTM scan inputs: (q, k, v, i_pre, f_pre, C0, n0, m0, upd).
+    ``state`` "fresh" (m at -inf), "carried" or "tie" (m0 0.5 and step 0's
+    i equal to log σ(30) + 0.5 = 0.5 exactly: a tie in the stabilizer's
+    max)."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def t(a, d=torch.float32):
+        return torch.tensor(np.asarray(a, np.float32), device=dev).to(d)
+
+    q = t(rng.normal(size=(T, B, H, hd)), dt)
+    k = t(rng.normal(size=(T, B, H, hd)) / np.sqrt(hd), dt)
+    v = t(rng.normal(size=(T, B, H, hd)), dt)
+    i_pre = t(rng.normal(size=(T, B, H)))
+    f_pre = t(rng.normal(3.0, 1.5, size=(T, B, H)))
+    if state == "fresh":
+        C0 = t(np.zeros((B, H, hd, hd)))
+        n0 = t(np.zeros((B, H, hd)))
+        m0 = t(np.full((B, H), -np.inf))
+    else:
+        C0 = t(rng.normal(size=(B, H, hd, hd)) * 0.3)
+        n0 = t(rng.normal(size=(B, H, hd)) * 0.3)
+        m0 = t(rng.normal(size=(B, H)))
+    if state == "tie":
+        m0 = t(np.full((B, H), 0.5))
+        f_pre[0] = 30.0
+        i_pre[0] = 0.5
+    upd = xl_masks(torch, np, rng, masks, B, T, dev)
+    return (q, k, v, i_pre, f_pre, C0, n0, m0, upd)
+
+
+def slstm_inputs(torch, np, B, T, hd, state, masks, seed, dev="cuda",
+                 H=XLSTM_HEADS):
+    """Seeded sLSTM scan inputs: (z_in, i_in, f_in, o_sig, R, cnh0, m0,
+    upd), float32, head-major; ``state`` as ``mlstm_inputs``'."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    z_in = t(rng.normal(size=(T, H, B, hd)))
+    i_in = t(rng.normal(size=(T, H, B, hd)))
+    f_in = t(rng.normal(2.0, 1.5, size=(T, H, B, hd)))
+    o_sig = t(1 / (1 + np.exp(-rng.normal(size=(T, H, B, hd)))))
+    R = t(rng.normal(size=(H, hd, hd)) * 0.2 / np.sqrt(hd))
+    if state == "fresh":
+        cnh0 = t(np.zeros((3, H, B, hd)))
+        m0 = t(np.full((H, B, hd), -np.inf))
+    else:
+        cnh0 = t(np.abs(rng.normal(size=(3, H, B, hd))))
+        m0 = t(rng.normal(size=(H, B, hd)))
+    if state == "tie":
+        m0 = t(np.full((H, B, hd), 0.5))
+        f_in[0] = 30.0
+        i_in[0] = 0.5
+    upd = xl_masks(torch, np, rng, masks, B, T, dev)
+    return (z_in, i_in, f_in, o_sig, R, cnh0, m0, upd)
+
+
+def xl_compare(torch, names, got, want, what, tol):
+    """The gate over output tuples; returns the largest absolute error and
+    the largest error over its output's scale."""
+    worst = worst_rel = 0.0
+    for name, g, w in zip(names, got, want):
+        check(tuple(g.shape) == tuple(w.shape), f"{what} {name}: shape "
+              f"{tuple(g.shape)}, plain {tuple(w.shape)}")
+        d, rel = xl_err(torch, g.float(), w.float(), f"{what} {name}")
+        check(rel <= tol, f"{what} {name}: max |err| {d:.3e} ({rel:.3e} of "
+              f"the scale) > {tol}")
+        worst, worst_rel = max(worst, d), max(worst_rel, rel)
+    return worst, worst_rel
+
+
+def xl_case(torch, np, timer, card, block, case, seed, time_it=False,
+            dev="cuda"):
+    """One 3e case of ``block`` ("mlstm" or "slstm"): the forward kernel
+    against the plain version (h, the state out or the staged states, and
+    with a checkpoint interval the checkpoints it keeps), then the
+    backward kernel against the plain reverse walk on the forward
+    kernel's saved tensors and seeded cotangents, twice (bit-identical).
+    With ``time_it`` the kernels, the plain versions and the bounds are
+    timed. With ``dev="cpu"`` the wrappers run their plain versions (a
+    rehearsal of the plumbing)."""
+    from repro_torch.kernels.xlstm import ops as xo
+    from repro_torch.kernels.xlstm import ref as xr
+
+    tag, B, T, hd, dtype, state, masks, commit, collect, K = case
+    what = (f"{block}_scan {tag} (B={B} T={T} H={XLSTM_HEADS} hd={hd} "
+            f"{dtype}, {state} state, {masks or 'no mask'}"
+            f"{', commit_upto' if commit else ''}"
+            f"{', collect' if collect else ''}{f', K={K}' if K else ''})")
+    if block == "mlstm":
+        args = mlstm_inputs(torch, np, B, T, hd, dtype, state, masks, seed,
+                            dev)
+        fwd_k, fwd_p = xo.mlstm_scan_fwd, xr.mlstm_scan_ref
+        names = ("h", "[C|n]", "m")
+    else:
+        args = slstm_inputs(torch, np, B, T, hd, state, masks, seed, dev)
+        fwd_k, fwd_p = xo.slstm_scan_fwd, xr.slstm_scan_ref
+        names = ("hs", "[c,n,h]", "m")
+    upd = args[-1]
+    com = None
+    if commit:
+        com = xl_commit(torch, B, T, (upd if upd is not None else
+                                      torch.ones((T, B), dtype=torch.bool,
+                                                 device=dev)), dev)
+    got = fwd_k(*args, com=com, collect=collect, ckpt_every=K)
+    kept = {}
+
+    def plain():
+        kept["out"] = fwd_p(*args, com=com, collect=collect, ckpt_every=K)
+
+    # the training shape's plain run is timed cold, once (seconds); the
+    # verify shape's after a warm-up
+    plain_ms = (timer.ms(plain, 1 if T > 1024 else PLAIN_SLOW_REPS,
+                         warmup=0 if T > 1024 else 1)
+                if time_it else plain())
+    want = kept.pop("out")
+    sync(torch, dev)
+    err, rel = xl_compare(torch, names, got[:3], want[:3], what,
+                          XLSTM_TOL["fwd"])
+    if K:
+        saved_k = got[3] if block == "mlstm" else (got[3],)
+        saved_p = want[3] if block == "mlstm" else (want[3],)
+        e2, r2 = xl_compare(torch, ("ckpt", "mck", "q.n")[:len(saved_k)],
+                            saved_k, saved_p, what + " saved",
+                            XLSTM_TOL["fwd"])
+        err, rel = max(err, e2), max(rel, r2)
+    out = dict(err=err, bwd_err=None)
+    fl, nb = (xo.mlstm_work(T, B, XLSTM_HEADS, hd, 2 if dtype == "bfloat16"
+                            else 4, collect, K) if block == "mlstm" else
+              xo.slstm_work(T, B, XLSTM_HEADS, hd, collect, K))
+    if time_it:
+        out["ms"] = timer.ms(lambda: fwd_k(*args, com=com, collect=collect,
+                                           ckpt_every=K), 5 if T > 1024
+                             else 30)
+        out["plain_ms"] = plain_ms
+        out["bound_ms"], out["bound_by"] = roofline_ms(nb, fl, "float32")
+    line = (f"{what}: forward within {XLSTM_TOL['fwd']} of the plain "
+            f"version (max |err| {err:.3e}, {rel:.2e} of the scale)")
+    if K:
+        rng = np.random.default_rng(seed + 7)
+
+        def cot(shape):
+            return torch.tensor(rng.normal(size=shape).astype(np.float32),
+                                device=dev)
+
+        if block == "mlstm":
+            q, k, v, i_pre, f_pre = args[:5]
+            h, cn, m, (ck, mck, s) = got
+            bargs = (q, k, v, i_pre, f_pre, upd, h, s, ck, mck, K,
+                     cot(h.shape), cot(cn.shape), cot(m.shape))
+            bk, bp = xo.mlstm_scan_bwd, xr.mlstm_scan_bwd_ref
+            bnames = ("dq", "dk", "dv", "di", "df", "dC0", "dn0", "dm0")
+            bfl, bnb = xo.mlstm_bwd_work(T, B, XLSTM_HEADS, hd,
+                                         2 if dtype == "bfloat16" else 4, K)
+        else:
+            z_in, i_in, f_in, o_sig, R, cnh0 = args[:6]
+            hs, cnh, m, ck = got
+            bargs = (z_in, i_in, f_in, o_sig, R, cnh0[2].contiguous(), upd,
+                     hs, ck, K, cot(hs.shape), cot(cnh.shape), cot(m.shape))
+            bk, bp = xo.slstm_scan_bwd, xr.slstm_scan_bwd_ref
+            bnames = ("dz", "di", "df", "do", "dR", "dcnh0", "dm0")
+            bfl, bnb = xo.slstm_bwd_work(T, B, XLSTM_HEADS, hd, K)
+        gb = bk(*bargs)
+
+        def bplain():
+            kept["out"] = bp(*bargs)
+
+        bplain_ms = timer.ms(bplain, 1, warmup=0) if time_it else bplain()
+        wb = kept.pop("out")
+        sync(torch, dev)
+        out["bwd_err"], brel = xl_compare(torch, bnames, gb, wb,
+                                          what + " backward", XLSTM_TOL["bwd"])
+        again = bk(*bargs)
+        sync(torch, dev)
+        check(all(torch.equal(a, b) for a, b in zip(gb, again)),
+              f"{what} backward: two launches differ (not deterministic)")
+        line += (f"; backward within {XLSTM_TOL['bwd']} (max |err| "
+                 f"{out['bwd_err']:.3e}, {brel:.2e} of the scale), "
+                 "bit-identical from run to run")
+        if tag == XLSTM_AUTOGRAD_CASE:
+            # a witness independent of the walk's design: autograd through
+            # the plain forward loops on the same inputs and cotangents
+            leaves = [a.clone().requires_grad_(True) for a in args[:-1]]
+            with torch.enable_grad():
+                wa = torch.autograd.grad(fwd_p(*leaves, upd), leaves,
+                                         bargs[-3:], allow_unused=True)
+            wa = [torch.zeros_like(x) if w is None else w
+                  for x, w in zip(leaves, wa)]
+            sync(torch, dev)
+            aerr, arel = xl_compare(torch, bnames, gb, wa,
+                                    what + " backward against autograd",
+                                    XLSTM_TOL["bwd"])
+            out["autograd_err"] = aerr
+            line += (f"; against torch.autograd.grad through the plain "
+                     f"forward within {XLSTM_TOL['bwd']} (max |err| "
+                     f"{aerr:.3e}, {arel:.2e} of the scale)")
+            del leaves, wa
+        if time_it:
+            out["bwd_ms"] = timer.ms(lambda: bk(*bargs), 3 if T > 1024
+                                     else 10)
+            out["bwd_plain_ms"] = bplain_ms
+            out["bwd_bound_ms"], out["bwd_bound_by"] = roofline_ms(
+                bnb, bfl, "float32")
+    if time_it:
+        line += (f"; forward kernel {out['ms']:.3f} ms, plain "
+                 f"{out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms "
+                 f"({out['bound_by']})")
+        if K:
+            line += (f"; backward kernel {out['bwd_ms']:.3f} ms, plain "
+                     f"{out['bwd_plain_ms']:.3f} ms, bound "
+                     f"{out['bwd_bound_ms']:.4f} ms ({out['bwd_bound_by']})")
+    log(f"{line}  [{card}]")
+    return out
+
+
+def phase_xlstm_kernels(torch, np, timer, card):
+    """Phase 3e: both recurrences' kernels at ``XLSTM_CASES`` (12a's
+    verify shape with staged states and with a committed carry, its
+    prefill shape, a training shape at full width with the backward,
+    the edges: a tie in the stabilizer's max from a carried m, the first
+    update from m = -inf, left pads and a frozen row, a head dim whose
+    columns do not fill the last CTA, T not a multiple of the checkpoint
+    interval, 64 rows (two a sLSTM CTA), and 13b's train_4k shape, timed).
+    Returns the kernels JSON line's six entries (launches set later)."""
+    from repro_torch.kernels import _build
+
+    for name in ("mlstm", "slstm"):
+        for ln in _build.ptxas_lines(name):
+            log(f"  [{name}] {ln}")
+    entries = []
+    t0 = time.perf_counter()
+    for block, line in (("mlstm", 844), ("slstm", 930)):
+        res = {c[0]: xl_case(torch, np, timer, card, block, c, 300 + 7 * i,
+                             time_it=c[0] in ("verify", "train_4k"))
+               for i, c in enumerate(XLSTM_CASES)}
+        common = dict(route="cuda", library_ms=None,
+                      source=f"src/repro_torch/csrc/{block}.cu",
+                      replaces=f"src/repro/models/layers.py:{line}")
+        fwd_err = max(r["err"] for r in res.values())
+        bwd_err = max(r["bwd_err"] for r in res.values()
+                      if r["bwd_err"] is not None)
+        v, tr = res["verify"], res["train_4k"]
+        entries += [
+            dict(name=f"{block}_scan", max_abs_err=fwd_err, ms=v["ms"],
+                 plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                 bound_by=v["bound_by"], **common),
+            dict(name=f"{block}_scan_train", max_abs_err=fwd_err,
+                 ms=tr["ms"], plain_ms=tr["plain_ms"],
+                 bound_ms=tr["bound_ms"], bound_by=tr["bound_by"], **common),
+            dict(name=f"{block}_scan_bwd", max_abs_err=bwd_err,
+                 ms=tr["bwd_ms"], plain_ms=tr["bwd_plain_ms"],
+                 bound_ms=tr["bwd_bound_ms"], bound_by=tr["bwd_bound_by"],
+                 **common)]
+        torch.cuda.empty_cache()
+    log(f"phase 3e: {time.perf_counter() - t0:.1f} s  [{card}]")
+    return entries
+
+
+def check_xlstm_launches(cfg, launches, n_fwd, where):
+    """One mLSTM launch per mLSTM layer and one sLSTM launch per sLSTM
+    layer per forward (prefills and verify rounds alike), none for a model
+    without them."""
+    for block in ("mlstm", "slstm"):
+        n_layers = sum(k == block for k in cfg.layer_kinds)
+        got = launches[f"{block}_scan"] + launches[f"{block}_scan_train"]
+        check(got == n_layers * n_fwd,
+              f"{where}: {got} {block} launches, expected {n_layers} layers"
+              f" x {n_fwd} forwards")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the lock-step path at full width
 # ---------------------------------------------------------------------------
 
@@ -1468,6 +1834,34 @@ def reset_launches():
     rg_ops.LAUNCHES = 0
     rg_ops.LAUNCHES_BY_SHAPE.clear()
     rg_ops.BWD_LAUNCHES = 0
+    reset_xlstm_launches()
+
+
+def reset_xlstm_launches():
+    from repro_torch.kernels.xlstm import ops as xo
+
+    xo.MLSTM_LAUNCHES = xo.MLSTM_BWD_LAUNCHES = 0
+    xo.SLSTM_LAUNCHES = xo.SLSTM_BWD_LAUNCHES = 0
+    xo.MLSTM_LAUNCHES_BY_SHAPE.clear()
+    xo.SLSTM_LAUNCHES_BY_SHAPE.clear()
+
+
+def read_xlstm_launches():
+    """The xLSTM kernels' launches under their JSON entries' names: the
+    forwards split at ``XLSTM_LONG_T`` (serving below, training at and
+    above it)."""
+    from repro_torch.kernels.xlstm import ops as xo
+
+    out = {}
+    for block, n, by, bwd in (
+            ("mlstm", xo.MLSTM_LAUNCHES, xo.MLSTM_LAUNCHES_BY_SHAPE,
+             xo.MLSTM_BWD_LAUNCHES),
+            ("slstm", xo.SLSTM_LAUNCHES, xo.SLSTM_LAUNCHES_BY_SHAPE,
+             xo.SLSTM_BWD_LAUNCHES)):
+        long_n = sum(c for (_, t), c in by.items() if t >= XLSTM_LONG_T)
+        out.update({f"{block}_scan": n - long_n, f"{block}_scan_train": long_n,
+                    f"{block}_scan_bwd": bwd})
+    return out
 
 
 def read_launches():
@@ -1480,7 +1874,7 @@ def read_launches():
             "suffix_match_propose_chunked": sm_ops.LAUNCHES_CHUNKED,
             "rglru_scan": rg_ops.LAUNCHES,
             "rglru_scan_by_shape": Counter(rg_ops.LAUNCHES_BY_SHAPE),
-            "rglru_scan_bwd": rg_ops.BWD_LAUNCHES}
+            "rglru_scan_bwd": rg_ops.BWD_LAUNCHES, **read_xlstm_launches()}
 
 
 def check_rglru_launches(cfg, launches, n_fwd, where):
@@ -1773,10 +2167,11 @@ def lockstep_requests(np, vocab, prompt_len=(128, 256)):
 
 # Depth cuts of earlier paths that make room for phases 11 and 12 inside
 # the script's time (widths stay the published ones): 10b's float32 drain
-# and resume on the first 6 of Qwen3-8B's 36 layers, phase 7's continuous
-# run on the first 14 of RecurrentGemma-9B's 38 (the lock-step runs, R = 1
-# and R = 4, keep all 38), 10c's trainers on 7 of Qwen2-1.5B's 28 (8a-8d
-# keep all 28), and phase 9 (``HYBRID_TRAIN_LAYERS``).
+# and resume on the first 6 of Qwen3-8B's 36 layers, phase 7 on the first
+# 14 of RecurrentGemma-9B's 38 (its lock-step runs at R = 1 and R = 4
+# took ~57 s of a slow host's 1,175 s at all 38), 10c's trainers on 7 of
+# Qwen2-1.5B's 28 (8a-8d keep all 28), and phase 9
+# (``HYBRID_TRAIN_LAYERS``).
 F32_RESUME_LAYERS = 6
 HYBRID_SERVE_LAYERS = 14
 MULTIWORKER_LAYERS = 7
@@ -1905,6 +2300,8 @@ def phase_main_path(torch, np, card, cfg, params, micro_rounds=1,
         check(launches["suffix_match_propose_chunked"] == 0,
               "the chunked kernel launched on the flat lock-step path")
         check_rglru_launches(cfg, launches, s1.n_fwd + s2.n_fwd + idle,
+                             where)
+        check_xlstm_launches(cfg, launches, s1.n_fwd + s2.n_fwd + idle,
                              where)
         del eng
         torch.cuda.empty_cache()
@@ -2105,6 +2502,9 @@ def continuous_layouts(torch, np, cfg, params, dev, card, *, slots,
             check(f_launch["suffix_match_propose_chunked"] == 0,
                   "the chunked kernel launched on the flat run")
         check_rglru_launches(cfg, c_launch,
+                             sum(r["stats"].n_fwd for r in c_runs),
+                             f"{cfg.name} continuous (chunked)")
+        check_xlstm_launches(cfg, c_launch,
                              sum(r["stats"].n_fwd for r in c_runs),
                              f"{cfg.name} continuous (chunked)")
         check(c_spy.trees >= n_problems,
@@ -4447,11 +4847,9 @@ P13_TRAIN_BATCH = 16
 # GB at B 16, 64.62 at 12: the 256,512-entry head's float32 logits chunks
 # and the encoder's saved scores grow with B); B 12 fits (B 13 untried)
 SEAMLESS_TRAIN_BATCH = 12
-# 13b's sequence, cut from train_4k's 4,096: xLSTM's blocks step T in
-# PyTorch, ~1,740 kernel launches a token in a 12-layer train step
-# (forward, recompute and backward; counted by the dry run's op count),
-# so S 4,096 would issue ~7 million launches, minutes of host time.
-XLSTM_TRAIN_S = 128
+# 13b's sequence: train_4k's own 4,096 (each mLSTM and sLSTM layer one
+# forward kernel launch, one more in remat's recompute and one backward).
+XLSTM_TRAIN_S = 4096
 P13_REPS = 7  # timed calls a step (the median is kept), after 2 warm-ups
 P13_LEAD_US = 50_000  # device wait before a whole step's start event
 
@@ -4475,8 +4873,8 @@ def p13_jobs():
 
 def start_p13_counts():
     """Start the dry run's counts of ``p13_jobs`` in a process of their
-    own: they need no card and take ~30 s of one core (13b's peak is
-    counted at four (layers, T) points), which then overlap phases 1-12.
+    own: they need no card and take seconds of one core, which then
+    overlap phases 1-12.
     Returns (the executor, {key: future of the record}); the caller shuts
     the executor down (so does the interpreter's exit, if a phase fails
     first)."""
@@ -4506,13 +4904,12 @@ def counted_line(rec):
     Its bytes are the port's eager traffic: every op's operands and
     results, the plain-PyTorch flash tiles and slice gradients among
     them, not the least a step must move (the phases' floor)."""
-    exact = "" if rec["peak_memory_exact"] else ", extended in T"
     return (f"counted eager traffic: {rec['total_flops'] / 1e12:.3f} TFLOP,"
             f" {rec['total_bytes'] / 1e9:.2f} GB, t_compute "
             f"{rec['t_compute_s'] * 1e3:.3f} ms, t_memory "
             f"{rec['t_memory_s'] * 1e3:.3f} ms ({rec['dominant']}), "
             f"peak_memory {rec['peak_memory'] / 1e9:.2f} GB "
-            f"({rec['bytes_per_device'] / 1e9:.2f} GB state{exact})")
+            f"({rec['bytes_per_device'] / 1e9:.2f} GB state)")
 
 
 def tensor_bytes(tensors):
@@ -4756,7 +5153,7 @@ def phase_verify_economics(torch, np, card, cfg, params, timer,
 
 
 def phase_grpo_card(torch, np, card, arch, B, S, tag, dev="cuda",
-                    cfg=None, counted=None):
+                    cfg=None, counted=None, warm=False, launches=None):
     """13b / 13c: one GRPO + AdamW step (``workloads.make_train_fn``:
     group 8, remat, lr 3e-4) of ``arch`` at its published config, random
     bf16 weights from seed 0, on a seeded batch of B × S tokens (the
@@ -4769,8 +5166,10 @@ def phase_grpo_card(torch, np, card, arch, B, S, tag, dev="cuda",
     parameters. Reports the step's time and peak memory beside its floor
     (``roofline_ms``) and the dry run's count of the same work on the one
     card's mesh (``counted``, a future of ``start_p13_counts``, where
-    given). ``cfg`` (with
-    ``dev="cpu"``) rehearses it at a small width."""
+    given). With ``warm`` a second step, on the updated weights, is timed
+    after the gated one. The gated step's xLSTM kernel launches go into
+    ``launches`` where given. ``cfg`` (with ``dev="cpu"``) rehearses it at
+    a small width."""
     from repro_torch.launch import workloads as W
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
@@ -4833,6 +5232,7 @@ def phase_grpo_card(torch, np, card, arch, B, S, tag, dev="cuda",
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
     adamw.apply_updates = spy
+    reset_xlstm_launches()
     try:
         t0 = time.perf_counter()
         params, opt, loss = step(params, opt, batch)
@@ -4840,6 +5240,19 @@ def phase_grpo_card(torch, np, card, arch, B, S, tag, dev="cuda",
         t_step = time.perf_counter() - t0
     finally:
         adamw.apply_updates = real
+    xl = read_xlstm_launches()
+    if launches is not None:
+        launches.update(xl)
+    if dev == "cuda":  # remat: a forward launch, its recompute, a backward
+        for block in ("mlstm", "slstm"):
+            n = sum(k == block for k in cfg.layer_kinds)
+            fwd = xl[f"{block}_scan"] + xl[f"{block}_scan_train"]
+            check(fwd == 2 * n and xl[f"{block}_scan_bwd"] == n,
+                  f"{where}: {fwd} {block} forward and "
+                  f"{xl[f'{block}_scan_bwd']} backward launches in the step,"
+                  f" expected {2 * n} and {n}")
+        if any(xl.values()):
+            log(f"{where}: the step's xLSTM kernel launches {xl}  [{card}]")
     peak = (torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda"
             else float("nan"))
     loss = float(loss)
@@ -4858,6 +5271,12 @@ def phase_grpo_card(torch, np, card, arch, B, S, tag, dev="cuda",
                 for k, p in params.named_parameters())
     check(moved == n_params, f"{where}: AdamW moved {moved} of {n_params} "
           "parameters")
+    t_warm = None
+    if warm:
+        t0 = time.perf_counter()
+        params, opt, _ = step(params, opt, batch)
+        sync(torch, dev)
+        t_warm = time.perf_counter() - t0
     shape = W.InputShape("train_4k", S, B, "train")
     rec = (counted.result() if counted else
            p13_counted(arch, shape, None if dev == "cuda" else cfg))
@@ -4866,7 +5285,9 @@ def phase_grpo_card(torch, np, card, arch, B, S, tag, dev="cuda",
         f"{f', S_ENC {W.S_ENC}' if cfg.is_encoder_decoder else ''}, remat, "
         f"AdamW): loss {loss:.6f} at ratio 1 (expected {want:.6f}); "
         f"{n_params} gradients finite and non-zero, every parameter moved; "
-        f"one step {t_step:.3f} s (the first at this shape), floor "
+        f"one step {t_step:.3f} s (the first at this shape)"
+        f"{'' if t_warm is None else f', a second {t_warm:.3f} s (warm)'}"
+        f", floor "
         f"{bound / 1e3:.4f} s ({by}: {floor_bytes / 1e9:.2f} GB of weights,"
         f" gradients and moments each moved once, the counted FLOPs), "
         f"floor/time {bound / 1e3 / t_step:.4f}; peak memory {peak:.2f} GB; "
@@ -5410,7 +5831,8 @@ def main() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    sources = ["spec_verify", "suffix_match", "rglru", "rglru_bwd"]
+    sources = ["spec_verify", "suffix_match", "rglru", "rglru_bwd", "mlstm",
+               "slstm"]
     _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc sm_90a, parallel)  "
         f"[{card}]")
@@ -5425,7 +5847,8 @@ def main() -> None:
         *sv_entries,
         phase_suffix_match(torch, np, timer, card),
         phase_suffix_match_chunked(torch, np, timer, card),
-        *phase_rglru(torch, np, timer, card))}
+        *phase_rglru(torch, np, timer, card),
+        *phase_xlstm_kernels(torch, np, timer, card))}
     # every path's launches of each kernel, each path counted from 0 (the
     # scan's also by (B, T))
     launches = Counter()
@@ -5492,10 +5915,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     # phase 7: RecurrentGemma-9B, whose main path runs the RG-LRU kernel
     # and spec-verify at head_dim 256 (lock-step and continuous runs)
-    cfg, params = full_width_model(torch, "recurrentgemma-9b")
+    cfg, params = full_width_model(torch, "recurrentgemma-9b",
+                                   HYBRID_SERVE_LAYERS)
     hybrid, _, hybrid_runs = phase_main_path(torch, np, card, cfg, params)
     hmicro = phase_micro(torch, np, card, cfg, params, hybrid_runs)
-    cfg = cut_depth(torch, params, cfg, HYBRID_SERVE_LAYERS)
     cont, _, _ = phase_continuous(torch, np, card, cfg, params,
                                   layouts=("chunked",))
     for run in (hybrid, cont["chunked"], hmicro):
@@ -5605,8 +6028,11 @@ def main() -> None:
     # at their published configs, the dry run's count beside each
     for tag, (arch, shape) in p13_jobs().items():
         if tag in ("13b", "13c"):
+            # 13b's step's xLSTM launches (gated there) join the line's
             phase_grpo_card(torch, np, card, arch, shape.global_batch,
-                            shape.seq_len, tag, counted=p13_counts[tag])
+                            shape.seq_len, tag, counted=p13_counts[tag],
+                            warm=tag == "13b",
+                            launches=launches if tag == "13b" else None)
     p13_pool.shutdown()
     stamp("phase 13b-c")
     # phase 14: the paper's RL run through the examples' own configs

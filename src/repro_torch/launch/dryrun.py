@@ -14,28 +14,16 @@ device.
   * FLOPs and bytes accessed are the step's totals; the per-device
     figures (``hlo_flops``, ``hlo_bytes``) are total ÷ devices, an ideal
     split: the port does not model XLA's replication;
-  * ``peak_memory`` is ``bytes_per_device + temp_bytes / devices``
-    (``peak_memory_exact`` False where the peak was extended in T, below);
+  * ``peak_memory`` is ``bytes_per_device + temp_bytes / devices``;
   * the roofline terms use the NVIDIA H100's published peaks
     (``launch.mesh``); the port counts no collectives (``analysis``).
 
 With ``extrapolate`` (the default) a step is counted at u and 2u layers
 (u = the block pattern's length) and extended linearly to the full
 depth, as the reference does (an encoder-decoder adds a 2 → 4 encoder
-layer pair); the counts are exact for homogeneous stacks. The xLSTM
-blocks step T in Python, so counting a 32k prefill op by op would take
-tens of minutes: for a config with such blocks, a train or prefill step's
-per-layer cost is counted at three short lengths (``T_POINTS``) and
-extended in T along the polynomial through them (a train step's bytes
-grow as T², see there), beside a zero-layer count at the full length
-(the embedding, head and optimizer). A peak is no sum of per-layer
-parts: it is counted at u and 2u layers at two lengths (``T_PEAK_POINTS``,
-by kind) and extended linearly in the layers, then in T. A
-train step's peak is the larger of its loss and gradients' (extended so)
-and its AdamW update's, which holds no T-sized tensor; the whole step
-counted at the shortest length is no lower than the second. The extension
-is exact only while no other moment of the step takes the peak over at a
-longer T, so such a record's ``peak_memory_exact`` is False.
+layer pair); the counts are exact for homogeneous stacks, the xLSTM
+blocks' included (their recurrences are kernels that report their
+``work``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mixtral-8x7b \\
@@ -45,7 +33,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import functools
 import json
 import logging
@@ -63,42 +50,8 @@ from repro_torch.launch.analysis import Roofline, count_cost, model_flops_for
 from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
-from repro_torch.rl import grpo
 
 log = logging.getLogger("repro_torch.launch.dryrun")
-
-# the blocks whose forward steps T in Python, and the lengths their
-# per-layer cost is counted at: the backward of a step's slice of a
-# (T, ...) tensor writes a zero-filled (T, ...) gradient, so a train
-# step's bytes grow as T², and three points fit the quadratic exactly
-LOOPED = ("mlstm", "slstm")
-T_POINTS = (8, 16, 24)
-# the lengths the peak is counted at, by kind, held to ``--direct``
-# counts: xLSTM-125M's prefill peak is set by the loop's state
-# temporaries at short T, and from T 256, 512 the extension gives
-# prefill_32k's direct count exactly; its train step's gradient phase
-# from 32, 40 comes within 1% of train_4k's (from 256, 512 it overshoots)
-T_PEAK_POINTS = {"train": (32, 40), "prefill": (256, 512)}
-
-
-def extended_in_t(cfg, shape: W.InputShape) -> bool:
-    """Whether ``counted_cost`` extends this step's count in T."""
-    return (any(k in LOOPED for k in cfg.layer_kinds)
-            and shape.kind in T_PEAK_POINTS
-            and shape.seq_len > T_PEAK_POINTS[shape.kind][-1])
-
-
-def _lagrange(ts, values, t):
-    """The polynomial through (ts[i], values[i]) evaluated at t."""
-    out = 0.0
-    for i, (ti, vi) in enumerate(zip(ts, values)):
-        w = 1.0
-        for j, tj in enumerate(ts):
-            if j != i:
-                w *= (t - tj) / (ti - tj)
-        out = out + w * vi
-    return out
-
 
 def bytes_per_device(struct_tree, axes_tree, mesh, rules=None) -> float:
     """Bytes one device holds of a (meta tensors, logical axes) tree:
@@ -155,22 +108,6 @@ def workload(cfg, shape: W.InputShape, use_cross_cache: bool = False):
 
 
 @functools.lru_cache(maxsize=None)
-def grads_peak(cfg, shape: W.InputShape) -> float:
-    """Peak temp bytes of a train step's GRPO loss and gradients alone
-    (``grpo.make_train_step``'s first half, without the AdamW update)."""
-    params = M.init_params(cfg, device="meta")
-    M.set_trainable(params)
-    inputs, _ = W.input_specs(cfg, shape)
-
-    def loss_and_grads():
-        loss, _ = grpo.grpo_loss(params, cfg, W.GRPO, inputs)
-        return grpo.param_grads(params, loss)
-
-    _, cost = count_cost(loss_and_grads)
-    return cost.temp_bytes
-
-
-@functools.lru_cache(maxsize=None)
 def count_direct(cfg, shape: W.InputShape, use_cross_cache: bool = False
                  ) -> Tuple[np.ndarray, dict]:
     """([flops, bytes, temp bytes], kernel launches) of one step counted
@@ -187,57 +124,27 @@ def counted_cost(cfg, shape: W.InputShape, *, extrapolate: bool = True,
                  use_cross_cache: bool = False
                  ) -> Tuple[np.ndarray, dict]:
     """([flops, bytes, temp bytes], kernel launches) of one step at the
-    full config: counted directly, or (``extrapolate``) from short counts
-    extended linearly in the layers and, for the xLSTM blocks' train and
-    prefill steps, in T (see the module docstring). The kernels' launches
-    are extended in the layers as the rest (exact for a stack of whole
-    block-pattern units; no launch depends on T)."""
+    full config: counted directly, or (``extrapolate``) at u and 2u
+    layers and extended linearly to the full depth (see the module
+    docstring); the kernels' launches as the rest (exact for a stack of
+    whole block-pattern units)."""
     if not extrapolate:
         return count_direct(cfg, shape, use_cross_cache)
     u = max(1, len(cfg.block_pattern))
     L = cfg.num_layers
     enc = {"num_encoder_layers": 2} if cfg.is_encoder_decoder else {}
-
-    def at(layers, s=shape):
-        return count_direct(cfg.replace(num_layers=layers, **enc), s,
-                            use_cross_cache)
-
-    def in_layers(c_a, c_b, a, b):
-        (m_a, l_a), (m_b, l_b) = c_a, c_b
-        return (_lagrange((a, b), (m_a, m_b), L),
-                {k: round(_lagrange((a, b), (l_a.get(k, 0), l_b.get(k, 0)),
-                                    L)) for k in {**l_a, **l_b}})
-
-    if extended_in_t(cfg, shape):
-        # per layer at each short T, beside the zero-layer count at full T
-        shorts = [dataclasses.replace(shape, seq_len=t) for t in T_POINTS]
-        per = [(at(u, s)[0] - at(0, s)[0]) / u for s in shorts]
-        base, _ = at(0)
-        total = base + L * _lagrange(T_POINTS, per, shape.seq_len)
-        # the peak at u and 2u layers and two lengths, extended in the
-        # layers, then in T; a train step's no lower than the whole step's
-        # at the shortest point, where its AdamW update's peak shows
-        if shape.kind == "train":
-            def peak(layers, s):
-                return grads_peak(cfg.replace(num_layers=layers, **enc), s)
-            update = at(L, shorts[0])[0][2]
-        else:
-            def peak(layers, s):
-                return at(layers, s)[0][2]
-            update = 0.0
-        points = T_PEAK_POINTS[shape.kind]
-        longs = [dataclasses.replace(shape, seq_len=t) for t in points]
-        peaks = [_lagrange((u, 2 * u), (peak(u, s), peak(2 * u, s)), L)
-                 for s in longs]
-        total[2] = max(_lagrange(points, peaks, shape.seq_len), update)
-        _, launches = in_layers(at(0, shorts[0]), at(u, shorts[0]), 0, u)
-        return np.maximum(total, 0.0), launches
-    m1 = at(u)
-    total, launches = in_layers(m1, at(2 * u), u, 2 * u)
+    c1, l1 = count_direct(cfg.replace(num_layers=u, **enc), shape,
+                          use_cross_cache)
+    c2, l2 = count_direct(cfg.replace(num_layers=2 * u, **enc), shape,
+                          use_cross_cache)
+    w = (L - u) / u  # the units beyond the first, in steps of u layers
+    total = c1 + w * (c2 - c1)
+    launches = {k: round(l1.get(k, 0) + w * (l2.get(k, 0) - l1.get(k, 0)))
+                for k in {**l1, **l2}}
     if cfg.is_encoder_decoder:
         m3, _ = count_direct(cfg.replace(num_layers=u, num_encoder_layers=4),
                              shape, use_cross_cache)
-        total = total + (cfg.num_encoder_layers - 2) / 2.0 * (m3 - m1[0])
+        total = total + (cfg.num_encoder_layers - 2) / 2.0 * (m3 - c1)
     return np.maximum(total, 0.0), launches
 
 
@@ -285,7 +192,6 @@ def dry_run_one(
     rec.update(rl.as_dict())
     rec["status"] = "ok"
     rec["kernel_launches"] = launches
-    rec["peak_memory_exact"] = not (extrapolate and extended_in_t(cfg, shape))
     rec["count_s"] = time.perf_counter() - t0
     if verbose:
         log.info(
@@ -316,8 +222,7 @@ def main() -> None:
     ap.add_argument("--direct", action="store_true",
                     help="count op by op at full depth and length, no "
                          "extrapolation (what the extrapolations are "
-                         "held to; xLSTM's long steps take tens of "
-                         "minutes)")
+                         "held to)")
     args = ap.parse_args()
 
     archs = ASSIGNED if (args.all or not args.arch) else [args.arch]

@@ -47,6 +47,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.spec_verify.ops import spec_verify_attention
+from repro_torch.kernels.xlstm import ops as xlstm_ops
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -725,45 +726,6 @@ def init_slstm(cfg: ModelConfig, gen: torch.Generator,
     return nn.ParameterDict({k: _param(v) for k, v in p.items()})
 
 
-def _finite(x: torch.Tensor) -> torch.Tensor:
-    """``isfinite`` in two ops, not four: x - x is 0 exactly when x is
-    finite (inf - inf and NaN - NaN are NaN)."""
-    return (x - x) == 0
-
-
-def _stabilizer_chain(logf: torch.Tensor, i_pre: torch.Tensor,
-                      m0: torch.Tensor, upd, com):
-    """The xLSTM blocks' exponential-gate stabilizer m, stepped over T as
-    the reference steps it: m_new = max(log σ(f_t) + m, i_t), replaced by
-    i_t where not finite, and m advancing only on updated steps. m does
-    not depend on the cell, so its chain runs alone, on time-major (T, B,
-    ...) gate pre-activations, and the gates come out for every step at
-    once: fg_t = exp(log σ(f_t) + m_{t-1} - m_new_t), 0 where m_{t-1} is
-    not finite (-inf before the first update: the reference's guard), and
-    ig_t = exp(i_t - m_new_t).
-
-    Returns (m_new (T, ...), fg, ig, m_dyn (T, ...) the dynamic m after
-    each step, m_com the committed m, or None when ``com`` is ``upd``).
-    ``upd``/``com`` are ``_gate_masks``' (T, B) masks shaped to broadcast
-    over m's layout, or ``upd`` None (every step updates)."""
-    m, m_com = m0, (m0 if com is not upd else None)
-    m_new, m_prev, m_dyn = [], [], []
-    for t in range(logf.shape[0]):
-        mn = torch.maximum(logf[t] + m, i_pre[t])
-        mn = torch.where(_finite(mn), mn, i_pre[t])
-        m_prev.append(m)
-        m = mn if upd is None else torch.where(upd[t], mn, m)
-        if m_com is not None:
-            m_com = torch.where(com[t], m, m_com)
-        m_new.append(mn)
-        m_dyn.append(m)
-    m_new = torch.stack(m_new)
-    m_prev = torch.stack(m_prev)
-    fg = torch.where(_finite(m_prev), torch.exp(logf + m_prev - m_new), 0.0)
-    ig = torch.exp(i_pre - m_new)
-    return m_new, fg, ig, torch.stack(m_dyn), m_com
-
-
 def apply_mlstm(
     p: Mapping,
     x: torch.Tensor,
@@ -788,13 +750,11 @@ def apply_mlstm(
     update (a pad, a frozen row) is read from the would-be new state, as
     in the reference.
 
-    The cell C and the normaliser n step together, as one (B, H, hd,
-    hd+1) tensor: n_t = fg n + ig k_t is the last column of
-    fg [C|n] + ig (k_t ⊗ [v_t, 1]) (k_t · 1 is exact), and one product
-    q_t [C|n] gives q_t C and q_t · n. The stabilizer steps first
-    (``_stabilizer_chain``), the denominators max(|q·n|, exp(-m)) after
-    the loop: what is left in the loop is five ops a step (one more to
-    hold frozen steps, one more for the committed carry)."""
+    The recurrence over T, its stabilizer and the denominators
+    max(|q·n|, exp(-m)) run in ``kernels.xlstm.ops.mlstm_scan``: one
+    kernel launch on the card (a backward kernel under autograd), the
+    plain loop on the CPU. The cell C and the normaliser n step together
+    there, as one (B, H, hd, hd+1) tensor [C|n]."""
     B, T, _ = x.shape
     H = max(cfg.num_heads, 1)
     W = cfg.rnn_width
@@ -818,39 +778,12 @@ def apply_mlstm(
     upd = com = None
     if update_mask is not None or commit_upto is not None:
         upd, com = _gate_masks(B, T, update_mask, commit_upto, x.device)
-        same = com is upd
-        upd = upd[..., None]  # (T, B, 1): over m's (B, H)
-        com = upd if same else com[..., None]
-    m_new, fg, ig, m_dyn, m_com = _stabilizer_chain(
-        F.logsigmoid(f_pre), i_pre, m0, upd, com)
-    q32 = q.float()[..., None, :]  # (T, B, H, 1, hd)
-    v1 = torch.cat([v, torch.ones_like(v[..., :1])], -1)  # [v_t, 1]
-    fg, ig = fg[..., None, None], ig[..., None, None]
-    Cn = torch.cat([C0, n0[..., None]], -1)  # (B, H, hd, hd+1)
-    Cn_com = Cn if commit_upto is not None else None
-    reads, staged = [], [Cn]
-    for t in range(T):
-        new = fg[t] * Cn + ig[t] * (k[t, :, :, :, None] * v1[t, :, :, None])
-        reads.append(q32[t] @ new)  # (B, H, 1, hd+1)
-        Cn = new if upd is None else torch.where(upd[t, ..., None, None],
-                                                 new, Cn)
-        if Cn_com is not None:
-            Cn_com = torch.where(com[t, ..., None, None], Cn, Cn_com)
-        if collect:
-            staged.append(Cn)
-    reads = torch.stack(reads)[:, :, :, 0]  # (T, B, H, hd+1)
-    denom = torch.maximum(reads[..., hd].abs(), torch.exp(-m_new))
-    h = (reads[..., :hd] / denom[..., None]).reshape(T, B, W)
-    h = h.transpose(0, 1).to(x.dtype)
+        com = com if commit_upto is not None else None
+    h, Cn, m = xlstm_ops.mlstm_scan(q, k, v, i_pre, f_pre, C0, n0, m0, upd,
+                                    com, collect)
+    h = h.reshape(T, B, W).transpose(0, 1).to(x.dtype)
     gate = F.silu(torch.einsum("btd,dw->btw", x, p["wo_gate"]))
     y = torch.einsum("btw,wd->btd", h * gate, p["wo"])
-    if collect:
-        Cn = torch.stack(staged, 1)
-        m = torch.cat([m0[None], m_dyn]).transpose(0, 1)
-    elif Cn_com is not None:
-        Cn, m = Cn_com, m_com
-    else:
-        m = m_dyn[-1]
     return y, {"C": Cn[..., :hd], "n": Cn[..., hd], "m": m}
 
 
@@ -872,10 +805,10 @@ def apply_slstm(
     dtype, then upcast; i and f from an upcast x; the recurrence
     ``h R`` in float32 with a float32 R; n clamped at 1e-6 in the
     division. The output is the gated h (a step that does not update
-    repeats the last h). The stabilizer steps first
-    (``_stabilizer_chain``); c, n and h step together, as one (3, H, B,
-    hd) tensor, head-major so that h R is one batched product with no
-    copy."""
+    repeats the last h). The recurrence over T and its stabilizer run in
+    ``kernels.xlstm.ops.slstm_scan`` (one kernel launch on the card, a
+    backward kernel under autograd, the plain loop on the CPU), on c, n
+    and h as one head-major (3, H, B, hd) tensor."""
     B, T, _ = x.shape
     H = max(cfg.num_heads, 1)
     W = cfg.rnn_width
@@ -904,42 +837,15 @@ def apply_slstm(
     upd = com = None
     if update_mask is not None or commit_upto is not None:
         upd, com = _gate_masks(B, T, update_mask, commit_upto, x.device)
-        same = com is upd
-        upd = upd[:, None, :, None]  # (T, 1, B, 1): over (H, B, hd)
-        com = upd if same else com[:, None, :, None]
-    _, fg, ig, m_dyn, m_com = _stabilizer_chain(
-        F.logsigmoid(f_in), i_in, m0, upd, com)
-    R = p["r"]  # (H, hd, hd)
-    cnh_com = cnh if commit_upto is not None else None
-    hs, staged = [], [cnh]
-    for t in range(T):
-        c, n, h = cnh.unbind(0)
-        z = torch.tanh(z_in[t] + torch.bmm(h, R))
-        c_new = fg[t] * c + ig[t] * z
-        n_new = fg[t] * n + ig[t]
-        h_new = o_sig[t] * c_new / torch.clamp(n_new, min=1e-6)
-        new = torch.stack([c_new, n_new, h_new])
-        cnh = new if upd is None else torch.where(upd[t], new, cnh)
-        if cnh_com is not None:
-            cnh_com = torch.where(com[t], cnh, cnh_com)
-        hs.append(cnh[2])
-        if collect:
-            staged.append(cnh)
+        com = com if commit_upto is not None else None
+    hs, cnh, m = xlstm_ops.slstm_scan(z_in, i_in, f_in, o_sig, p["r"], cnh,
+                                      m0, upd, com, collect)
 
     def back(a):  # (..., H, B, hd) -> (B, ..., W)
         a = a.movedim(-2, 0)
         return a.reshape(*a.shape[:-2], W)
 
-    h = back(torch.stack(hs)).to(x.dtype)  # (B, T, W)
+    h = back(hs).to(x.dtype)  # (B, T, W)
     y = torch.einsum("btw,wd->btd", h, p["wo"])
-    if collect:
-        c, n, hh = back(torch.stack(staged, 1)).unbind(1)
-        m = back(torch.cat([m0[None], m_dyn]))
-    else:
-        if cnh_com is not None:
-            cnh, m = cnh_com, m_com
-        else:
-            m = m_dyn[-1]
-        c, n, hh = back(cnh).unbind(1)
-        m = back(m)
-    return y, {"c": c, "n": n, "h": hh, "m": m}
+    c, n, hh = back(cnh).unbind(1)
+    return y, {"c": c, "n": n, "h": hh, "m": back(m)}
