@@ -28,38 +28,66 @@
 // G + q dr (2), dq's and dk's terms and their row sums (new dr, dkv v: 4),
 // dfg and dig (G_new P, G_new kv, each summed: 4), dkv = ig G_new and
 // dv's multiply-add (3), the carry fg G_new added in (2). This kernel
-// forms new a second time in its walk back (4 more): the recompute keeps
-// only the state before each step in scratch.
+// re-forms the states between two kept ones in its walk (4 a step each,
+// 1.5 steps on average) and forms new again (4 more): see the design.
 //
-// Design. Column j of [C|n] evolves from fg, ig, k_t and v_t[j] alone, so
-// a CTA owns 32 columns (a lane each) of one (b, h) and 8 warps split the
-// rows (at most 24 a thread, hd <= 192): the cell stays in registers for
-// all T steps and the state is read and written once. Every CTA also
-// carries n (a row a thread), so that it forms q.n and the denominator
-// itself; the stabilizer chain is a few scalar operations a step that
-// every thread repeats. A step's column sums (the read) meet in shared
-// memory, double-buffered by step parity: one __syncthreads a step. The
-// state out is written once, after the step out_at[b] (the last step for
-// the dynamic state, the last committed step for the committed carry,
-// -1 for the state before the block), or after every step with collect;
-// under autograd a checkpoint every K steps and each step's q.n.
+// Design of the forward. Column j of [C|n] evolves from fg, ig, k_t and
+// v_t[j] alone, so a CTA owns 32 columns (a lane each) of one (b, h) and
+// 8 warps split the rows (at most 24 a thread, hd <= 192): the cell stays
+// in registers for all T steps and the state is read and written once.
+// Every CTA also carries n (a row a thread), so that it forms q.n and the
+// denominator itself; the stabilizer chain is a few scalar operations a
+// step that every thread repeats. A step's column sums (the read) meet
+// in shared memory, double-buffered by step parity: one __syncthreads a
+// step. The state out is written once, after the step out_at[b] (the
+// last step for the dynamic state, the last committed step for the
+// committed carry, -1 for the state before the block), or after every
+// step with collect; under autograd a checkpoint every K steps and each
+// step's q.n.
 //
-// The backward walks T in reverse a chunk of K steps at a time: it
-// recomputes the chunk from its checkpoint, keeping the state before
-// each step in global scratch (each thread reads back what it wrote), and
-// walks the chunk back with the cell's adjoint G in registers, in the
-// forward's layout. Nothing is divided back out of the recurrence (fg
-// can be ~0). G does not depend on the stabilizer's adjoint, so the main
-// kernel writes per-CTA partial sums (dq and dk over its columns, dfg
-// and dig over its elements, the denominator's share of dm_new from the
-// first CTA) and a second, deterministic pass sums them in a fixed order
-// and walks the scalar chain back (di, df, dm0). The maximum hands its
-// adjoint to the larger side and half to each on a tie, as torch's and
-// JAX's do.
+// Design of the backward (mlstm_bwd_kernel). The forward's layout: a CTA
+// a (b, h) and 32 columns, 24 rows a thread; three CTAs a SM keep 13b's
+// 384 CTAs in one wave, which leaves a thread 80 registers and a CTA
+// 75 KB of shared memory. The cell's adjoint G therefore lives in shared
+// memory, each thread's rows as float4s only it touches (no barrier). T
+// is walked in reverse a chunk of K steps at a time. A chunk's gates
+// come first, all at once: log sigmoid(f) a lane a step, the
+// stabilizer's chain of m by one thread (a few scalar operations a step),
+// fg and ig a lane a step; the lead CTA also sums dh.h a warp a step.
+// Level 1 then steps the chunk from its checkpoint and keeps only the
+// state before every kGroup-th step in scratch (a thread's 24 rows and
+// its row of n, written and read back by it alone): a quarter of the
+// state stream that keeping every state would need. The walk takes the
+// chunk's groups from the last: while group g is walked, group g-1's
+// q, k (rows), v, dh (the CTA's columns) and q.n are copied into the
+// other half of a two-buffer stage by cp.async (16-byte copies where the
+// rows allow), and when g's state has been read for the last time, g-1's
+// state follows into its one buffer. One __syncthreads a group: after
+// it, the previous group's per-warp sums are folded. A step re-forms its
+// state from the group's, 4 rows at a time, then forms new, G's update
+// and the terms;
+// dq's and dk's row sums over the CTA's 32 columns come from a warp
+// transpose of shuffles (8 values of 4 rows, halved at three levels:
+// each lane ends with one row's sum, every sum in one fixed tree), dv's
+// column sums from the warps' sums folded in order (the CTA holds all of
+// its columns' rows), dfg and dig from warp sums folded in order.
+// Nothing is divided back out of the recurrence (fg can be ~0). G does
+// not depend on the stabilizer's adjoint, so the main kernel writes
+// per-CTA partial rows of dq and dk (a last block for the n column's
+// terms), (dfg, dig, the denominator's share of dm_new from the lead CTA,
+// the m before the step) per CTA, and a second pass
+// (mlstm_bwd_reduce_kernel) sums the blocks in order and walks the
+// stabilizer's chain back: the gates of a chunk's steps at once from the
+// kept m, then the scalar adjoint chain by one thread (di, df, dm0). The
+// maximum hands its adjoint to the larger side and half to each on a tie,
+// as torch's and JAX's do. Every sum has a fixed order: the result is
+// bit-identical from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -68,8 +96,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kCols = 32;          // columns of [C|n] a CTA owns
 constexpr int kRpt = 24;           // most rows a thread owns
 constexpr int kKmax = 64;          // most steps between checkpoints
-constexpr int kSlots = kRpt + 1;   // scratch floats a thread a step
-constexpr int kPad = 33;           // the row-sum transposes' row stride
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -227,25 +253,105 @@ __global__ void __launch_bounds__(kThreads, 3) mlstm_fwd_kernel(
   }
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The backward's plan (mlstm_bwd_plan in kernels/xlstm/ops.py):
+constexpr int kGroup = 4;  // the walk keeps the state before every kGroup-th step
+constexpr int kSub = kGroup;  // steps staged at a time: one group
+constexpr int kMaxHd = kWarps * kRpt;
+constexpr int kR4 = kRpt / 4;  // float4s of a thread's rows
+// scratch floats a CTA keeps a group: the rows ([kR4][kThreads] float4)
+// and the n column ([kThreads])
+constexpr int kGroupFloats = kR4 * 4 * kThreads + kThreads;
+// a staged sub-chunk (floats): q and k rows in the input type (room for
+// float), v and dh of the CTA's columns, q.n
+constexpr int kStgQ = 0;
+constexpr int kStgK = kStgQ + kSub * kMaxHd;
+constexpr int kStgV = kStgK + kSub * kMaxHd;
+constexpr int kStgDh = kStgV + kSub * kCols;
+constexpr int kStgSh = kStgDh + kSub * kCols;
+constexpr int kStgFloats = (kStgSh + kSub + 3) / 4 * 4;  // 16-byte aligned
+// dynamic shared memory of the backward, in floats: the group's state,
+// the cell's adjoint G (a thread's rows, private to it), two of each of
+// the staged sub-chunk and the per-warp sums (one being filled while the
+// other is read), and the chunk's per-step scalars
+constexpr int kSmPa = 0;                                  // [kR4][kThreads] float4
+constexpr int kSmPn = kSmPa + kR4 * 4 * kThreads;         // [kThreads]
+constexpr int kSmG = kSmPn + kThreads;                    // [kRpt][kThreads]
+constexpr int kSmStg = kSmG + kRpt * kThreads;            // [2][kStgFloats]
+constexpr int kSmDv = kSmStg + 2 * kStgFloats;            // [2][kSub][kWarps][kCols]
+constexpr int kSmRed = kSmDv + 2 * kSub * kWarps * kCols; // [2][kSub][kWarps][2]
+constexpr int kSmDmd = kSmRed + 2 * kSub * kWarps * 2;    // [2][kSub]
+constexpr int kSmChunk = kSmDmd + 2 * kSub;               // [7][kKmax]
+constexpr int kSmFloats = kSmChunk + 7 * kKmax;
+
+// 8 values summed over the warp's 32 lanes, halving the values kept at
+// each of three shuffle levels, then two plain levels: lane l ends with
+// the sum of value l >> 2, every value's sum in one fixed tree.
+__device__ __forceinline__ float transpose_sum8(float (&x)[8], int lane) {
+#pragma unroll
+  for (int lvl = 0; lvl < 3; ++lvl) {
+    const int o = 16 >> lvl, half = 4 >> lvl;
+    const bool hi = lane & o;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float keep = hi ? x[half + i] : x[i];
+      const float send = hi ? x[i] : x[half + i];
+      x[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  float y = x[0] + __shfl_xor_sync(0xffffffffu, x[0], 2);
+  return y + __shfl_xor_sync(0xffffffffu, y, 1);
+}
+
 template <typename TIn>
-__global__ void __launch_bounds__(kThreads, 3) mlstm_bwd_kernel(
-    const TIn* __restrict__ q, const TIn* __restrict__ k,
-    const TIn* __restrict__ v, const float* __restrict__ ipre,
-    const float* __restrict__ fpre, const bool* __restrict__ upd,
-    const float* __restrict__ hs, const float* __restrict__ s_hist,
-    const float* __restrict__ ckpt, const float* __restrict__ mck,
-    const float* __restrict__ dh, const float* __restrict__ dcn,
-    float* __restrict__ scratch, float* __restrict__ dq_part,
-    float* __restrict__ dk_part, float* __restrict__ dv,
-    float* __restrict__ sc_part, float* __restrict__ dcn0, int T, int B,
-    int H, int hd, int K) {
-  extern __shared__ float rowbuf[];  // [2][hd][kPad]: dq's, dk's terms
-  __shared__ float s_mn[kKmax], s_fg[kKmax], s_ig[kKmax];
-  __shared__ unsigned char s_u[kKmax];
-  __shared__ float s_dot[kKmax][kWarps];
-  __shared__ float dvp[kWarps][kCols];
-  __shared__ float red[kWarps][2];
-  const int njb = gridDim.x;
+struct BwdArgs {
+  const TIn *q, *k, *v;
+  const float *ipre, *fpre;
+  const bool* upd;
+  const float *hs, *s_hist, *ckpt, *mck, *dh, *dcn;
+  float *scratch, *dq_part, *dk_part, *dv, *sc_part, *dcn0;
+  int T, B, H, hd, K, words;
+};
+
+template <typename TIn>
+__global__ void __launch_bounds__(kThreads, 3)
+    mlstm_bwd_kernel(const BwdArgs<TIn> a) {
+  extern __shared__ __align__(16) float sm[];
+  float4* pa = reinterpret_cast<float4*>(sm + kSmPa);
+  float* pna = sm + kSmPn;
+  float* Gs = sm + kSmG + threadIdx.x;  // row r at Gs[r * kThreads]
+  float* dvp = sm + kSmDv;
+  float* red = sm + kSmRed;
+  float* s_dmd = sm + kSmDmd;
+  float* s_fg = sm + kSmChunk;  // the chunk's gates
+  float* s_ig = s_fg + kKmax;
+  float* s_mn = s_ig + kKmax;
+  float* s_u = s_mn + kKmax;
+  float* s_dot = s_u + kKmax;   // sum_j dh_j h_j (the lead CTA)
+  float* s_f = s_dot + kKmax;   // f, i
+  float* s_i = s_f + kKmax;
+  const int T = a.T, B = a.B, H = a.H, hd = a.hd, K = a.K;
+  const int njb = gridDim.x, nq = njb + 1;
   const int jb = blockIdx.x, bh = blockIdx.y, b = bh / H, hh = bh - b * H;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int j = jb * kCols + lane;
@@ -256,249 +362,405 @@ __global__ void __launch_bounds__(kThreads, 3) mlstm_bwd_kernel(
   const size_t BH = (size_t)B * H;
   const bool lead = jb == 0;
   const bool nv = tid < hd;
-  const size_t cta = (size_t)blockIdx.y * njb + jb;
-  float* scr = scratch + cta * (size_t)K * kSlots * kThreads;
-  float* dqb = rowbuf;
-  float* dkb = rowbuf + (size_t)hd * kPad;
+  const int ng = (K + kGroup - 1) / kGroup;
+  float* scr = a.scratch + ((size_t)bh * njb + jb) * ng * kGroupFloats;
+  auto srow = [&](int t) { return ((size_t)t * B + b) * H + hh; };
 
-  float G[kRpt];
-  const float* gsrc = dcn + bh * st;
+  // ns runs of nbytes (a multiple of the element size) at src, src +
+  // sstride, ... into dst, dst + dstride, ... (bytes): 16-byte copies
+  // where both allow, else 4-byte copies (a.words: every run a multiple
+  // of 4 bytes), else plain 2-byte loads and stores
+  auto stage_runs = [&](void* dst, int dstride, const void* src, size_t sstride,
+                        int nbytes, int ns) {
+    char* d = static_cast<char*>(dst);
+    const char* x = static_cast<const char*>(src);
+    if (a.words && nbytes % 16 == 0 && dstride % 16 == 0 && sstride % 16 == 0 &&
+        ((uintptr_t)x & 15) == 0) {
+      const int W = nbytes / 16;
+      for (int e = tid; e < ns * W; e += kThreads) {
+        const int r = e / W, wi = e - r * W;
+        cp_async16(d + r * dstride + wi * 16, x + r * sstride + wi * 16);
+      }
+    } else if (a.words) {
+      const int W = nbytes / 4;
+      for (int e = tid; e < ns * W; e += kThreads) {
+        const int r = e / W, wi = e - r * W;
+        cp_async4(d + r * dstride + wi * 4, x + r * sstride + wi * 4);
+      }
+    } else {
+      const int W = nbytes / 2;
+      for (int e = tid; e < ns * W; e += kThreads) {
+        const int r = e / W, wi = e - r * W;
+        reinterpret_cast<uint16_t*>(d + r * dstride)[wi] =
+            reinterpret_cast<const uint16_t*>(x + r * sstride)[wi];
+      }
+    }
+  };
+  const size_t rstride = (size_t)H * hd;  // elements between one step's rows
+  // rows of x (TIn, hd a row) for steps t1.., ns of them, into dst (a
+  // kMaxHd stride)
+  auto stage_rows = [&](float* dst, const TIn* x, int t1, int ns) {
+    stage_runs(dst, kMaxHd * (int)sizeof(TIn), x + srow(t1) * hd,
+               (size_t)B * rstride * sizeof(TIn), hd * (int)sizeof(TIn), ns);
+  };
+  // this CTA's columns of x (TIn or float) for steps t1..: n columns
+  // rounded up to the copy's 4 bytes (the rest masked where read)
+  auto stage_cols = [&](void* dst, const auto* x, int t1, int ns) {
+    const int es = (int)sizeof(*x);
+    const int n = min(kCols, hd - jb * kCols);
+    stage_runs(dst, kCols * es, x + srow(t1) * hd + jb * kCols,
+               (size_t)B * rstride * es, n * es, ns);
+  };
+  auto stg = [&](int buf) { return sm + kSmStg + buf * kStgFloats; };
+
+  {
+    const float* gsrc = a.dcn + bh * st;
 #pragma unroll
-  for (int r = 0; r < kRpt; ++r) {
-    const int kk = k0 + r;
-    G[r] = (r < rpt && kk < hd && jv) ? gsrc[(size_t)kk * hd1 + j] : 0.f;
+    for (int r = 0; r < kRpt; ++r) {
+      const int kk = k0 + r;
+      Gs[r * kThreads] = (r < rpt && kk < hd && jv) ? gsrc[(size_t)kk * hd1 + j] : 0.f;
+    }
   }
-  float Gn = (lead && nv) ? gsrc[(size_t)tid * hd1 + hd] : 0.f;
+  float Gn = (lead && nv) ? a.dcn[bh * st + (size_t)tid * hd1 + hd] : 0.f;
 
   const int nc = (T + K - 1) / K;
   for (int c = nc - 1; c >= 0; --c) {
     const int t0 = c * K, len = min(K, T - t0);
-    {  // recompute the chunk, keeping the state before each step
+    const int nsub = (len + kSub - 1) / kSub;
+    __syncthreads();  // the previous chunk's walk is done with shared memory
+    for (int x = tid; x < len; x += kThreads) {
+      const size_t row = srow(t0 + x);
+      s_f[x] = a.fpre[row];
+      s_i[x] = a.ipre[row];
+      s_u[x] = (a.upd == nullptr || a.upd[(size_t)(t0 + x) * B + b]) ? 1.f : 0.f;
+    }
+    if (lead) {  // the steps' sum_j dh_j h_j, a warp every kWarps-th step
+      float acc[kKmax / kWarps];
+#pragma unroll
+      for (int m = 0; m < kKmax / kWarps; ++m) {
+        const int x = w + kWarps * m;
+        acc[m] = 0.f;
+        if (x < len) {
+          const size_t row = srow(t0 + x);
+          for (int jj = lane; jj < hd; jj += kCols)
+            acc[m] += a.dh[row * hd + jj] * a.hs[row * hd + jj];
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kKmax / kWarps; ++m) {
+        const float x = warp_sum(acc[m]);
+        if (lane == 0 && w + kWarps * m < len) s_dot[w + kWarps * m] = x;
+      }
+    }
+    __syncthreads();
+    // the chunk's gates, as gate() forms them: log sigmoid(f) a lane a
+    // step, the stabilizer's chain by one thread, fg and ig a lane a step
+    if (w == 0)
+      for (int x = lane; x < len; x += kCols) s_fg[x] = log_sigmoid(s_f[x]);
+    __syncwarp();
+    if (tid == 0) {
+      float mp = a.mck[(size_t)c * BH + bh];
+      for (int x = 0; x < len; ++x) {
+        const float ga = s_fg[x] + mp, gi = s_i[x];
+        const float mx = fmaxf(ga, gi);
+        const float mn = isfinite(mx) ? mx : gi;
+        s_fg[x] = ga;
+        s_mn[x] = mn;
+        s_ig[x] = mp;  // the m before the step, for now
+        if (s_u[x] != 0.f) mp = mn;
+      }
+    }
+    __syncthreads();
+    for (int x = tid; x < len; x += kThreads) {
+      const float mp = s_ig[x], mn = s_mn[x];
+      s_fg[x] = isfinite(mp) ? expf(s_fg[x] - mn) : 0.f;
+      s_ig[x] = expf(s_i[x] - mn);
+      if (lead) a.sc_part[srow(t0 + x) * njb * 4 + 3] = mp;
+    }
+    // level 1: the chunk from its checkpoint, the state before every
+    // kGroup-th step to scratch
+    {
       float P[kRpt];
-      const float* ck = ckpt + ((size_t)c * BH + bh) * st;
+      const float* ck = a.ckpt + ((size_t)c * BH + bh) * st;
 #pragma unroll
       for (int r = 0; r < kRpt; ++r) {
         const int kk = k0 + r;
         P[r] = (r < rpt && kk < hd && jv) ? ck[(size_t)kk * hd1 + j] : 0.f;
       }
       float pn = (lead && nv) ? ck[(size_t)tid * hd1 + hd] : 0.f;
-      float mp = mck[(size_t)c * BH + bh];
-      for (int s = 0; s < len; ++s) {
-        const int t = t0 + s;
-        float* sl = scr + (size_t)s * kSlots * kThreads;
-#pragma unroll
-        for (int r = 0; r < kRpt; ++r)
-          if (r < rpt) sl[r * kThreads + tid] = P[r];
-        sl[kRpt * kThreads + tid] = pn;
-        const size_t row = ((size_t)t * B + b) * H + hh;
-        const Gate g = gate(fpre[row], ipre[row], mp);
-        const bool u = upd == nullptr || upd[(size_t)t * B + b];
-        if (tid == 0) {
-          s_mn[s] = g.mn;
-          s_fg[s] = g.fg;
-          s_ig[s] = g.ig;
-          s_u[s] = u;
+      stage_rows(stg(0) + kStgK, a.k, t0, min(kSub, len));
+      stage_cols(stg(0) + kStgV, a.v, t0, min(kSub, len));
+      cp_async_commit();
+      for (int qi = 0; qi < nsub; ++qi) {
+        const int q0 = qi * kSub, ns = min(kSub, len - q0);
+        cp_async_wait<0>();
+        __syncthreads();
+        if (qi + 1 < nsub) {
+          const int n1 = min(kSub, len - q0 - kSub);
+          stage_rows(stg((qi + 1) & 1) + kStgK, a.k, t0 + q0 + kSub, n1);
+          stage_cols(stg((qi + 1) & 1) + kStgV, a.v, t0 + q0 + kSub, n1);
         }
-        const TIn* kr = k + row * hd;
-        const float vj = jv ? to_f(v[row * hd + j]) : 0.f;
-        if (u) {
+        cp_async_commit();
+        const TIn* sk = reinterpret_cast<const TIn*>(stg(qi & 1) + kStgK);
+        const TIn* sv = reinterpret_cast<const TIn*>(stg(qi & 1) + kStgV);
+        {  // the group's first step: its state to scratch
+          float4* dst = reinterpret_cast<float4*>(scr + (size_t)qi * kGroupFloats);
+#pragma unroll
+          for (int r4 = 0; r4 < kR4; ++r4)
+            dst[r4 * kThreads + tid] = make_float4(P[4 * r4], P[4 * r4 + 1],
+                                                   P[4 * r4 + 2], P[4 * r4 + 3]);
+          scr[(size_t)qi * kGroupFloats + kR4 * 4 * kThreads + tid] = pn;
+        }
+        for (int x = 0; x < ns; ++x) {
+          const int sl = q0 + x;
+          if (s_u[sl] == 0.f) continue;
+          const float fg = s_fg[sl], ig = s_ig[sl];
+          const float vj = jv ? to_f(sv[x * kCols + lane]) : 0.f;
+          const TIn* kr = sk + x * kMaxHd;
 #pragma unroll
           for (int r = 0; r < kRpt; ++r) {
             const int kk = k0 + r;
             if (r < rpt && kk < hd)
-              P[r] = lerp_rn(g.fg, P[r], g.ig,
-                             round_in<TIn>(to_f(kr[kk]) * vj));
+              P[r] = lerp_rn(fg, P[r], ig, round_in<TIn>(to_f(kr[kk]) * vj));
           }
-          if (lead && nv) pn = lerp_rn(g.fg, pn, g.ig, to_f(kr[tid]));
-          mp = g.mn;
+          if (lead && nv) pn = lerp_rn(fg, pn, ig, to_f(kr[tid]));
         }
-        if (lead) {  // sum_j dh_j h_j for the denominator's adjoint
-          float x = nv ? dh[row * hd + tid] * hs[row * hd + tid] : 0.f;
-          x = warp_sum(x);
-          if (lane == 0) s_dot[s][w] = x;
+      }
+    }
+    // the walk back, a group of kGroup steps at a time: the next group's
+    // inputs and state copied while this one is walked
+    auto stage_walk = [&](int qi) {
+      const int q0 = qi * kSub, ns = min(kSub, len - q0), buf = qi & 1;
+      float* d = stg(buf);
+      stage_rows(d + kStgQ, a.q, t0 + q0, ns);
+      stage_rows(d + kStgK, a.k, t0 + q0, ns);
+      stage_cols(d + kStgV, a.v, t0 + q0, ns);
+      stage_cols(d + kStgDh, a.dh, t0 + q0, ns);
+      if (tid < ns) cp_async4(d + kStgSh + tid, a.s_hist + srow(t0 + q0 + tid));
+    };
+    // the state before group qi (each thread its own, read by it alone)
+    auto fetch_state = [&](int qi) {
+      const float* src = scr + (size_t)qi * kGroupFloats;
+#pragma unroll
+      for (int r4 = 0; r4 < kR4; ++r4)
+        cp_async16(pa + r4 * kThreads + tid, src + ((size_t)r4 * kThreads + tid) * 4);
+      cp_async4(pna + tid, src + kR4 * 4 * kThreads + tid);
+    };
+    // dv (this CTA holds every row of its columns) and the gates' sums of
+    // a walked group, from the per-warp sums, in a fixed order
+    auto flush = [&](int qi) {
+      const int q0 = qi * kSub, ns = min(kSub, len - q0), buf = qi & 1;
+      if (tid < ns * kCols) {
+        const int s = tid / kCols, l = tid % kCols;
+        float x = 0.f;
+#pragma unroll
+        for (int i = 0; i < kWarps; ++i)
+          x += dvp[((buf * kSub + s) * kWarps + i) * kCols + l];
+        if (jb * kCols + l < hd) a.dv[srow(t0 + q0 + s) * hd + jb * kCols + l] = x;
+      }
+      if (tid < ns) {
+        float x = 0.f, y = 0.f;
+#pragma unroll
+        for (int i = 0; i < kWarps; ++i) {
+          x += red[((buf * kSub + tid) * kWarps + i) * 2];
+          y += red[((buf * kSub + tid) * kWarps + i) * 2 + 1];
         }
+        float* sp = a.sc_part + (srow(t0 + q0 + tid) * njb + jb) * 4;
+        sp[0] = x;
+        sp[1] = y;
+        sp[2] = lead ? s_dmd[buf * kSub + tid] : 0.f;
+      }
+    };
+    cp_async_wait<0>();
+    __syncthreads();  // level 1's scratch and staged rows are done with
+    stage_walk(nsub - 1);
+    fetch_state(nsub - 1);
+    cp_async_commit();
+    for (int qi = nsub - 1; qi >= 0; --qi) {
+      const int q0 = qi * kSub, ns = min(kSub, len - q0), buf = qi & 1;
+      cp_async_wait<0>();
+      __syncthreads();
+      if (qi + 1 < nsub) flush(qi + 1);
+      if (qi > 0) stage_walk(qi - 1);
+      cp_async_commit();
+      const float* d = stg(buf);
+      const TIn* sq = reinterpret_cast<const TIn*>(d + kStgQ);
+      const TIn* sk = reinterpret_cast<const TIn*>(d + kStgK);
+      const TIn* sv = reinterpret_cast<const TIn*>(d + kStgV);
+      const float4* p4 = pa + tid;
+      for (int ri = ns - 1; ri >= 0; --ri) {
+        const int sl = q0 + ri;
+        const size_t row = srow(t0 + sl);
+        const float fg = s_fg[sl], ig = s_ig[sl], mn = s_mn[sl];
+        const bool u = s_u[sl] != 0.f;
+        const float svv = d[kStgSh + ri], e = expf(-mn), sa = fabsf(svv);
+        const float den = fmaxf(sa, e);
+        const float dr = jv ? d[kStgDh + ri * kCols + lane] / den : 0.f;
+        const float vj = jv ? to_f(sv[ri * kCols + lane]) : 0.f;
+        float ds = 0.f;
+        if (lead) {
+          const float dden = -s_dot[sl] / den;
+          const float ws = sa > e ? 1.f : (sa < e ? 0.f : 0.5f);
+          const float sg = svv > 0.f ? 1.f : (svv < 0.f ? -1.f : 0.f);
+          ds = dden * ws * sg;
+          if (tid == 0) s_dmd[buf * kSub + ri] = -(dden * (1.f - ws)) * e;
+        }
+        const TIn* qrow = sq + ri * kMaxHd;
+        const TIn* krow = sk + ri * kMaxHd;
+        float dfg = 0.f, dig = 0.f, dva = 0.f;
+#pragma unroll
+        for (int r4 = 0; r4 < kR4; ++r4) {
+          if (4 * r4 >= rpt) break;
+          const float4 pq = p4[r4 * kThreads];
+          float pv[4] = {pq.x, pq.y, pq.z, pq.w};
+          for (int ii = 0; ii < ri; ++ii) {  // re-form the steps before
+            if (s_u[q0 + ii] == 0.f) continue;
+            const float f2 = s_fg[q0 + ii], i2 = s_ig[q0 + ii];
+            const float v2 = jv ? to_f(sv[ii * kCols + lane]) : 0.f;
+            const TIn* k2 = sk + ii * kMaxHd + k0 + 4 * r4;
+#pragma unroll
+            for (int e4 = 0; e4 < 4; ++e4)
+              pv[e4] = lerp_rn(f2, pv[e4], i2, round_in<TIn>(to_f(k2[e4]) * v2));
+          }
+          float x[8];
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4) {
+            const int r = 4 * r4 + e4, kk = k0 + r;
+            x[e4] = x[4 + e4] = 0.f;
+            if (r < rpt && kk < hd) {
+              const float p = pv[e4];
+              const float kf = to_f(krow[kk]);
+              const float kv = round_in<TIn>(kf * vj);
+              const float nw = lerp_rn(fg, p, ig, kv);
+              const float g0 = Gs[r * kThreads];
+              const float gnew = (u ? g0 : 0.f) + to_f(qrow[kk]) * dr;
+              dfg += gnew * p;
+              dig += gnew * kv;
+              const float dkv = ig * gnew;
+              dva += dkv * kf;
+              x[e4] = nw * dr;
+              x[4 + e4] = dkv * vj;
+              Gs[r * kThreads] = (u ? 0.f : g0) + fg * gnew;
+            }
+          }
+          const float sum = transpose_sum8(x, lane);
+          const int r = 4 * r4 + ((lane >> 2) & 3), kk = k0 + r;
+          if (!(lane & 3) && r < rpt && kk < hd)
+            (lane < 16 ? a.dq_part : a.dk_part)[(row * nq + jb) * hd + kk] = sum;
+        }
+        if (lead && nv) {  // the n column, row tid
+          float p = pna[tid];
+          for (int ii = 0; ii < ri; ++ii)
+            if (s_u[q0 + ii] != 0.f)
+              p = lerp_rn(s_fg[q0 + ii], p, s_ig[q0 + ii], to_f(sk[ii * kMaxHd + tid]));
+          const float kf = to_f(krow[tid]);
+          const float nn = lerp_rn(fg, p, ig, kf);
+          const float gnn = (u ? Gn : 0.f) + to_f(qrow[tid]) * ds;
+          dfg += gnn * p;
+          dig += gnn * kf;
+          Gn = (u ? 0.f : Gn) + fg * gnn;
+          a.dq_part[(row * nq + njb) * hd + tid] = nn * ds;
+          a.dk_part[(row * nq + njb) * hd + tid] = ig * gnn;
+        }
+        dfg = warp_sum(dfg);
+        dig = warp_sum(dig);
+        if (lane == 0) {
+          red[((buf * kSub + ri) * kWarps + w) * 2] = dfg;
+          red[((buf * kSub + ri) * kWarps + w) * 2 + 1] = dig;
+        }
+        dvp[((buf * kSub + ri) * kWarps + w) * kCols + lane] = dva;
+      }
+      if (qi > 0) {  // its state read for the last time: the next group's
+        fetch_state(qi - 1);
+        cp_async_commit();
       }
     }
     __syncthreads();
-    for (int s = len - 1; s >= 0; --s) {  // walk the chunk back
-      const int t = t0 + s;
-      const size_t row = ((size_t)t * B + b) * H + hh;
-      const float fg = s_fg[s], ig = s_ig[s], mn = s_mn[s];
-      const bool u = s_u[s];
-      const float sv = s_hist[row], e = expf(-mn), sa = fabsf(sv);
-      const float den = fmaxf(sa, e);
-      const float dr = jv ? dh[row * hd + j] / den : 0.f;
-      const float vj = jv ? to_f(v[row * hd + j]) : 0.f;
-      float ds = 0.f, dmn_den = 0.f;
-      if (lead) {
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < kWarps; ++i) dot += s_dot[s][i];
-        const float dden = -dot / den;
-        const float ws = sa > e ? 1.f : (sa < e ? 0.f : 0.5f);
-        const float sg = sv > 0.f ? 1.f : (sv < 0.f ? -1.f : 0.f);
-        ds = dden * ws * sg;
-        dmn_den = -(dden * (1.f - ws)) * e;
-      }
-      const TIn* qr = q + row * hd;
-      const TIn* kr = k + row * hd;
-      const float* sl = scr + (size_t)s * kSlots * kThreads;
-      float dfg = 0.f, dig = 0.f, dva = 0.f;
-#pragma unroll
-      for (int r = 0; r < kRpt; ++r) {
-        const int kk = k0 + r;
-        if (r < rpt && kk < hd) {
-          const float p = sl[r * kThreads + tid];
-          const float kf = to_f(kr[kk]);
-          const float kv = round_in<TIn>(kf * vj);
-          const float nw = lerp_rn(fg, p, ig, kv);
-          const float gnew = (u ? G[r] : 0.f) + to_f(qr[kk]) * dr;
-          dfg += gnew * p;
-          dig += gnew * kv;
-          const float dkv = ig * gnew;
-          dva += dkv * kf;
-          dqb[kk * kPad + lane] = nw * dr;
-          dkb[kk * kPad + lane] = dkv * vj;
-          G[r] = (u ? 0.f : G[r]) + fg * gnew;
-        }
-      }
-      float dqn = 0.f, dkn = 0.f;
-      if (lead && nv) {  // the n column
-        const float p = sl[kRpt * kThreads + tid];
-        const float kf = to_f(kr[tid]);
-        const float nn = lerp_rn(fg, p, ig, kf);
-        const float gnn = (u ? Gn : 0.f) + to_f(qr[tid]) * ds;
-        dqn = nn * ds;
-        dfg += gnn * p;
-        dig += gnn * kf;
-        dkn = ig * gnn;
-        Gn = (u ? 0.f : Gn) + fg * gnn;
-      }
-      dfg = warp_sum(dfg);
-      dig = warp_sum(dig);
-      if (lane == 0) {
-        red[w][0] = dfg;
-        red[w][1] = dig;
-      }
-      dvp[w][lane] = dva;
-      __syncthreads();
-      if (nv) {  // row tid's sums over this CTA's columns
-        float a = 0.f, bsum = 0.f;
-#pragma unroll 8
-        for (int c2 = 0; c2 < kCols; ++c2) {
-          a += dqb[tid * kPad + c2];
-          bsum += dkb[tid * kPad + c2];
-        }
-        const size_t o = (row * njb + jb) * hd + tid;
-        dq_part[o] = a + dqn;
-        dk_part[o] = bsum + dkn;
-      }
-      if (w == 0) {
-        float x = 0.f;
-#pragma unroll
-        for (int i = 0; i < kWarps; ++i) x += dvp[i][lane];
-        if (jv) dv[row * hd + j] = x;
-      }
-      if (tid == 0) {
-        float a = 0.f, bb = 0.f;
-#pragma unroll
-        for (int i = 0; i < kWarps; ++i) {
-          a += red[i][0];
-          bb += red[i][1];
-        }
-        float* sp = sc_part + (row * njb + jb) * 3;
-        sp[0] = a;
-        sp[1] = bb;
-        sp[2] = dmn_den;
-      }
-      __syncthreads();
-    }
+    flush(0);
   }
-  float* gdst = dcn0 + bh * st;
+  float* gdst = a.dcn0 + bh * st;
 #pragma unroll
   for (int r = 0; r < kRpt; ++r) {
     const int kk = k0 + r;
-    if (r < rpt && kk < hd && jv) gdst[(size_t)kk * hd1 + j] = G[r];
+    if (r < rpt && kk < hd && jv) gdst[(size_t)kk * hd1 + j] = Gs[r * kThreads];
   }
   if (lead && nv) gdst[(size_t)tid * hd1 + hd] = Gn;
 }
 
 // The deterministic second pass: CTAs x < gridDim.x - 1 sum dq and dk over
-// the column blocks (in order) for tpb steps each; the last CTA of each
-// (b, h) walks the stabilizer's chain back over T.
+// the nq partial blocks (in order) for tpb steps each; the last CTA of each
+// (b, h) walks the stabilizer's chain back over T, a chunk of kKmax steps
+// at a time: the gates of every step at once from the m before it (the
+// main kernel's), then the scalar adjoint chain by one thread.
 __global__ void __launch_bounds__(256) mlstm_bwd_reduce_kernel(
     const float* __restrict__ dq_part, const float* __restrict__ dk_part,
     const float* __restrict__ sc_part, const float* __restrict__ ipre,
     const float* __restrict__ fpre, const bool* __restrict__ upd,
-    const float* __restrict__ mck, const float* __restrict__ dm,
-    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ di,
-    float* __restrict__ df, float* __restrict__ dm0, int T, int B, int H,
-    int hd, int njb, int K, int tpb) {
+    const float* __restrict__ dm, float* __restrict__ dq,
+    float* __restrict__ dk, float* __restrict__ di, float* __restrict__ df,
+    float* __restrict__ dm0, int T, int B, int H, int hd, int njb, int tpb) {
   const int bh = blockIdx.y, b = bh / H, hh = bh - b * H;
-  const int ntb = gridDim.x - 1;
+  const int ntb = gridDim.x - 1, nq = njb + 1;
   if ((int)blockIdx.x < ntb) {
     const int t0 = blockIdx.x * tpb, t1 = min(T, t0 + tpb);
     for (int idx = threadIdx.x; idx < (t1 - t0) * hd; idx += blockDim.x) {
       const int t = t0 + idx / hd, kk = idx % hd;
       const size_t row = ((size_t)t * B + b) * H + hh;
-      const float* a = dq_part + row * njb * hd + kk;
-      const float* c = dk_part + row * njb * hd + kk;
+      const float* x0 = dq_part + row * nq * hd + kk;
+      const float* y0 = dk_part + row * nq * hd + kk;
       float x = 0.f, y = 0.f;
-      for (int jb = 0; jb < njb; ++jb) {
-        x += a[(size_t)jb * hd];
-        y += c[(size_t)jb * hd];
+      for (int q = 0; q < nq; ++q) {
+        x += x0[(size_t)q * hd];
+        y += y0[(size_t)q * hd];
       }
       dq[row * hd + kk] = x;
       dk[row * hd + kk] = y;
     }
     return;
   }
-  __shared__ float f_[kKmax], i_[kKmax], dfg_[kKmax], dig_[kKmax],
-      dmd_[kKmax];
-  __shared__ unsigned char u_[kKmax];
-  const size_t BH = (size_t)B * H;
+  __shared__ float a_[kKmax], i_[kKmax], fg_[kKmax], ig_[kKmax], sgm_[kKmax],
+      dfg_[kKmax], dig_[kKmax], dmd_[kKmax];
+  __shared__ unsigned char u_[kKmax], fin_[kKmax], mxf_[kKmax];
   float gm = dm[bh];
-  const int nc = (T + K - 1) / K;
-  for (int c = nc - 1; c >= 0; --c) {
-    const int t0 = c * K, len = min(K, T - t0);
+  for (int c = (T + kKmax - 1) / kKmax - 1; c >= 0; --c) {
+    const int t0 = c * kKmax, len = min(kKmax, T - t0);
     for (int s = threadIdx.x; s < len; s += blockDim.x) {
       const int t = t0 + s;
       const size_t row = ((size_t)t * B + b) * H + hh;
-      f_[s] = fpre[row];
-      i_[s] = ipre[row];
+      const float* p = sc_part + row * njb * 4;
+      const float f = fpre[row], i = ipre[row];
+      const Gate g = gate(f, i, p[3]);
+      a_[s] = g.a;
+      i_[s] = i;
+      fg_[s] = g.fg;
+      ig_[s] = g.ig;
+      sgm_[s] = 1.f / (1.f + expf(f));
+      fin_[s] = g.fin;
+      mxf_[s] = isfinite(g.mx);
       u_[s] = upd == nullptr || upd[(size_t)t * B + b];
-      const float* p = sc_part + row * njb * 3;
-      float a = 0.f, bb = 0.f, cc = 0.f;
+      float x = 0.f, y = 0.f, z = 0.f;
       for (int jb = 0; jb < njb; ++jb) {
-        a += p[jb * 3];
-        bb += p[jb * 3 + 1];
-        cc += p[jb * 3 + 2];
+        x += p[jb * 4];
+        y += p[jb * 4 + 1];
+        z += p[jb * 4 + 2];
       }
-      dfg_[s] = a;
-      dig_[s] = bb;
-      dmd_[s] = cc;
+      dfg_[s] = x;
+      dig_[s] = y;
+      dmd_[s] = z;
     }
     __syncthreads();
     if (threadIdx.x == 0) {
-      float mps[kKmax];
-      float mp = mck[(size_t)c * BH + bh];
-      for (int s = 0; s < len; ++s) {
-        mps[s] = mp;
-        const Gate g = gate(f_[s], i_[s], mp);
-        if (u_[s]) mp = g.mn;
-      }
       for (int s = len - 1; s >= 0; --s) {
-        const Gate g = gate(f_[s], i_[s], mps[s]);
         const bool u = u_[s];
         float dmn = (u ? gm : 0.f) + dmd_[s];
-        float dii = dig_[s] * g.ig;
+        float dii = dig_[s] * ig_[s];
         dmn -= dii;
-        float da = g.fin ? dfg_[s] * g.fg : 0.f;
+        float da = fin_[s] ? dfg_[s] * fg_[s] : 0.f;
         dmn -= da;
-        if (isfinite(g.mx)) {
-          if (g.a > i_[s]) {
+        if (mxf_[s]) {
+          if (a_[s] > i_[s]) {
             da += dmn;
-          } else if (g.a < i_[s]) {
+          } else if (a_[s] < i_[s]) {
             dii += dmn;
           } else {
             da += 0.5f * dmn;
@@ -509,7 +771,7 @@ __global__ void __launch_bounds__(256) mlstm_bwd_reduce_kernel(
         }
         const size_t row = ((size_t)(t0 + s) * B + b) * H + hh;
         di[row] = dii;
-        df[row] = da * (1.f / (1.f + expf(f_[s])));
+        df[row] = da * sgm_[s];
         gm = (u ? 0.f : gm) + da;
       }
     }
@@ -544,18 +806,22 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* ipre,
                void* dm0, int T, int B, int H, int hd, int K,
                cudaStream_t st) {
   const int njb = (hd + kCols - 1) / kCols;
-  const size_t smem = (size_t)2 * hd * kPad * sizeof(float);
+  const size_t smem = (size_t)kSmFloats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       mlstm_bwd_kernel<TIn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  mlstm_bwd_kernel<TIn><<<dim3(njb, B * H), kThreads, smem, st>>>(
-      (const TIn*)q, (const TIn*)k, (const TIn*)v, (const float*)ipre,
-      (const float*)fpre, (const bool*)upd, (const float*)hs,
-      (const float*)s, (const float*)ckpt, (const float*)mck,
-      (const float*)dh, (const float*)dcn, (float*)scratch, (float*)dq_part,
-      (float*)dk_part, (float*)dv, (float*)sc_part, (float*)dcn0, T, B, H,
-      hd, K);
+  const BwdArgs<TIn> a{(const TIn*)q, (const TIn*)k, (const TIn*)v,
+                       (const float*)ipre, (const float*)fpre,
+                       (const bool*)upd, (const float*)hs, (const float*)s,
+                       (const float*)ckpt, (const float*)mck,
+                       (const float*)dh, (const float*)dcn, (float*)scratch,
+                       (float*)dq_part, (float*)dk_part, (float*)dv,
+                       (float*)sc_part, (float*)dcn0, T, B, H, hd, K,
+                       (hd * (int)sizeof(TIn)) % 4 == 0 &&
+                           (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                             (uintptr_t)dh) & 3) == 0};
+  mlstm_bwd_kernel<TIn><<<dim3(njb, B * H), kThreads, smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int tpb = 16;
@@ -563,8 +829,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* ipre,
   mlstm_bwd_reduce_kernel<<<dim3(ntb + 1, B * H), 256, 0, st>>>(
       (const float*)dq_part, (const float*)dk_part, (const float*)sc_part,
       (const float*)ipre, (const float*)fpre, (const bool*)upd,
-      (const float*)mck, (const float*)dm, (float*)dq, (float*)dk,
-      (float*)di, (float*)df, (float*)dm0, T, B, H, hd, njb, K, tpb);
+      (const float*)dm, (float*)dq, (float*)dk, (float*)di, (float*)df,
+      (float*)dm0, T, B, H, hd, njb, tpb);
   return (int)cudaGetLastError();
 }
 
@@ -585,6 +851,9 @@ extern "C" int mlstm_fwd(const void* q, const void* k, const void* v,
                                   h, cn, m, ckpt, mck, s, T, B, H, hd,
                                   collect, K, st);
 }
+
+// the backward's group size (the scratch layout the wrapper allocates)
+extern "C" int mlstm_bwd_layout() { return kGroup; }
 
 extern "C" int mlstm_bwd(const void* q, const void* k, const void* v,
                          const void* ipre, const void* fpre, const void* upd,

@@ -53,20 +53,32 @@ SLSTM_BWD_LAUNCHES = 0
 CKPT_EVERY = 64
 KMAX = 64
 # the mLSTM kernels' CTA: 32 columns of [C|n] (a lane each) by 8 warps of
-# rows, at most 24 rows a thread (hd <= 192)
+# rows, at most MLSTM_ROWS rows a thread (hd <= 192). The backward keeps
+# the state before every MLSTM_BWD_GROUP-th step of a chunk in scratch (a
+# thread's rows and its row of n: MLSTM_GROUP_FLOATS a CTA) and stages one
+# group's inputs at a time in shared memory.
 MLSTM_COLS = 32
 MLSTM_THREADS = 256
 MLSTM_MAX_HD = 192
-# the sLSTM kernels: R (hd x hd+1 padded) in shared memory, one thread an
-# element of h, at most this many batch rows a CTA
+MLSTM_ROWS = MLSTM_MAX_HD // (MLSTM_THREADS // 32)
+MLSTM_BWD_GROUP = 4
+MLSTM_GROUP_FLOATS = (MLSTM_ROWS + 1) * MLSTM_THREADS
+MLSTM_BWD_CTAS_PER_SM = 3  # the kernel's __launch_bounds__
+# the sLSTM kernels: at most this many batch rows a CTA; the forward
+# splits each group of columns' dot products over p threads (R's slices
+# in registers) and copies z, i, f, o a block of steps ahead into shared
+# memory; the backward keeps R (hd x hd+1 padded) in shared memory, one
+# thread an element of h
 SLSTM_MAX_ROWS = 4
 SLSTM_MAX_HD = 224
+SMEM_MAX = 232_448  # bytes of shared memory a CTA can have on sm_90
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _MLSTM_SIG = {
     "mlstm_fwd": (_P,) * 15 + (_I,) * 7 + (_P,),
     "mlstm_bwd": (_P,) * 24 + (_I,) * 6 + (_P,),
+    "mlstm_bwd_layout": (),
 }
 _SLSTM_SIG = {
     "slstm_fwd": (_P,) * 13 + (_I,) * 7 + (_P,),
@@ -215,13 +227,17 @@ def mlstm_scan_bwd_cuda(q, k, v, i_pre, f_pre, upd, h, s, ckpt, mck,
     _on_card(what, dev, q=q, k=k, v=v, i_pre=i_pre, f_pre=f_pre, upd=upd,
              h=h, s=s, ckpt=ckpt, mck=mck, dh=dh, dCn=dCn, dm=dm)
     lib = _build.load("mlstm", _MLSTM_SIG)
+    _need(lib.mlstm_bwd_layout() == MLSTM_BWD_GROUP, what,
+          f"the library's group size {lib.mlstm_bwd_layout()} is not "
+          f"{MLSTM_BWD_GROUP}")
+    plan = mlstm_bwd_plan(B, H, hd, ckpt_every, _sm_count(dev))
     f32 = dict(dtype=torch.float32, device=dev)
-    njb = (hd + MLSTM_COLS - 1) // MLSTM_COLS
-    ctas = njb * B * H
-    scratch = torch.empty((ctas, ckpt_every, 25, MLSTM_THREADS), **f32)
-    dq_part = torch.empty((T, B, H, njb, hd), **f32)
-    dk_part = torch.empty((T, B, H, njb, hd), **f32)
-    sc_part = torch.empty((T, B, H, njb, 3), **f32)
+    njb = plan["col_blocks"]
+    scratch = torch.empty((plan["ctas"], plan["groups"], MLSTM_GROUP_FLOATS),
+                          **f32)
+    dq_part = torch.empty((T, B, H, njb + 1, hd), **f32)
+    dk_part = torch.empty((T, B, H, njb + 1, hd), **f32)
+    sc_part = torch.empty((T, B, H, njb, 4), **f32)
     dq, dk, dv = (torch.empty((T, B, H, hd), **f32) for _ in range(3))
     di, df = torch.empty((T, B, H), **f32), torch.empty((T, B, H), **f32)
     dcn0 = torch.empty((B, H, hd, hd + 1), **f32)
@@ -235,6 +251,37 @@ def mlstm_scan_bwd_cuda(q, k, v, i_pre, f_pre, upd, h, s, ckpt, mck,
     _build.check(err, "mlstm_scan_bwd launch")
     MLSTM_BWD_LAUNCHES += 1
     return dq, dk, dv, di, df, dcn0[..., :hd], dcn0[..., hd], dm0
+
+
+def mlstm_bwd_plan(B: int, H: int, hd: int, ckpt_every: int, n_sm: int
+                   ) -> dict:
+    """The mLSTM backward kernel's launch for a shape on ``n_sm`` SMs: a
+    CTA per (b, h) and 32 columns (``col_blocks`` a head) of
+    ``MLSTM_THREADS``; a chunk of ``ckpt_every`` steps walked in groups of
+    ``group`` steps, each staged in shared memory in turn (the state
+    before each kept in scratch: ``groups`` a chunk, ``scratch_bytes`` in
+    all); dynamic shared memory (bytes; ``csrc/mlstm.cu``'s
+    ``kSmFloats``), resident CTAs a SM and waves. The reduce pass sums
+    ``col_blocks + 1`` partial rows of dq and dk (the last the n
+    column's)."""
+    _need(1 <= hd <= MLSTM_MAX_HD, "mlstm_bwd_plan", f"hd {hd} not in [1, "
+          f"{MLSTM_MAX_HD}]")
+    _need(1 <= ckpt_every <= KMAX, "mlstm_bwd_plan",
+          f"ckpt_every {ckpt_every} not in [1, {KMAX}]")
+    njb = -(-hd // MLSTM_COLS)
+    ctas = njb * B * H
+    groups = -(-ckpt_every // MLSTM_BWD_GROUP)
+    warps, cols, g = MLSTM_THREADS // 32, MLSTM_COLS, MLSTM_BWD_GROUP
+    # the group's state, G, two staged groups (q, k rows; v, dh columns;
+    # q.n), two groups' per-warp sums, the chunk's per-step scalars
+    staged = -(-(2 * g * MLSTM_MAX_HD + 2 * g * cols + g) // 4) * 4
+    floats = (MLSTM_GROUP_FLOATS + MLSTM_ROWS * MLSTM_THREADS + 2 * staged
+              + 2 * g * warps * cols + 2 * g * warps * 2 + 2 * g + 7 * KMAX)
+    return dict(col_blocks=njb, ctas=ctas, threads=MLSTM_THREADS,
+                group=g, groups=groups,
+                smem=4 * floats, ctas_per_sm=MLSTM_BWD_CTAS_PER_SM,
+                waves=-(-ctas // (MLSTM_BWD_CTAS_PER_SM * n_sm)),
+                scratch_bytes=4 * ctas * groups * MLSTM_GROUP_FLOATS)
 
 
 # float32 operations of one (b, h) step, per element of [C|n], each
@@ -394,13 +441,51 @@ def _slstm_check(what, z_in, i_in, f_in, o_sig, R, upd, com):
     return T, H, B, hd
 
 
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _rows_per_cta(B: int, H: int, n_sm: int) -> int:
+    """The fewest batch rows a CTA that keep every CTA of a (rows, head)
+    grid resident at once, one a SM, at most ``SLSTM_MAX_ROWS``."""
+    return min(SLSTM_MAX_ROWS, max(1, -(-B // max(1, n_sm // H))))
+
+
 def slstm_rows_per_cta(B: int, H: int, dev) -> int:
-    """Batch rows an sLSTM CTA steps (one R in shared memory serves
-    them): the fewest that keep every CTA of the grid resident at once
-    (one a SM), at most ``SLSTM_MAX_ROWS``."""
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    per = max(1, n_sm // H)
-    return min(SLSTM_MAX_ROWS, max(1, -(-B // per)))
+    """Batch rows an sLSTM backward CTA steps (one R in shared memory
+    serves them): ``_rows_per_cta`` on this card."""
+    return _rows_per_cta(B, H, _sm_count(dev))
+
+
+def slstm_split(hd: int) -> Tuple[int, int, int]:
+    """(p, c, len) of the forward kernel (``split_of`` in
+    ``csrc/slstm.cu``): p threads a group of c columns of h, each over a
+    slice of len k's of the dot product h_{t-1} R_h (a multiple of 4, zero
+    past hd). The backward's recompute sums in the same order."""
+    _need(1 <= hd <= SLSTM_MAX_HD, "slstm_split", f"hd {hd} not in [1, "
+          f"{SLSTM_MAX_HD}]")
+    p, c = (8, 4) if hd <= 192 else (4, 2)
+    return p, c, (-(-hd // p) + 3) // 4 * 4
+
+
+def slstm_fwd_plan(B: int, H: int, hd: int, n_sm: int) -> dict:
+    """The sLSTM forward kernel's launch for a shape on ``n_sm`` SMs: the
+    split (p threads a group of ``cols`` columns, slices of len), rows a
+    CTA (``rows``; the kernel is compiled for 1, 2 or 4 and
+    ``rows_compiled`` is the one launched), threads a CTA, the input
+    ring's block in steps (two blocks of 6 fields a step), dynamic shared
+    memory (bytes), CTAs and waves (one CTA a SM). No cluster: a step's
+    product is not what bounds it."""
+    p, c, L = slstm_split(hd)
+    rb = _rows_per_cta(B, H, n_sm)
+    rbt = rb if rb <= 2 else SLSTM_MAX_ROWS
+    blk = 8 if rbt <= 2 else 4
+    threads = -(-(-(-hd // c) * p) // 32) * 32
+    smem = 4 * (2 * rbt * p * (L + 4) + 2 * blk * 6 * rbt * hd)
+    ctas = H * -(-B // rb)
+    return dict(p=p, cols=c, len=L, rows=rb, rows_compiled=rbt,
+                threads=threads, ring_block=blk, smem=smem, cluster=1,
+                ctas=ctas, waves=-(-ctas // n_sm))
 
 
 def slstm_scan_cuda(z_in, i_in, f_in, o_sig, R, cnh0, m0,
@@ -426,7 +511,7 @@ def slstm_scan_cuda(z_in, i_in, f_in, o_sig, R, cnh0, m0,
     _on_card(what, dev, z_in=z_in, i_in=i_in, f_in=f_in, o_sig=o_sig, R=R,
              cnh0=cnh0, m0=m0, upd=upd, com=com)
     lib = _build.load("slstm", _SLSTM_SIG)
-    rb = slstm_rows_per_cta(B, H, dev)
+    rb = slstm_fwd_plan(B, H, hd, _sm_count(dev))["rows"]
     f32 = dict(dtype=torch.float32, device=dev)
     hs = torch.empty((T, H, B, hd), **f32)
     if collect:

@@ -236,3 +236,203 @@ def test_phase3e_cases_on_cpu(one_torch_thread):
             assert r["bwd_err"] in (None, 0.0)
             if c[0] == cs.XLSTM_AUTOGRAD_CASE:
                 assert 0.0 <= r["autograd_err"] <= cs.XLSTM_TOL["bwd"]
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch plans and the mLSTM backward's decomposition
+# ---------------------------------------------------------------------------
+
+N_SM = 132  # an H100's SMs
+SM_SMEM = 233_472  # bytes of shared memory a SM holds (1 KB of it per CTA)
+
+
+@pytest.mark.parametrize("hd", [40, 64, 192, 224])
+def test_launch_plans_fit_the_card(hd):
+    """Every plan at B 1..64 on 132 SMs: threads a CTA a multiple of 32 and
+    at most 1,024, shared memory within a CTA's 227 KB, the sLSTM
+    forward's grid in one wave (one CTA a SM) with its slices covering
+    hd, the mLSTM backward's three CTAs a SM within the SM's shared
+    memory and 13b's grid (B 16, 4 heads of 192) in one wave."""
+    for H in (1, 4):
+        for B in range(1, 65):
+            sp = xo.slstm_fwd_plan(B, H, hd, N_SM)
+            assert sp["threads"] % 32 == 0 and sp["threads"] <= 1024
+            assert sp["threads"] >= -(-hd // sp["cols"]) * sp["p"]
+            assert sp["smem"] <= xo.SMEM_MAX
+            assert sp["ctas"] == H * -(-B // sp["rows"]) <= N_SM
+            assert sp["waves"] == 1 and sp["cluster"] == 1
+            assert sp["len"] % 4 == 0 and sp["p"] * sp["len"] >= hd
+            assert 1 <= sp["rows"] <= sp["rows_compiled"] <= xo.SLSTM_MAX_ROWS
+            assert sp["rows_compiled"] in (1, 2, 4)
+            if hd > xo.MLSTM_MAX_HD:
+                continue
+            mp = xo.mlstm_bwd_plan(B, H, hd, xo.CKPT_EVERY, N_SM)
+            assert mp["threads"] == xo.MLSTM_THREADS <= 1024
+            assert mp["smem"] <= xo.SMEM_MAX
+            assert mp["ctas_per_sm"] * (mp["smem"] + 1024) <= SM_SMEM
+            assert mp["ctas"] == -(-hd // xo.MLSTM_COLS) * B * H
+            assert mp["waves"] == -(-mp["ctas"] // (mp["ctas_per_sm"] * N_SM))
+            assert mp["groups"] == -(-xo.CKPT_EVERY // mp["group"])
+    tr = xo.mlstm_bwd_plan(16, 4, 192, xo.CKPT_EVERY, N_SM)
+    assert tr["waves"] == 1 and tr["ctas"] == 384
+    assert tr["scratch_bytes"] == 384 * 16 * xo.MLSTM_GROUP_FLOATS * 4
+
+
+def test_launch_plans_refuse_what_the_kernels_refuse():
+    with pytest.raises(ValueError):
+        xo.slstm_split(xo.SLSTM_MAX_HD + 1)
+    with pytest.raises(ValueError):
+        xo.slstm_fwd_plan(4, 4, 0, N_SM)
+    with pytest.raises(ValueError):
+        xo.mlstm_bwd_plan(4, 4, xo.MLSTM_MAX_HD + 1, 16, N_SM)
+    for K in (0, xo.KMAX + 1):
+        with pytest.raises(ValueError):
+            xo.mlstm_bwd_plan(4, 4, 64, K, N_SM)
+    # the split reaches every k once: the slices tile [0, p len)
+    for hd in (1, 9, 40, 64, 191, 192, 193, 224):
+        p, c, L = xo.slstm_split(hd)
+        ks = np.concatenate([np.arange(s * L, (s + 1) * L) for s in range(p)])
+        assert np.array_equal(ks, np.arange(p * L)) and p * L >= hd
+        assert (p, c) == ((8, 4) if hd <= 192 else (4, 2))
+
+
+def _mlstm_bwd_model(q, k, v, i_pre, f_pre, upd, h, s, ckpt, mck, K, dh, dCn,
+                     dm):
+    """The mLSTM backward kernel's decomposition on the CPU (its plan from
+    ``mlstm_bwd_plan``): chunks of K from the last; a chunk's gates from
+    its checkpoint's m, then level 1 from its checkpoint keeping the state
+    before each group's first step; groups walked from the last, a step's
+    state re-formed from its group's. Per column block of 32 (the CTA):
+    the partial row sums of dq and dk (a last block holds the n column's
+    terms), dv over its rows a warp at a time then over the warps in
+    order, and (dfg, dig, the denominator's dm) over its elements. The
+    reduce pass sums the blocks in order and walks the stabilizer's chain
+    back."""
+    T, B, H, hd = q.shape
+    plan = xo.mlstm_bwd_plan(B, H, hd, K, N_SM)
+    grp, njb = plan["group"], plan["col_blocks"]
+    rpt = -(-hd // 8)
+    logf = torch.nn.functional.logsigmoid(f_pre)
+    v1 = torch.cat([v, torch.ones_like(v[..., :1])], -1)
+    G = dCn.clone()
+    dq_part = torch.zeros((T, B, H, njb + 1, hd))
+    dk_part = torch.zeros((T, B, H, njb + 1, hd))
+    sc = torch.zeros((T, B, H, njb, 4))
+    dv = torch.zeros((T, B, H, hd))
+    ones = torch.ones((B, 1), dtype=torch.bool)
+
+    def cols(x, jb):  # a CTA's columns of [C|n]'s first hd
+        return x[..., jb * 32:min(hd, (jb + 1) * 32)]
+
+    for c in range(xr.ckpt_count(T, K) - 1, -1, -1):
+        t0, t1 = c * K, min(T, (c + 1) * K)
+        mp, gates = mck[c], []
+        for t in range(t0, t1):
+            a = logf[t] + mp
+            mx = torch.maximum(a, i_pre[t])
+            mn = torch.where(torch.isfinite(mx), mx, i_pre[t])
+            fg = torch.where(torch.isfinite(mp), torch.exp(a - mn), 0.0)
+            u = ones if upd is None else upd[t][:, None]
+            gates.append((fg, torch.exp(i_pre[t] - mn), mn, u))
+            sc[t, :, :, 0, 3] = mp
+            mp = torch.where(u, mn, mp)
+
+        def kv_of(t):
+            return (k[t, ..., :, None] * v1[t, ..., None, :]).float()
+
+        def step(P, t):
+            fg, ig, _, u = gates[t - t0]
+            return torch.where(u[..., None, None], fg[..., None, None] * P
+                               + ig[..., None, None] * kv_of(t), P)
+
+        P, kept = ckpt[c], {}
+        for t in range(t0, t1):
+            if (t - t0) % grp == 0:
+                kept[(t - t0) // grp] = P
+            P = step(P, t)
+        for g in range(-(-(t1 - t0) // grp) - 1, -1, -1):
+            for t in range(min(t1, t0 + (g + 1) * grp) - 1, t0 + g * grp - 1,
+                           -1):
+                P = kept[g]
+                for t2 in range(t0 + g * grp, t):
+                    P = step(P, t2)
+                fg, ig, mn, u = gates[t - t0]
+                fg4, ig4 = fg[..., None, None], ig[..., None, None]
+                kv = kv_of(t)
+                new = fg4 * P + ig4 * kv
+                e = torch.exp(-mn)
+                sa = s[t].abs()
+                den = torch.maximum(sa, e)
+                ws = (sa > e).float() + 0.5 * (sa == e).float()
+                dden = -(dh[t] * h[t]).sum(-1) / den
+                dr = torch.cat([dh[t] / den[..., None],
+                                (dden * ws * torch.sign(s[t]))[..., None]], -1)
+                gnew = (torch.where(u[..., None, None], G, 0.0)
+                        + q[t].float()[..., :, None] * dr[..., None, :])
+                tq = new * dr[..., None, :]
+                dkv = ig4 * gnew
+                tk = torch.cat([dkv[..., :hd] * v[t].float()[..., None, :],
+                                dkv[..., hd:]], -1)
+                for jb in range(njb):
+                    dq_part[t, :, :, jb] = cols(tq, jb).sum(-1)
+                    dk_part[t, :, :, jb] = cols(tk, jb).sum(-1)
+                    w_el = cols(gnew * P, jb).sum((-1, -2))
+                    w_ig = cols(gnew * kv, jb).sum((-1, -2))
+                    if jb == 0:  # the lead CTA carries the n column
+                        w_el = w_el + (gnew * P)[..., hd].sum(-1)
+                        w_ig = w_ig + (gnew * kv)[..., hd].sum(-1)
+                    sc[t, :, :, jb, 0], sc[t, :, :, jb, 1] = w_el, w_ig
+                dq_part[t, :, :, njb] = tq[..., hd]
+                dk_part[t, :, :, njb] = tk[..., hd]
+                terms = dkv[..., :hd] * k[t].float()[..., :, None]
+                warps = [terms[..., w * rpt:(w + 1) * rpt, :].sum(-2)
+                         for w in range(8)]
+                acc = torch.zeros_like(warps[0])
+                for x in warps:
+                    acc = acc + x
+                dv[t] = acc
+                sc[t, :, :, 0, 2] = -(dden * (1.0 - ws)) * e
+                G = torch.where(u[..., None, None], 0.0, G) + fg4 * gnew
+    dq, dk = torch.zeros((T, B, H, hd)), torch.zeros((T, B, H, hd))
+    for jb in range(njb + 1):
+        dq, dk = dq + dq_part[:, :, :, jb], dk + dk_part[:, :, :, jb]
+    sums = sc[..., :3].sum(-2)
+    di, df = torch.zeros((T, B, H)), torch.zeros((T, B, H))
+    gm = dm.clone()
+    for t in range(T - 1, -1, -1):
+        u = ones if upd is None else upd[t][:, None]
+        a, mx, _, fin, fg, ig = xr._gates(logf[t], i_pre[t], sc[t, :, :, 0, 3])
+        di[t], df[t], da = xr._gates_bwd(
+            f_pre[t], i_pre[t], a, mx, fin, fg, ig, sums[t, ..., 0],
+            sums[t, ..., 1], torch.where(u, gm, 0.0) + sums[t, ..., 2])
+        gm = torch.where(u, 0.0, gm) + da
+    return dq, dk, dv, di, df, G[..., :hd], G[..., hd], gm
+
+
+# (B, T, hd, dtype, state, masks, K): T not a multiple of K, hd 40 (a
+# column block half full), a tie in the stabilizer's max, m = -inf, pads
+BWD_MODEL_CASES = {
+    "tie_pads_hd40": (3, 13, 40, "float32", "tie", "left pads + frozen row",
+                      5),
+    "fresh": (2, 11, 8, "float32", "fresh", None, 4),
+    "bf16_pads": (2, 10, 16, "bfloat16", "carried", "left pads", 6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_MODEL_CASES))
+def test_mlstm_bwd_decomposition_matches_the_walk(one_torch_thread, case):
+    cs = _chip_smoke()
+    B, T, hd, dtype, state, masks, K = BWD_MODEL_CASES[case]
+    args = cs.mlstm_inputs(torch, np, B, T, hd, dtype, state, masks, 70,
+                           dev="cpu", H=2)
+    q, k, v, i_pre, f_pre, C0, n0, m0, upd = args
+    h, cn, m, (ck, mck, s) = xr.mlstm_scan_ref(*args, ckpt_every=K)
+    cots = _cotangents((h, cn, m), 8)
+    cots[2] = torch.where(torch.isfinite(m), cots[2], 0.0)
+    bargs = (q, k, v, i_pre, f_pre, upd, h, s, ck, mck, K, *cots)
+    got = _mlstm_bwd_model(*bargs)
+    want = xr.mlstm_scan_bwd_ref(*bargs)
+    for name, g, w in zip(("dq", "dk", "dv", "di", "df", "dC0", "dn0", "dm0"),
+                          got, want):
+        _, rel = cs.xl_err(torch, g, w, name)
+        assert rel <= cs.XLSTM_TOL["bwd"], (name, rel)
