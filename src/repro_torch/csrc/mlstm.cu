@@ -31,19 +31,37 @@
 // re-forms the states between two kept ones in its walk (4 a step each,
 // 1.5 steps on average) and forms new again (4 more): see the design.
 //
-// Design of the forward. Column j of [C|n] evolves from fg, ig, k_t and
-// v_t[j] alone, so a CTA owns 32 columns (a lane each) of one (b, h) and
-// 8 warps split the rows (at most 24 a thread, hd <= 192): the cell stays
-// in registers for all T steps and the state is read and written once.
-// Every CTA also carries n (a row a thread), so that it forms q.n and the
-// denominator itself; the stabilizer chain is a few scalar operations a
-// step that every thread repeats. A step's column sums (the read) meet
-// in shared memory, double-buffered by step parity: one __syncthreads a
-// step. The state out is written once, after the step out_at[b] (the
-// last step for the dynamic state, the last committed step for the
-// committed carry, -1 for the state before the block), or after every
-// step with collect; under autograd a checkpoint every K steps and each
-// step's q.n.
+// Design of the forward (mlstm_fwd_kernel). Column j of [C|n] evolves
+// from fg, ig, k_t and v_t[j] alone, so a CTA owns 32 columns (a lane
+// each) of one (b, h) and 8 warps split the rows (at most 24 a thread, hd
+// <= 192; lane l < rpt of warp w also carries row w rpt + l of n): the
+// cell stays in registers for all T steps, and the update needs no
+// barrier. Only the read h_t = (q_t new) / den crosses threads, and it is
+// never fed back, so it is deferred: T is stepped in blocks of kFwdS = 8
+// steps; a step leaves each warp's column partial (its rows, four
+// accumulators) and each thread's q_i n_i in shared memory (two blocks'
+// worth), and after the block's one __syncthreads warp w folds step w of
+// it in a fixed order (the warps in turn for the columns; for q.n each
+// lane the 8 warps in turn, then a butterfly), so h is the same from run
+// to run. The block's inputs are copied a block ahead: warp w copies step
+// w's q and k rows and v of the CTA's columns by cp.async into the other
+// half of a two-block ring; each warp then converts its own rows to float
+// (16-byte loads where its rows line up) for float4 broadcasts, 12 loads a
+// step. The stabilizer's chain needs f, i and upd, not the state, so warp
+// 0 forms the next block's gates (fg, ig, upd, the m before and after,
+// exp(-m_new)) while the others step the current one (three gate blocks
+// in shared memory). An element's update is cell_update (the backward
+// re-forms the states with the same function); k v is rounded two rows to
+// a conversion (kv4). A step that does not update has code of its own
+// rather than a select an element. The state out is written once (after
+// out_at[b]: the last step for the dynamic state, the last committed step
+// for the committed carry, -1 for the state before the block), or after
+// every step with collect into rows padded to whole 32-byte sectors
+// (staged_row: sectors written in parts by two CTAs halved the stores'
+// rate), the n column with its row's pad by 8 lanes a row; under
+// autograd a checkpoint every K steps and each step's q.n. 384 CTAs of 256
+// threads at 13b's shape, three a SM (80 registers, 72,448 bytes of
+// shared memory): one wave.
 //
 // Design of the backward (mlstm_bwd_kernel). The forward's layout: a CTA
 // a (b, h) and 32 columns, 24 rows a thread; three CTAs a SM keep 13b's
@@ -101,6 +119,13 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+// two consecutive elements (4- or 8-byte aligned) as float
+__device__ __forceinline__ float2 pair_f(const float* x) {
+  return *reinterpret_cast<const float2*>(x);
+}
+__device__ __forceinline__ float2 pair_f(const __nv_bfloat16* x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x));
+}
 
 template <typename T>
 __device__ __forceinline__ float round_in(float x);
@@ -146,111 +171,45 @@ __device__ __forceinline__ float lerp_rn(float fg, float p, float ig,
   return __fadd_rn(__fmul_rn(fg, p), __fmul_rn(ig, x));
 }
 
+// One element of [C|n] through a step, given its product kv = round(k v)
+// (k v rounded to the model dtype): fg p + ig kv, each product and the sum
+// rounded once (the plain version's three tensor operations; kv = k for
+// the n column, whose k v is k exactly). The forward and the backward's
+// re-forms of the states call it, so both form the same states bit for
+// bit.
+__device__ __forceinline__ float cell_update(float fg, float p, float ig,
+                                             float kv) {
+  return lerp_rn(fg, p, ig, kv);
+}
+
 template <typename TIn>
-__global__ void __launch_bounds__(kThreads, 3) mlstm_fwd_kernel(
-    const TIn* __restrict__ q, const TIn* __restrict__ k,
-    const TIn* __restrict__ v, const float* __restrict__ ipre,
-    const float* __restrict__ fpre, const float* __restrict__ cn0,
-    const float* __restrict__ m0, const bool* __restrict__ upd,
-    const int* __restrict__ out_at, float* __restrict__ hout,
-    float* __restrict__ cn_out, float* __restrict__ m_out,
-    float* __restrict__ ckpt, float* __restrict__ mck,
-    float* __restrict__ s_hist, int T, int B, int H, int hd, int collect,
-    int K) {
-  __shared__ float part[2][kWarps][kCols];
-  __shared__ float spart[2][kWarps];
-  const int jb = blockIdx.x, bh = blockIdx.y, b = bh / H, hh = bh - b * H;
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const int j = jb * kCols + lane;
-  const bool jv = j < hd;
-  const int rpt = (hd + kWarps - 1) / kWarps, k0 = w * rpt;
-  const int hd1 = hd + 1;
-  const size_t st = (size_t)hd * hd1;
-  const size_t BH = (size_t)B * H;
-  const bool lead = jb == 0;  // the CTA that writes n, m and q.n
-  const bool nv = tid < hd;   // this thread carries n[tid]
+__device__ __forceinline__ float cell_step(float fg, float p, float ig,
+                                           float k, float v) {
+  return cell_update(fg, p, ig, round_in<TIn>(k * v));
+}
 
-  float C[kRpt];
-  const float* src = cn0 + bh * st;
-#pragma unroll
-  for (int r = 0; r < kRpt; ++r) {
-    const int kk = k0 + r;
-    C[r] = (r < rpt && kk < hd && jv) ? src[(size_t)kk * hd1 + j] : 0.f;
-  }
-  float n = nv ? src[(size_t)tid * hd1 + hd] : 0.f;
-  float m = m0[bh];
-
-  auto put = [&](float* dst, float* mdst) {
-#pragma unroll
-    for (int r = 0; r < kRpt; ++r) {
-      const int kk = k0 + r;
-      if (r < rpt && kk < hd && jv) dst[(size_t)kk * hd1 + j] = C[r];
-    }
-    if (lead && nv) dst[(size_t)tid * hd1 + hd] = n;
-    if (lead && tid == 0) *mdst = m;
-  };
-  auto staged = [&](int t1) {  // index t1 of the (B, T+1, H, ...) stage
-    const size_t o = ((size_t)b * (T + 1) + t1) * H + hh;
-    put(cn_out + o * st, m_out + o);
-  };
-  const int oat = collect ? T : out_at[b];
-  if (collect)
-    staged(0);
-  else if (oat < 0)
-    put(cn_out + bh * st, m_out + bh);
-
-  for (int t = 0; t < T; ++t) {
-    if (ckpt != nullptr && t % K == 0)
-      put(ckpt + ((size_t)(t / K) * BH + bh) * st, mck + (t / K) * BH + bh);
-    const size_t row = ((size_t)t * B + b) * H + hh;
-    const Gate g = gate(fpre[row], ipre[row], m);
-    const bool u = upd == nullptr || upd[(size_t)t * B + b];
-    const TIn* qr = q + row * hd;
-    const TIn* kr = k + row * hd;
-    const float vj = jv ? to_f(v[row * hd + j]) : 0.f;
-    float acc0 = 0.f, acc1 = 0.f;
-#pragma unroll
-    for (int r = 0; r < kRpt; ++r) {
-      const int kk = k0 + r;
-      if (r < rpt && kk < hd) {
-        const float kv = round_in<TIn>(to_f(kr[kk]) * vj);
-        const float nw = lerp_rn(g.fg, C[r], g.ig, kv);
-        const float p = to_f(qr[kk]) * nw;
-        if (r & 1)
-          acc1 += p;
-        else
-          acc0 += p;
-        if (u) C[r] = nw;
-      }
-    }
-    float sp = 0.f;
-    if (nv) {
-      const float nn = lerp_rn(g.fg, n, g.ig, to_f(kr[tid]));
-      sp = to_f(qr[tid]) * nn;
-      if (u) n = nn;
-    }
-    sp = warp_sum(sp);
-    const int buf = t & 1;
-    part[buf][w][lane] = acc0 + acc1;
-    if (lane == 0) spart[buf][w] = sp;
-    __syncthreads();
-    if (w == 0) {
-      float rd = 0.f, s = 0.f;
-#pragma unroll
-      for (int i = 0; i < kWarps; ++i) {
-        rd += part[buf][i][lane];
-        s += spart[buf][i];
-      }
-      const float den = fmaxf(fabsf(s), expf(-g.mn));
-      if (jv) hout[row * hd + j] = rd / den;
-      if (lead && lane == 0 && s_hist != nullptr) s_hist[row] = s;
-    }
-    if (u) m = g.mn;
-    if (collect)
-      staged(t + 1);
-    else if (t == oat)
-      put(cn_out + bh * st, m_out + bh);
-  }
+// k v of four rows at once, rounded as round_in rounds it, two products
+// to a conversion (the forward's products)
+template <typename TIn>
+__device__ __forceinline__ void kv4(const float4& k4, float v,
+                                    float (&kv)[4]);
+template <>
+__device__ __forceinline__ void kv4<float>(const float4& k4, float v,
+                                           float (&kv)[4]) {
+  kv[0] = k4.x * v;
+  kv[1] = k4.y * v;
+  kv[2] = k4.z * v;
+  kv[3] = k4.w * v;
+}
+template <>
+__device__ __forceinline__ void kv4<__nv_bfloat16>(const float4& k4, float v,
+                                                   float (&kv)[4]) {
+  const float2 a = __bfloat1622float2(__floats2bfloat162_rn(k4.x * v, k4.y * v));
+  const float2 c = __bfloat1622float2(__floats2bfloat162_rn(k4.z * v, k4.w * v));
+  kv[0] = a.x;
+  kv[1] = a.y;
+  kv[2] = c.x;
+  kv[3] = c.y;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -274,11 +233,387 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// ns runs of nbytes (a multiple of the element size) at src, src +
+// sstride, ... into dst, dst + dstride, ... (bytes), copied by the CTA's
+// kThreads threads: 16-byte cp.async where both sides allow, 4-byte ones
+// where `words` (every run a multiple of 4 bytes, 4-byte aligned), else
+// plain 2-byte loads and stores
+__device__ __forceinline__ void stage_runs(void* dst, int dstride,
+                                           const void* src, size_t sstride,
+                                           int nbytes, int ns, bool words) {
+  const int tid = threadIdx.x;
+  char* d = static_cast<char*>(dst);
+  const char* x = static_cast<const char*>(src);
+  if (words && nbytes % 16 == 0 && dstride % 16 == 0 && sstride % 16 == 0 &&
+      ((uintptr_t)x & 15) == 0) {
+    const int W = nbytes / 16;
+    for (int e = tid; e < ns * W; e += kThreads) {
+      const int r = e / W, wi = e - r * W;
+      cp_async16(d + r * dstride + wi * 16, x + r * sstride + wi * 16);
+    }
+  } else if (words) {
+    const int W = nbytes / 4;
+    for (int e = tid; e < ns * W; e += kThreads) {
+      const int r = e / W, wi = e - r * W;
+      cp_async4(d + r * dstride + wi * 4, x + r * sstride + wi * 4);
+    }
+  } else {
+    const int W = nbytes / 2;
+    for (int e = tid; e < ns * W; e += kThreads) {
+      const int r = e / W, wi = e - r * W;
+      reinterpret_cast<uint16_t*>(d + r * dstride)[wi] =
+          reinterpret_cast<const uint16_t*>(x + r * sstride)[wi];
+    }
+  }
+}
+
+// one run of nbytes at src into dst, by the calling warp's lanes (the
+// copies stage_runs makes)
+__device__ __forceinline__ void stage_run_warp(void* dst, const void* src,
+                                               int nbytes, bool words,
+                                               int lane) {
+  char* d = static_cast<char*>(dst);
+  const char* x = static_cast<const char*>(src);
+  if (words && nbytes % 16 == 0 && ((uintptr_t)x & 15) == 0 &&
+      (smem_addr(d) & 15) == 0) {
+    for (int wi = lane; wi < nbytes / 16; wi += 32)
+      cp_async16(d + wi * 16, x + wi * 16);
+  } else if (words) {
+    for (int wi = lane; wi < nbytes / 4; wi += 32)
+      cp_async4(d + wi * 4, x + wi * 4);
+  } else {
+    for (int wi = lane; wi < nbytes / 2; wi += 32)
+      reinterpret_cast<uint16_t*>(d)[wi] =
+          reinterpret_cast<const uint16_t*>(x)[wi];
+  }
+}
+
+constexpr int kMaxHd = kWarps * kRpt;
+constexpr int kR4 = kRpt / 4;  // float4s of a thread's rows
+
+// The forward's plan (mlstm_fwd_plan in kernels/xlstm/ops.py): blocks of
+// kFwdS steps, one a warp at the fold. Dynamic shared memory, in floats: a
+// two-block ring of the raw inputs (q and k rows in the input type, room
+// for float; v of the CTA's columns), each warp's q and k rows of the
+// block as float (its kRpt rows a step, zero past its rows and hd), three
+// blocks of gates (8 a step: fg, ig, upd, the m before and after the
+// step, exp(-m_new)), and two blocks of the read's partials (a warp's
+// column sums, a thread's q_i n_i).
+constexpr int kFwdS = kWarps;
+constexpr int kFrQ = 0;
+constexpr int kFrK = kFrQ + kFwdS * kMaxHd;
+constexpr int kFrV = kFrK + kFwdS * kMaxHd;
+constexpr int kFwdRing = kFrV + kFwdS * kCols;
+constexpr int kFsRows = 2 * kFwdRing;                          // [kWarps][S][2][kRpt]
+constexpr int kFsGates = kFsRows + kWarps * kFwdS * 2 * kRpt;  // [3][S][8]
+constexpr int kFsPart = kFsGates + 3 * kFwdS * 8;              // [2][S][kWarps][kCols]
+constexpr int kFsN = kFsPart + 2 * kFwdS * kWarps * kCols;     // [2][S][kThreads]
+constexpr int kFsFloats = kFsN + 2 * kFwdS * kThreads;
+
+template <typename TIn>
+struct FwdArgs {
+  const TIn *q, *k, *v;
+  const float *ipre, *fpre, *cn0, *m0;
+  const bool* upd;
+  const int* out_at;
+  float *hout, *cn_out, *m_out, *ckpt, *mck, *s_hist;
+  int T, B, H, hd, collect, K, words;
+  int srs;  // the staged states' row stride (collect)
+};
+
+// The staged states' rows (collect) are padded to whole 32-byte sectors,
+// so that every store of a row's columns by a warp fills the sectors it
+// touches (with rows hd + 1 floats apart, sectors written in parts by
+// two CTAs made the verify shape's stores take twice as long on the
+// card); the wrapper allocates them so and returns the view of the first
+// hd + 1 columns.
+__host__ __device__ constexpr int staged_row(int hd) { return (hd + 1 + 7) / 8 * 8; }
+
+template <typename TIn>
+__global__ void __launch_bounds__(kThreads, 3)
+    mlstm_fwd_kernel(const FwdArgs<TIn> a) {
+  extern __shared__ __align__(16) float sm[];
+  const int T = a.T, B = a.B, H = a.H, hd = a.hd, K = a.K;
+  const int jb = blockIdx.x, bh = blockIdx.y, b = bh / H, hh = bh - b * H;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int j = jb * kCols + lane;
+  const bool jv = j < hd;
+  const int rpt = (hd + kWarps - 1) / kWarps, k0 = w * rpt;
+  const int hd1 = hd + 1;
+  const size_t st = (size_t)hd * hd1;
+  const size_t BH = (size_t)B * H;
+  const bool lead = jb == 0;  // the CTA that writes n, m and q.n
+  const int nr = k0 + lane;   // the row of n this thread carries, if nv
+  const bool nv = lane < rpt && nr < hd;
+  float* wrows = sm + kFsRows + w * kFwdS * 2 * kRpt;
+  float* part = sm + kFsPart;
+  float* nsp = sm + kFsN;
+  auto gates = [&](int blk) { return sm + kFsGates + (blk % 3) * kFwdS * 8; };
+  auto srow = [&](int t) { return ((size_t)t * B + b) * H + hh; };
+
+  // block blk's inputs into its ring half, warp w copying step w: the q
+  // and k rows and v of the CTA's columns
+  const int es = (int)sizeof(TIn);
+  auto issue = [&](int blk) {
+    const int t = blk * kFwdS + w;
+    if (t < T) {
+      float* d = sm + (blk & 1) * kFwdRing;
+      const size_t o = srow(t) * hd;
+      stage_run_warp(d + kFrQ + w * kMaxHd * es / 4, a.q + o, hd * es, a.words, lane);
+      stage_run_warp(d + kFrK + w * kMaxHd * es / 4, a.k + o, hd * es, a.words, lane);
+      stage_run_warp(d + kFrV + w * kCols * es / 4, a.v + o + jb * kCols,
+                     min(kCols, hd - jb * kCols) * es, a.words, lane);
+    }
+  };
+  // f, i and upd of block blk's steps, a lane of warp 0 a step, into
+  // registers: warp 0 forms the block's gates a block ahead of its steps
+  float nf = 0.f, ni = 0.f, nu = 0.f;
+  auto gates_in = [&](int blk) {
+    const int t = blk * kFwdS + lane;
+    nf = ni = nu = 0.f;
+    if (lane < kFwdS && t < T) {
+      nf = a.fpre[srow(t)];
+      ni = a.ipre[srow(t)];
+      nu = (a.upd == nullptr || a.upd[(size_t)t * B + b]) ? 1.f : 0.f;
+    }
+  };
+  issue(0);  // the first block's inputs in flight while the state loads
+  cp_async_commit();
+  if (w == 0) gates_in(0);
+
+  float C[kRpt];
+  const float* src = a.cn0 + bh * st;
+#pragma unroll
+  for (int r = 0; r < kRpt; ++r) {
+    const int kk = k0 + r;
+    C[r] = (r < rpt && kk < hd && jv) ? src[(size_t)kk * hd1 + j] : 0.f;
+  }
+  float n = nv ? src[(size_t)nr * hd1 + hd] : 0.f;
+  float m = a.m0[bh];  // the stabilizer: warp 0 steps it a block ahead
+
+  auto put = [&](float* dst, float* mdst, float mv, int rs) {  // rows rs apart
+#pragma unroll
+    for (int r = 0; r < kRpt; ++r) {
+      const int kk = k0 + r;
+      if (r < rpt && kk < hd && jv) dst[(size_t)kk * rs + j] = C[r];
+    }
+    if (lead && nv) dst[(size_t)nr * rs + hd] = n;
+    if (lead && tid == 0) *mdst = mv;
+  };
+  // index t1 of the (B, T+1, H, ...) stage, rows a.srs apart: where hd is
+  // a multiple of 8, the n column goes out with its row's pad as whole
+  // sectors, 8 lanes a row
+  auto staged = [&](int t1, float mv) {
+    const size_t o = ((size_t)b * (T + 1) + t1) * H + hh;
+    float* dst = a.cn_out + o * hd * a.srs;
+#pragma unroll
+    for (int r = 0; r < kRpt; ++r) {
+      const int kk = k0 + r;
+      if (r < rpt && kk < hd && jv) dst[(size_t)kk * a.srs + j] = C[r];
+    }
+    if (lead && hd % 8 == 0) {
+#pragma unroll
+      for (int i = 0; i < kRpt / 4; ++i) {
+        const int rr = 4 * i + lane / 8;
+        const float x = __shfl_sync(0xffffffffu, n, rr);
+        if (rr < rpt && k0 + rr < hd)
+          dst[(size_t)(k0 + rr) * a.srs + hd + lane % 8] = lane % 8 ? 0.f : x;
+      }
+    } else if (lead && nv) {
+      dst[(size_t)nr * a.srs + hd] = n;
+    }
+    if (lead && tid == 0) a.m_out[o] = mv;
+  };
+  const int oat = a.collect ? T : a.out_at[b];
+  if (a.collect)
+    staged(0, m);
+  else if (oat < 0)
+    put(a.cn_out + bh * st, a.m_out + bh, m, hd1);
+
+  // block blk's gates by warp 0 (f, i, upd in its lanes' registers): log
+  // sigmoid(f) a lane a step, the stabilizer's chain through the block's
+  // steps, then fg, ig and exp(-m_new) a lane a step, as gate() forms them
+  auto form_gates = [&](int blk) {
+    const float ls = log_sigmoid(nf);
+    float mc = m, a_l = 0.f, mn_l = 0.f, mp_l = 0.f, ma_l = 0.f;
+#pragma unroll
+    for (int s = 0; s < kFwdS; ++s) {
+      const float ga = __shfl_sync(0xffffffffu, ls, s) + mc;
+      const float gi = __shfl_sync(0xffffffffu, ni, s);
+      const bool us = __shfl_sync(0xffffffffu, nu, s) != 0.f;
+      const float mx = fmaxf(ga, gi);
+      const float mn = isfinite(mx) ? mx : gi;
+      if (lane == s) {
+        a_l = ga;
+        mn_l = mn;
+        mp_l = mc;
+      }
+      if (us) mc = mn;
+      if (lane == s) ma_l = mc;
+    }
+    m = mc;
+    if (lane < kFwdS) {
+      float* g = gates(blk) + lane * 8;
+      g[0] = isfinite(mp_l) ? expf(a_l - mn_l) : 0.f;
+      g[1] = expf(ni - mn_l);
+      g[2] = nu;
+      g[3] = mp_l;
+      g[4] = ma_l;
+      g[5] = expf(-mn_l);
+    }
+  };
+  // the read of block pblk's steps, warp w folding step w: the column sums
+  // over the warps in order, q.n over the threads (each lane the 8 warps'
+  // in order, then a butterfly), then h and q.n written
+  auto fold = [&](int pblk) {
+    const int pb0 = pblk * kFwdS, pns = min(kFwdS, T - pb0), s = w;
+    const int buf = pblk & 1;
+    if (s >= pns) return;
+    const float* pp = part + (buf * kFwdS + s) * kWarps * kCols + lane;
+    float rd = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) rd += pp[i * kCols];
+    const float* np_ = nsp + (buf * kFwdS + s) * kThreads + lane;
+    float x = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) x += np_[32 * i];
+    const float tot = warp_sum(x);
+    const float den = fmaxf(fabsf(tot), gates(pblk)[s * 8 + 5]);
+    const size_t row = srow(pb0 + s);
+    if (jv) a.hout[row * hd + j] = rd / den;
+    if (lead && lane == 0 && a.s_hist != nullptr) a.s_hist[row] = tot;
+  };
+
+  const int nblk = (T + kFwdS - 1) / kFwdS;
+  if (w == 0) {
+    form_gates(0);
+    if (nblk > 1) gates_in(1);
+  }
+  int ck = 0;  // the next checkpoint's step
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int blk = 0; blk < nblk; ++blk) {
+    const int b0 = blk * kFwdS, ns = min(kFwdS, T - b0), buf = blk & 1;
+    if (blk > 0) fold(blk - 1);
+    if (blk + 1 < nblk) issue(blk + 1);
+    cp_async_commit();
+    if (w == 0 && blk + 1 < nblk) {  // the next block's gates
+      form_gates(blk + 1);
+      if (blk + 2 < nblk) gates_in(blk + 2);
+    }
+    const float* ring = sm + buf * kFwdRing;
+    const TIn* rq = reinterpret_cast<const TIn*>(ring + kFrQ);
+    const TIn* rk = reinterpret_cast<const TIn*>(ring + kFrK);
+    const TIn* rv = reinterpret_cast<const TIn*>(ring + kFrV);
+    // the warp's rows of the block as float: eight at a time from 16-byte
+    // loads where whole rows line up (every row of the warp in range, 16
+    // bytes apart), else two at a time (zero past its rows and hd)
+    constexpr int kV = 16 / sizeof(TIn);  // elements a 16-byte load
+    if (rpt == kRpt && k0 + kRpt <= hd && (k0 * sizeof(TIn)) % 16 == 0) {
+      for (int e = lane; e < kFwdS * 2 * kRpt / kV; e += 32) {
+        const int s = e / (2 * kRpt / kV), rem = e - s * (2 * kRpt / kV);
+        const int which = rem / (kRpt / kV), r = kV * (rem - which * (kRpt / kV));
+        float y[kV];
+        const TIn* x = (which ? rk : rq) + s * kMaxHd + k0 + r;
+        const uint4 raw = *reinterpret_cast<const uint4*>(x);
+        const TIn* xv = reinterpret_cast<const TIn*>(&raw);
+#pragma unroll
+        for (int q = 0; q < kV; ++q) y[q] = s < ns ? to_f(xv[q]) : 0.f;
+        float4* d = reinterpret_cast<float4*>(wrows + s * 2 * kRpt + which * kRpt + r);
+#pragma unroll
+        for (int q = 0; q < kV / 4; ++q)
+          d[q] = make_float4(y[4 * q], y[4 * q + 1], y[4 * q + 2], y[4 * q + 3]);
+      }
+    } else {
+#pragma unroll
+    for (int i = 0; i < kFwdS * kRpt / 32; ++i) {
+      const int e = lane + 32 * i;  // the pair (r, r + 1) of q or k at step s
+      const int s = e / kRpt, rem = e - s * kRpt;
+      const int which = rem / (kRpt / 2), r = 2 * (rem - which * (kRpt / 2));
+      const int kk = k0 + r;
+      const TIn* x = (which ? rk : rq) + s * kMaxHd + kk;
+      const bool v0 = s < ns && r < rpt && kk < hd;
+      const bool v1 = s < ns && r + 1 < rpt && kk + 1 < hd;
+      float2 y = make_float2(0.f, 0.f);
+      if (v1 && (kk & 1) == 0) {
+        y = pair_f(x);
+      } else {
+        if (v0) y.x = to_f(x[0]);
+        if (v1) y.y = to_f(x[1]);
+      }
+      reinterpret_cast<float2*>(wrows)[e] = y;
+    }
+    }
+    __syncwarp();
+    const float* g = gates(blk);
+    for (int s = 0; s < ns; ++s) {
+      const int t = b0 + s;
+      const float4 g0 = *reinterpret_cast<const float4*>(g + s * 8);
+      if (a.ckpt != nullptr && t == ck) {
+        put(a.ckpt + ((size_t)(t / K) * BH + bh) * st,
+            a.mck + (t / K) * BH + bh, g0.w, hd1);
+        ck += K;
+      }
+      const float fg = g0.x, ig = g0.y;
+      const float vj = jv ? to_f(rv[s * kCols + lane]) : 0.f;
+      const float4* q4 = reinterpret_cast<const float4*>(wrows + s * 2 * kRpt);
+      const float4* k4 = q4 + kR4;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      // the state's rows through the step (kept only where it updates) and
+      // their share of the read, in four accumulators; rows past the
+      // thread's own are zero and stay zero
+      // (a step that does not update forms the same products with the
+      // sum's operands swapped: the same bits, and code of its own, not
+      // the updating step's with a select an element)
+      auto rows = [&](auto keep) {
+#pragma unroll
+        for (int r4 = 0; r4 < kR4; ++r4) {
+          const float4 qq = q4[r4];
+          const float qx[4] = {qq.x, qq.y, qq.z, qq.w};
+          float kv[4];
+          kv4<TIn>(k4[r4], vj, kv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (decltype(keep)::value) {
+              const float nw = cell_update(fg, C[4 * r4 + e], ig, kv[e]);
+              acc[e] = fmaf(qx[e], nw, acc[e]);
+              C[4 * r4 + e] = nw;
+            } else {
+              const float nw =
+                  __fadd_rn(__fmul_rn(ig, kv[e]), __fmul_rn(fg, C[4 * r4 + e]));
+              acc[e] = fmaf(qx[e], nw, acc[e]);
+            }
+          }
+        }
+      };
+      const bool u = g0.z != 0.f;
+      if (u)
+        rows(std::true_type{});
+      else
+        rows(std::false_type{});
+      part[((buf * kFwdS + s) * kWarps + w) * kCols + lane] =
+          (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      {  // the n column (k v is k exactly), row nr from the warp's rows
+        const float nn = cell_update(fg, n, ig, wrows[s * 2 * kRpt + kRpt + lane % kRpt]);
+        const float qn = wrows[s * 2 * kRpt + lane % kRpt] * nn;
+        nsp[(buf * kFwdS + s) * kThreads + tid] = nv ? qn : 0.f;
+        if (u && nv) n = nn;
+      }
+      if (a.collect)
+        staged(t + 1, g[s * 8 + 4]);
+      else if (t == oat)
+        put(a.cn_out + bh * st, a.m_out + bh, g[s * 8 + 4], hd1);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the block's partials and the next block's gates
+                      // are in; the next block has landed
+  }
+  fold(nblk - 1);
+}
+
 // The backward's plan (mlstm_bwd_plan in kernels/xlstm/ops.py):
 constexpr int kGroup = 4;  // the walk keeps the state before every kGroup-th step
 constexpr int kSub = kGroup;  // steps staged at a time: one group
-constexpr int kMaxHd = kWarps * kRpt;
-constexpr int kR4 = kRpt / 4;  // float4s of a thread's rows
 // scratch floats a CTA keeps a group: the rows ([kR4][kThreads] float4)
 // and the n column ([kThreads])
 constexpr int kGroupFloats = kR4 * 4 * kThreads + kThreads;
@@ -366,42 +701,13 @@ __global__ void __launch_bounds__(kThreads, 3)
   float* scr = a.scratch + ((size_t)bh * njb + jb) * ng * kGroupFloats;
   auto srow = [&](int t) { return ((size_t)t * B + b) * H + hh; };
 
-  // ns runs of nbytes (a multiple of the element size) at src, src +
-  // sstride, ... into dst, dst + dstride, ... (bytes): 16-byte copies
-  // where both allow, else 4-byte copies (a.words: every run a multiple
-  // of 4 bytes), else plain 2-byte loads and stores
-  auto stage_runs = [&](void* dst, int dstride, const void* src, size_t sstride,
-                        int nbytes, int ns) {
-    char* d = static_cast<char*>(dst);
-    const char* x = static_cast<const char*>(src);
-    if (a.words && nbytes % 16 == 0 && dstride % 16 == 0 && sstride % 16 == 0 &&
-        ((uintptr_t)x & 15) == 0) {
-      const int W = nbytes / 16;
-      for (int e = tid; e < ns * W; e += kThreads) {
-        const int r = e / W, wi = e - r * W;
-        cp_async16(d + r * dstride + wi * 16, x + r * sstride + wi * 16);
-      }
-    } else if (a.words) {
-      const int W = nbytes / 4;
-      for (int e = tid; e < ns * W; e += kThreads) {
-        const int r = e / W, wi = e - r * W;
-        cp_async4(d + r * dstride + wi * 4, x + r * sstride + wi * 4);
-      }
-    } else {
-      const int W = nbytes / 2;
-      for (int e = tid; e < ns * W; e += kThreads) {
-        const int r = e / W, wi = e - r * W;
-        reinterpret_cast<uint16_t*>(d + r * dstride)[wi] =
-            reinterpret_cast<const uint16_t*>(x + r * sstride)[wi];
-      }
-    }
-  };
   const size_t rstride = (size_t)H * hd;  // elements between one step's rows
   // rows of x (TIn, hd a row) for steps t1.., ns of them, into dst (a
   // kMaxHd stride)
   auto stage_rows = [&](float* dst, const TIn* x, int t1, int ns) {
     stage_runs(dst, kMaxHd * (int)sizeof(TIn), x + srow(t1) * hd,
-               (size_t)B * rstride * sizeof(TIn), hd * (int)sizeof(TIn), ns);
+               (size_t)B * rstride * sizeof(TIn), hd * (int)sizeof(TIn), ns,
+               a.words);
   };
   // this CTA's columns of x (TIn or float) for steps t1..: n columns
   // rounded up to the copy's 4 bytes (the rest masked where read)
@@ -409,7 +715,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     const int es = (int)sizeof(*x);
     const int n = min(kCols, hd - jb * kCols);
     stage_runs(dst, kCols * es, x + srow(t1) * hd + jb * kCols,
-               (size_t)B * rstride * es, n * es, ns);
+               (size_t)B * rstride * es, n * es, ns, a.words);
   };
   auto stg = [&](int buf) { return sm + kSmStg + buf * kStgFloats; };
 
@@ -521,9 +827,9 @@ __global__ void __launch_bounds__(kThreads, 3)
           for (int r = 0; r < kRpt; ++r) {
             const int kk = k0 + r;
             if (r < rpt && kk < hd)
-              P[r] = lerp_rn(fg, P[r], ig, round_in<TIn>(to_f(kr[kk]) * vj));
+              P[r] = cell_step<TIn>(fg, P[r], ig, to_f(kr[kk]), vj);
           }
-          if (lead && nv) pn = lerp_rn(fg, pn, ig, to_f(kr[tid]));
+          if (lead && nv) pn = cell_step<TIn>(fg, pn, ig, to_f(kr[tid]), 1.f);
         }
       }
     }
@@ -620,7 +926,7 @@ __global__ void __launch_bounds__(kThreads, 3)
             const TIn* k2 = sk + ii * kMaxHd + k0 + 4 * r4;
 #pragma unroll
             for (int e4 = 0; e4 < 4; ++e4)
-              pv[e4] = lerp_rn(f2, pv[e4], i2, round_in<TIn>(to_f(k2[e4]) * v2));
+              pv[e4] = cell_step<TIn>(f2, pv[e4], i2, to_f(k2[e4]), v2);
           }
           float x[8];
 #pragma unroll
@@ -631,7 +937,7 @@ __global__ void __launch_bounds__(kThreads, 3)
               const float p = pv[e4];
               const float kf = to_f(krow[kk]);
               const float kv = round_in<TIn>(kf * vj);
-              const float nw = lerp_rn(fg, p, ig, kv);
+              const float nw = cell_step<TIn>(fg, p, ig, kf, vj);
               const float g0 = Gs[r * kThreads];
               const float gnew = (u ? g0 : 0.f) + to_f(qrow[kk]) * dr;
               dfg += gnew * p;
@@ -652,9 +958,10 @@ __global__ void __launch_bounds__(kThreads, 3)
           float p = pna[tid];
           for (int ii = 0; ii < ri; ++ii)
             if (s_u[q0 + ii] != 0.f)
-              p = lerp_rn(s_fg[q0 + ii], p, s_ig[q0 + ii], to_f(sk[ii * kMaxHd + tid]));
+              p = cell_step<TIn>(s_fg[q0 + ii], p, s_ig[q0 + ii],
+                                to_f(sk[ii * kMaxHd + tid]), 1.f);
           const float kf = to_f(krow[tid]);
-          const float nn = lerp_rn(fg, p, ig, kf);
+          const float nn = cell_step<TIn>(fg, p, ig, kf, 1.f);
           const float gnn = (u ? Gn : 0.f) + to_f(qrow[tid]) * ds;
           dfg += gnn * p;
           dig += gnn * kf;
@@ -786,13 +1093,23 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* ipre,
                const void* upd, const void* out_at, void* h, void* cn,
                void* m, void* ckpt, void* mck, void* s, int T, int B, int H,
                int hd, int collect, int K, cudaStream_t st) {
+  const size_t smem = (size_t)kFsFloats * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      mlstm_fwd_kernel<TIn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const FwdArgs<TIn> a{(const TIn*)q, (const TIn*)k, (const TIn*)v,
+                       (const float*)ipre, (const float*)fpre,
+                       (const float*)cn0, (const float*)m0, (const bool*)upd,
+                       (const int*)out_at, (float*)h, (float*)cn, (float*)m,
+                       (float*)ckpt, (float*)mck, (float*)s, T, B, H, hd,
+                       collect, K > 0 ? K : 1,
+                       (hd * (int)sizeof(TIn)) % 4 == 0 &&
+                           (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) &
+                            3) == 0,
+                       collect ? staged_row(hd) : hd + 1};
   dim3 grid((hd + kCols - 1) / kCols, B * H);
-  mlstm_fwd_kernel<TIn><<<grid, kThreads, 0, st>>>(
-      (const TIn*)q, (const TIn*)k, (const TIn*)v, (const float*)ipre,
-      (const float*)fpre, (const float*)cn0, (const float*)m0,
-      (const bool*)upd, (const int*)out_at, (float*)h, (float*)cn,
-      (float*)m, (float*)ckpt, (float*)mck, (float*)s, T, B, H, hd, collect,
-      K > 0 ? K : 1);
+  mlstm_fwd_kernel<TIn><<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -851,6 +1168,9 @@ extern "C" int mlstm_fwd(const void* q, const void* k, const void* v,
                                   h, cn, m, ckpt, mck, s, T, B, H, hd,
                                   collect, K, st);
 }
+
+// the staged states' row stride (collect; the layout the wrapper allocates)
+extern "C" int mlstm_staged_row(int hd) { return staged_row(hd); }
 
 // the backward's group size (the scratch layout the wrapper allocates)
 extern "C" int mlstm_bwd_layout() { return kGroup; }

@@ -55,21 +55,36 @@
 // the product is tanh, c, n and one division. h_t is exchanged
 // double-buffered: one __syncthreads a step. The state out is written
 // once (after out_at[b]), or after every step with collect; under
-// autograd [c, n, m] every K steps (h_{t-1} is the output). rec_ordered
-// is the product in the same order, a thread an element: the backward's
-// recompute calls it and re-forms the forward's z bit for bit.
+// autograd [c, n, m] every K steps (h_{t-1} is the output). The product's
+// order lives in slice_dot and butterfly, which the backward's recompute
+// of z calls too.
 //
-// The backward (slstm_bwd_kernel) keeps one thread an element of h and R
-// (hd x hd+1, padded) in dynamic shared memory (148 KB at hd 192). It
-// walks T in reverse a chunk of K steps at a time: it recomputes the
-// chunk from its checkpoint (z needs h_{t-1} R, with h_{t-1} read from
-// the forward's output), keeping c, n, m before each step and z in
-// global scratch, and walks the chunk back carrying the adjoints of c,
-// n, h and m in registers. The adjoint of h_{t-1} is dz R_h^T, a row of
-// R a thread; nothing is divided back out of the recurrence. dR = sum
-// over (t, b) of h_{t-1} (x) dz crosses CTAs, so a second, deterministic
-// pass forms it from the backward's dz and the forward's h, each output
-// summed over (t, b) in order.
+// The backward runs three passes, each the same sums from run to run.
+// slstm_bwd_rec_kernel recomputes the forward's z for every (t, b) at
+// once: h_{t-1} is the forward's output, so no product waits on another;
+// it is the forward's split (R's column slices in registers, slice_dot
+// and butterfly, 4 rows at a time, the rows a block ahead by cp.async),
+// so z is the forward's bit for bit, and it fills the card (a head's (t,
+// b) rows in n_sm / H ranges). z goes into dz's buffer. slstm_bwd_kernel
+// walks T in reverse a chunk of K steps at a time, a CTA a head and group
+// of rb rows (the forward's rule), in the forward's thread layout: p
+// threads a group of c outputs, each over a slice of R's rows held in
+// registers (R^T's columns, float4 loads once a launch). A chunk first
+// runs its chain forward from the [c, n, m] checkpoint, each owner its
+// elements, z from dz's buffer, the loads kChainAhead steps ahead: c and
+// n before each step, z, fg, ig, the max's case and sigmoid(-f) into
+// scratch (kBwdFields floats an element a step). The walk back then forms
+// no gate: a step's scratch, o and dhs come a step ahead in registers,
+// the owners form the adjoint (the stabilizer's rules as
+// slstm_scan_bwd_ref has them: a tie splits the max's adjoint half and
+// half, m = -inf, the 1e-6 guard) and put dz_t in a double-buffered
+// shared row, and after one __syncthreads every thread forms its slices
+// of dh_{t-1} = dz_t R^T from float4 broadcasts, met by the butterfly.
+// dR = sum over (t, b) of h_{t-1} (x) dz crosses CTAs: slstm_dr_kernel
+// sums a 64 x 64 tile of a head over one of dr_splits fixed ranges of
+// rows p = t B + b (4 x 4 outputs a thread, 32 rows staged at a time by
+// cp.async, each output in row order), and slstm_dr_sum_kernel adds the
+// ranges in order. Nothing is divided back out of the recurrence.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,14 +119,6 @@ __device__ __forceinline__ float lerp_rn(float fg, float p, float ig,
   return __fadd_rn(__fmul_rn(fg, p), __fmul_rn(ig, x));
 }
 
-// R_h into shared memory as [hd][hd+1]
-__device__ __forceinline__ void load_r(float* Rs, const float* R, int hh,
-                                       int hd) {
-  const float* Rg = R + (size_t)hh * hd * hd;
-  for (int idx = threadIdx.x; idx < hd * hd; idx += blockDim.x)
-    Rs[(idx / hd) * (hd + 1) + idx % hd] = Rg[idx];
-}
-
 // The forward's split of a dot product over k: p threads a group of c
 // output columns, each over a slice of len k's (a multiple of 4; zero
 // past hd): 8 threads a group of 4 columns up to hd 192, 4 threads a
@@ -125,40 +132,49 @@ __host__ __device__ inline Split split_of(int hd) {
   return {p, c, ((hd + p - 1) / p + 3) / 4 * 4};
 }
 
-// h_{t-1} R_h's column j (R's rows rstride apart) in the forward's order:
-// each slice by fmaf into four accumulators a float4 at a time, combined
-// (a0 + a1) + (a2 + a3); the slices by the forward's butterfly, slice l
-// plus slice l + o for o = p/2, ..., 1.
-__device__ __forceinline__ float rec_ordered(const float* h, const float* Rc,
-                                             int rstride, int hd, Split sp) {
-  float part[8];
+// One row's slice of a split product: this thread's slice of x (float4s
+// in shared memory) times its c columns' slices of a matrix held in
+// registers, by fmaf into four accumulators a column, combined (a0 + a1)
+// + (a2 + a3). With butterfly() it is the order of every split product
+// here: the forward's h_{t-1} R_h and the backward's recompute of it (so
+// the backward's z is the forward's bit for bit), and dz_t R_h^T.
+template <int NV, int C>
+__device__ __forceinline__ void slice_dot(const float4* x4,
+                                          const float4 (&M)[C][NV], int nv,
+                                          float (&out)[C]) {
+  float a0[C], a1[C], a2[C], a3[C];
 #pragma unroll
-  for (int s = 0; s < 8; ++s) {
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    if (s < sp.p) {
-      for (int k = s * sp.len; k < (s + 1) * sp.len; k += 4) {
-        float x[4], r[4];
+  for (int cc = 0; cc < C; ++cc) a0[cc] = a1[cc] = a2[cc] = a3[cc] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          x[e] = k + e < hd ? h[k + e] : 0.f;
-          r[e] = k + e < hd ? Rc[(size_t)(k + e) * rstride] : 0.f;
-        }
-        a0 = fmaf(x[0], r[0], a0);
-        a1 = fmaf(x[1], r[1], a1);
-        a2 = fmaf(x[2], r[2], a2);
-        a3 = fmaf(x[3], r[3], a3);
+  for (int v = 0; v < NV; ++v) {
+    if (v < nv) {
+      const float4 x = x4[v];
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc) {
+        a0[cc] = fmaf(x.x, M[cc][v].x, a0[cc]);
+        a1[cc] = fmaf(x.y, M[cc][v].y, a1[cc]);
+        a2[cc] = fmaf(x.z, M[cc][v].z, a2[cc]);
+        a3[cc] = fmaf(x.w, M[cc][v].w, a3[cc]);
       }
     }
-    part[s] = (a0 + a1) + (a2 + a3);
   }
 #pragma unroll
-  for (int o = 4; o >= 1; o >>= 1) {
-    if (o < sp.p) {
+  for (int cc = 0; cc < C; ++cc) out[cc] = (a0[cc] + a1[cc]) + (a2[cc] + a3[cc]);
+}
+
+// The slices' sums met over the P lanes of a group by shuffles, slice l
+// plus slice l + o for o = P/2, ..., 1: a fixed tree that gives every lane
+// every sum, the same bits on every run.
+template <int P, int R, int N>
+__device__ __forceinline__ void butterfly(float (&x)[R][N]) {
 #pragma unroll
-      for (int l = 0; l < o; ++l) part[l] = part[l] + part[l + o];
-    }
+  for (int o = P / 2; o >= 1; o >>= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        x[r][i] = x[r][i] + __shfl_xor_sync(0xffffffffu, x[r][i], o);
   }
-  return part[0];
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -328,35 +344,10 @@ __global__ void __launch_bounds__(NV * 4 * P * P / C, 1)
     float* hn = hb + ((t + 1) & 1) * RB * P * SS;
     float rec[RB][C];
 #pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const float4* h4 = reinterpret_cast<const float4*>(hp + (r * P + s) * SS);
-      float a0[C], a1[C], a2[C], a3[C];
-#pragma unroll
-      for (int cc = 0; cc < C; ++cc) a0[cc] = a1[cc] = a2[cc] = a3[cc] = 0.f;
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        if (v < nv) {
-          const float4 x = h4[v];
-#pragma unroll
-          for (int cc = 0; cc < C; ++cc) {
-            a0[cc] = fmaf(x.x, Rr[cc][v].x, a0[cc]);
-            a1[cc] = fmaf(x.y, Rr[cc][v].y, a1[cc]);
-            a2[cc] = fmaf(x.z, Rr[cc][v].z, a2[cc]);
-            a3[cc] = fmaf(x.w, Rr[cc][v].w, a3[cc]);
-          }
-        }
-      }
-#pragma unroll
-      for (int cc = 0; cc < C; ++cc) rec[r][cc] = (a0[cc] + a1[cc]) + (a2[cc] + a3[cc]);
-    }
-#pragma unroll
-    for (int o = P / 2; o >= 1; o >>= 1) {
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-#pragma unroll
-        for (int cc = 0; cc < C; ++cc)
-          rec[r][cc] = rec[r][cc] + __shfl_xor_sync(0xffffffffu, rec[r][cc], o);
-    }
+    for (int r = 0; r < RB; ++r)
+      slice_dot<NV, C>(reinterpret_cast<const float4*>(hp + (r * P + s) * SS),
+                       Rr, nv, rec[r]);
+    butterfly<P>(rec);
 #pragma unroll
     for (int i = 0; i < RPL; ++i) {
       if (!own[i]) continue;
@@ -395,234 +386,6 @@ __global__ void __launch_bounds__(NV * 4 * P * P / C, 1)
   }
 }
 
-__global__ void __launch_bounds__(256) slstm_bwd_kernel(
-    const float* __restrict__ zin, const float* __restrict__ iin,
-    const float* __restrict__ fin, const float* __restrict__ osig,
-    const float* __restrict__ R, const float* __restrict__ h0,
-    const bool* __restrict__ upd, const float* __restrict__ hs,
-    const float* __restrict__ ckpt, const float* __restrict__ dhs,
-    const float* __restrict__ dcnh, const float* __restrict__ dm,
-    float* __restrict__ scratch, float* __restrict__ dz,
-    float* __restrict__ di, float* __restrict__ df, float* __restrict__ dout,
-    float* __restrict__ dcnh0, float* __restrict__ dm0, int T, int B, int H,
-    int hd, int rb, int K) {
-  extern __shared__ float sm[];
-  const int hd1 = hd + 1;
-  float* Rs = sm;
-  float* hb = sm + hd * hd1;  // [2][kRows][hd]: h_{t-1}, then dz
-  const int hh = blockIdx.y, b0 = blockIdx.x * rb;
-  const int nb = min(rb, B - b0);
-  const int j = threadIdx.x;
-  const bool jv = j < hd;
-  const size_t HBd = (size_t)H * B * hd;
-  const size_t cta = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  float* scr = scratch + cta * (size_t)K * rb * 4 * hd;
-  load_r(Rs, R, hh, hd);
-  float gc[kRows], gn[kRows], gh[kRows], gm[kRows];
-#pragma unroll
-  for (int ri = 0; ri < kRows; ++ri) {
-    gc[ri] = gn[ri] = gh[ri] = gm[ri] = 0.f;
-    if (ri < nb && jv) {
-      const size_t o = ((size_t)hh * B + b0 + ri) * hd + j;
-      gc[ri] = dcnh[o];
-      gn[ri] = dcnh[HBd + o];
-      gh[ri] = dcnh[2 * HBd + o];
-      gm[ri] = dm[o];
-    }
-  }
-  __syncthreads();
-  const int nc = (T + K - 1) / K;
-  for (int c = nc - 1; c >= 0; --c) {
-    const int t0 = c * K, len = min(K, T - t0);
-    {  // recompute the chunk, keeping c, n, m before each step and z
-      float cc[kRows], nn[kRows], mp[kRows];
-#pragma unroll
-      for (int ri = 0; ri < kRows; ++ri) {
-        cc[ri] = nn[ri] = mp[ri] = 0.f;
-        if (ri < nb && jv) {
-          const float* ck =
-              ckpt + (size_t)c * 3 * HBd + ((size_t)hh * B + b0 + ri) * hd + j;
-          cc[ri] = ck[0];
-          nn[ri] = ck[HBd];
-          mp[ri] = ck[2 * HBd];
-        }
-      }
-      for (int s = 0; s < len; ++s) {
-        const int t = t0 + s;
-        float* hp = hb + (s & 1) * kRows * hd;
-        if (jv) {
-#pragma unroll
-          for (int ri = 0; ri < kRows; ++ri) {
-            if (ri >= nb) continue;
-            const size_t hbo = ((size_t)hh * B + b0 + ri) * hd + j;
-            hp[ri * hd + j] = t == 0 ? h0[hbo] : hs[(size_t)(t - 1) * HBd + hbo];
-          }
-        }
-        __syncthreads();
-        float rec[kRows];
-#pragma unroll
-        for (int ri = 0; ri < kRows; ++ri)
-          rec[ri] = (ri < nb && jv) ? rec_ordered(hp + ri * hd, Rs + j, hd1,
-                                                  hd, split_of(hd))
-                                    : 0.f;
-#pragma unroll
-        for (int ri = 0; ri < kRows; ++ri) {
-          if (ri >= nb || !jv) continue;
-          const int b = b0 + ri;
-          const size_t o = (size_t)t * HBd + ((size_t)hh * B + b) * hd + j;
-          const float z = tanhf(zin[o] + rec[ri]);
-          float* sl = scr + (((size_t)s * rb + ri) * 4) * hd + j;
-          sl[0] = cc[ri];
-          sl[hd] = nn[ri];
-          sl[2 * hd] = mp[ri];
-          sl[3 * hd] = z;
-          if (upd == nullptr || upd[(size_t)t * B + b]) {
-            const Gate g = gate(fin[o], iin[o], mp[ri]);
-            cc[ri] = lerp_rn(g.fg, cc[ri], g.ig, z);
-            nn[ri] = __fadd_rn(__fmul_rn(g.fg, nn[ri]), g.ig);
-            mp[ri] = g.mn;
-          }
-        }
-      }
-    }
-    __syncthreads();
-    for (int s = len - 1; s >= 0; --s) {  // walk the chunk back
-      const int t = t0 + s;
-      float* dzb = hb + (s & 1) * kRows * hd;
-      float gpass[kRows];
-      bool uu[kRows];
-#pragma unroll
-      for (int ri = 0; ri < kRows; ++ri) {
-        gpass[ri] = 0.f;
-        uu[ri] = false;
-        if (ri >= nb || !jv) continue;
-        const int b = b0 + ri;
-        const size_t o = (size_t)t * HBd + ((size_t)hh * B + b) * hd + j;
-        const float* sl = scr + (((size_t)s * rb + ri) * 4) * hd + j;
-        const float cp = sl[0], np = sl[hd], mpv = sl[2 * hd], z = sl[3 * hd];
-        const float g_h = gh[ri] + dhs[o];
-        const bool u = upd == nullptr || upd[(size_t)t * B + b];
-        uu[ri] = u;
-        gpass[ri] = g_h;
-        float dzz = 0.f, dii = 0.f, dff = 0.f, dov = 0.f;
-        if (u) {
-          const float f = fin[o], i = iin[o], og = osig[o];
-          const Gate g = gate(f, i, mpv);
-          const float cn = lerp_rn(g.fg, cp, g.ig, z);
-          const float nw = __fadd_rn(__fmul_rn(g.fg, np), g.ig);
-          const float den = fmaxf(nw, 1e-6f);
-          const float oc = __fmul_rn(og, cn);
-          const float da_ = g_h / den;
-          dov = da_ * cn;
-          const float dc = gc[ri] + da_ * og;
-          const float dn = gn[ri] + (nw >= 1e-6f ? -g_h * oc / (den * den) : 0.f);
-          const float dfg = dc * cp + dn * np;
-          const float dig = dc * z + dn;
-          dzz = dc * g.ig * (1.f - z * z);
-          float dmn = gm[ri];
-          dii = dig * g.ig;
-          dmn -= dii;
-          float da = g.fin ? dfg * g.fg : 0.f;
-          dmn -= da;
-          if (isfinite(g.mx)) {
-            if (g.a > i) {
-              da += dmn;
-            } else if (g.a < i) {
-              dii += dmn;
-            } else {
-              da += 0.5f * dmn;
-              dii += 0.5f * dmn;
-            }
-          } else {
-            dii += dmn;
-          }
-          dff = da * (1.f / (1.f + expf(f)));
-          gc[ri] = g.fg * dc;
-          gn[ri] = g.fg * dn;
-          gm[ri] = da;
-        }
-        dz[o] = dzz;
-        di[o] = dii;
-        df[o] = dff;
-        dout[o] = dov;
-        dzb[ri * hd + j] = dzz;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ri = 0; ri < kRows; ++ri) {
-        if (ri >= nb || !jv) continue;
-        if (uu[ri]) {
-          float x = 0.f;
-          const float* rr = Rs + j * hd1;
-#pragma unroll 4
-          for (int jj = 0; jj < hd; ++jj) x += dzb[ri * hd + jj] * rr[jj];
-          gh[ri] = x;
-        } else {
-          gh[ri] = gpass[ri];
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (jv) {
-#pragma unroll
-    for (int ri = 0; ri < kRows; ++ri) {
-      if (ri >= nb) continue;
-      const size_t o = ((size_t)hh * B + b0 + ri) * hd + j;
-      dcnh0[o] = gc[ri];
-      dcnh0[HBd + o] = gn[ri];
-      dcnh0[2 * HBd + o] = gh[ri];
-      dm0[o] = gm[ri];
-    }
-  }
-}
-
-// dR_h[k][j] = sum over (t, b) in order of h_{t-1}[b, k] dz_t[b, j]: a
-// 32 x 32 tile of one head a CTA, 4 outputs a thread.
-__global__ void __launch_bounds__(256) slstm_dr_kernel(
-    const float* __restrict__ h0, const float* __restrict__ hs,
-    const float* __restrict__ dz, float* __restrict__ dR, int T, int B,
-    int H, int hd) {
-  __shared__ float hp_s[32][33], dz_s[32][33];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int hh = blockIdx.z;
-  const int jj = blockIdx.x * 32 + tx, kb = blockIdx.y * 32;
-  const size_t HBd = (size_t)H * B * hd;
-  const int P = T * B;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int p0 = 0; p0 < P; p0 += 32) {
-    for (int e = ty * 32 + tx; e < 1024; e += 256) {
-      const int pi = e >> 5, col = e & 31, p = p0 + pi;
-      const int t = p / B, b = p - (p / B) * B;
-      const int kk = kb + col, j2 = blockIdx.x * 32 + col;
-      const size_t hbo = ((size_t)hh * B + b) * hd;
-      float hv = 0.f, dv = 0.f;
-      if (p < P && kk < hd)
-        hv = t == 0 ? h0[hbo + kk] : hs[(size_t)(t - 1) * HBd + hbo + kk];
-      if (p < P && j2 < hd) dv = dz[(size_t)t * HBd + hbo + j2];
-      hp_s[pi][col] = hv;
-      dz_s[pi][col] = dv;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int pi = 0; pi < 32; ++pi) {
-      const float d = dz_s[pi][tx];
-#pragma unroll
-      for (int qd = 0; qd < 4; ++qd) acc[qd] += hp_s[pi][ty * 4 + qd] * d;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int qd = 0; qd < 4; ++qd) {
-    const int kk = kb + ty * 4 + qd;
-    if (kk < hd && jj < hd) dR[((size_t)hh * hd + kk) * hd + jj] = acc[qd];
-  }
-}
-
-size_t smem_bytes(int hd) {
-  return ((size_t)hd * (hd + 1) + 2 * kRows * hd) * sizeof(float);
-}
-
 template <int NV, int P, int C, int RB>
 int launch_fwd(const FwdArgs& a, cudaStream_t st) {
   const size_t smem = fwd_smem_floats(a.hd, RB) * sizeof(float);
@@ -641,6 +404,556 @@ int fwd_rows(const FwdArgs& a, cudaStream_t st) {
   if (a.rb == 1) return launch_fwd<NV, P, C, 1>(a, st);
   if (a.rb == 2) return launch_fwd<NV, P, C, 2>(a, st);
   return launch_fwd<NV, P, C, 4>(a, st);
+}
+
+__host__ __device__ inline long long lmin(long long a, long long b) {
+  return a < b ? a : b;
+}
+__host__ __device__ inline long long lmax(long long a, long long b) {
+  return a > b ? a : b;
+}
+
+// The backward's recompute of the forward's z: z_t = tanh(z_in + h_{t-1}
+// R_h) for every (t, b) of a head at once (h_{t-1} is the forward's
+// output, so no step waits on another), split as the forward splits it
+// (R's column slices in registers, slice_dot and butterfly: the forward's
+// z bit for bit) over kRecRows rows at a time, the rows copied a block
+// ahead by cp.async into the other half of a two-block ring. z is written
+// into dz's buffer, which the walk reads it from a chunk at a time before
+// it writes dz there.
+constexpr int kRecRows = 4;              // rows a product takes at once
+constexpr int kRecBlock = 2 * kRecRows;  // rows a ring half
+
+__host__ __device__ inline size_t rec_smem_floats(int hd) {
+  const Split sp = split_of(hd);
+  return (size_t)2 * kRecBlock * (sp.p * (sp.len + 4) + hd);
+}
+
+template <int NV, int P, int C>
+__global__ void __launch_bounds__(NV * 4 * P * P / C, 1)
+    slstm_bwd_rec_kernel(const float* __restrict__ zin,
+                         const float* __restrict__ R,
+                         const float* __restrict__ h0,
+                         const float* __restrict__ hs, float* __restrict__ zout,
+                         int T, int B, int H, int hd, int vec) {
+  constexpr int NQ = C * kRecRows;
+  constexpr int RPL = (NQ + P - 1) / P;
+  extern __shared__ __align__(16) float sm[];
+  const Split sp = split_of(hd);
+  const int L = sp.len, nv = L / 4, SS = L + 4;
+  float* hb = sm;                                // [2][kRecBlock][P][SS]
+  float* zb = sm + 2 * kRecBlock * P * SS;       // [2][kRecBlock][hd]
+  const int tid = threadIdx.x, s = tid % P, cp = tid / P;
+  const int hh = blockIdx.y;
+  const long long rows = (long long)T * B;
+  const long long per = (rows + gridDim.x - 1) / gridDim.x;
+  const long long p_begin = blockIdx.x * per, p_end = lmin(rows, p_begin + per);
+  if (p_begin >= p_end) return;
+  for (int x = tid; x < 2 * kRecBlock * P * SS; x += blockDim.x) hb[x] = 0.f;
+  float4 Rr[C][NV];  // R_h[s L + 4v + e][C cp + c], as the forward holds it
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int jc = C * cp + c;
+    const float* Rg = R + (size_t)hh * hd * hd + jc;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      float e[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = s * L + 4 * v + q;
+        e[q] = (jc < hd && v < nv && k < hd) ? Rg[(size_t)k * hd] : 0.f;
+      }
+      Rr[c][v] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+  }
+  int ro[RPL], jo[RPL];
+  bool own[RPL];
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    const int q = s + P * i;
+    ro[i] = q / C;
+    jo[i] = C * cp + q % C;
+    own[i] = q < NQ && jo[i] < hd;
+  }
+  auto hrow = [&](long long p) {  // h_{t-1} of row p = t B + b
+    const long long t = p / B, b = p - t * B;
+    return t == 0 ? h0 + ((size_t)hh * B + b) * hd
+                  : hs + (((size_t)(t - 1) * H + hh) * B + b) * hd;
+  };
+  auto zrow = [&](long long p) {
+    const long long t = p / B, b = p - t * B;
+    return (((size_t)t * H + hh) * B + b) * hd;
+  };
+  // rows pb.. into ring half buf: h_{t-1} into the padded slices, z_in
+  auto issue = [&](long long pb, int buf) {
+    const int n = (int)lmin(kRecBlock, p_end - pb);
+    if (vec) {
+      const int W = hd / 4;
+      for (int e = tid; e < n * W; e += blockDim.x) {
+        const int r = e / W, k = 4 * (e - r * W);
+        cp_async16(hb + ((buf * kRecBlock + r) * P + k / L) * SS + k % L,
+                   hrow(pb + r) + k);
+        cp_async16(zb + (buf * kRecBlock + r) * hd + k, zin + zrow(pb + r) + k);
+      }
+    } else {
+      for (int e = tid; e < n * hd; e += blockDim.x) {
+        const int r = e / hd, k = e - r * hd;
+        cp_async4(hb + ((buf * kRecBlock + r) * P + k / L) * SS + k % L,
+                  hrow(pb + r) + k);
+        cp_async4(zb + (buf * kRecBlock + r) * hd + k, zin + zrow(pb + r) + k);
+      }
+    }
+    cp_async_commit();
+  };
+  __syncthreads();  // hb zeroed before the copies land
+  const int nblk = (int)((p_end - p_begin + kRecBlock - 1) / kRecBlock);
+  issue(p_begin, 0);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int blk = 0; blk < nblk; ++blk) {
+    const long long pb = p_begin + (long long)blk * kRecBlock;
+    const int buf = blk & 1;
+    if (blk + 1 < nblk) issue(pb + kRecBlock, buf ^ 1);
+#pragma unroll
+    for (int it = 0; it < kRecBlock / kRecRows; ++it) {
+      const int r0 = it * kRecRows;
+      float rec[kRecRows][C];
+#pragma unroll
+      for (int r = 0; r < kRecRows; ++r)
+        slice_dot<NV, C>(reinterpret_cast<const float4*>(
+                             hb + ((buf * kRecBlock + r0 + r) * P + s) * SS),
+                         Rr, nv, rec[r]);
+      butterfly<P>(rec);
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) {
+        const long long p = pb + r0 + ro[i];
+        if (!own[i] || p >= p_end) continue;
+        const int q = s + P * i;
+        float rr = rec[0][0];
+#pragma unroll
+        for (int r = 0; r < kRecRows; ++r)
+#pragma unroll
+          for (int cc = 0; cc < C; ++cc)
+            if (C * r + cc == q) rr = rec[r][cc];
+        zout[zrow(p) + jo[i]] =
+            tanhf(zb[(buf * kRecBlock + r0 + ro[i]) * hd + jo[i]] + rr);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the next block has landed; this one is read
+  }
+}
+
+// The walk back (slstm_bwd_kernel). Scratch a chunk keeps for each element
+// and step: c and n before the step, z, fg, ig, the max's code (0: log
+// sigmoid(f) + m won, 1: i won, 2: a tie, 3: the max not finite; +4 where
+// the m before the step is not finite) and sigmoid(-f).
+constexpr int kBwdFields = 7;
+constexpr int kChainAhead = 4;  // steps the chain's loads run ahead
+
+struct BwdArgs {
+  const float *iin, *fin, *osig, *R, *ckpt, *dhs, *dcnh, *dm;
+  const bool* upd;
+  float *scratch, *dz, *di, *df, *dout, *dcnh0, *dm0;
+  int T, B, H, hd, rb, K, vec;
+};
+
+// dynamic shared memory of the walk: dz_t double-buffered, [2][RB][P][len + 4]
+__host__ __device__ inline size_t bwd_smem_floats(int hd, int RB) {
+  const Split sp = split_of(hd);
+  return (size_t)2 * RB * sp.p * (sp.len + 4);
+}
+
+template <int NV, int P, int C, int RB>
+__global__ void __launch_bounds__(NV * 4 * P * P / C, 1)
+    slstm_bwd_kernel(const BwdArgs a) {
+  constexpr int NQ = C * RB;
+  constexpr int RPL = (NQ + P - 1) / P;
+  extern __shared__ __align__(16) float sm[];
+  const int hd = a.hd, T = a.T, B = a.B, H = a.H, K = a.K;
+  const Split sp = split_of(hd);
+  const int L = sp.len, nv = L / 4, SS = L + 4;
+  float* db = sm;  // [2][RB][P][SS]
+  const int tid = threadIdx.x, s = tid % P, cp = tid / P;
+  const int hh = blockIdx.y, b0 = blockIdx.x * a.rb;
+  const int nb = min(a.rb, B - b0);
+  const size_t HBd = (size_t)H * B * hd;
+  const size_t F = (size_t)a.rb * hd;  // between two fields of a step's scratch
+  float* scr = a.scratch +
+               ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * K * kBwdFields * F;
+  for (int x = tid; x < 2 * RB * P * SS; x += blockDim.x) db[x] = 0.f;
+  // R^T's column slices: this thread's slice of R_h's rows C cp + c, by
+  // float4 loads where hd allows
+  float4 RT[C][NV];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k = C * cp + c;
+    const float* Rg = a.R + ((size_t)hh * hd + k) * hd;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int j = s * L + 4 * v;
+      if (a.vec && k < hd && v < nv && j < hd) {
+        RT[c][v] = *reinterpret_cast<const float4*>(Rg + j);
+      } else {
+        float e[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          e[q] = (k < hd && v < nv && j + q < hd) ? Rg[j + q] : 0.f;
+        RT[c][v] = make_float4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  }
+  int ro[RPL], jo[RPL], slot[RPL];
+  bool own[RPL];
+  float gc[RPL], gn[RPL], gh[RPL], gm[RPL];
+  size_t hbo[RPL];
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    const int q = s + P * i;
+    ro[i] = q / C;
+    jo[i] = C * cp + q % C;
+    slot[i] = ro[i] * P * SS + (jo[i] / L) * SS + jo[i] % L;
+    own[i] = q < NQ && jo[i] < hd && ro[i] < nb;
+    gc[i] = gn[i] = gh[i] = gm[i] = 0.f;
+    hbo[i] = ((size_t)hh * B + b0 + (own[i] ? ro[i] : 0)) * hd + (own[i] ? jo[i] : 0);
+    if (!own[i]) continue;
+    gc[i] = a.dcnh[hbo[i]];
+    gn[i] = a.dcnh[HBd + hbo[i]];
+    gh[i] = a.dcnh[2 * HBd + hbo[i]];
+    gm[i] = a.dm[hbo[i]];
+  }
+  auto upd_of = [&](int t, int i) {
+    return a.upd == nullptr || a.upd[(size_t)t * B + b0 + ro[i]];
+  };
+  __syncthreads();  // db zeroed
+  int n_step = 0;   // steps walked: the parity of db
+  const int nc = (T + K - 1) / K;
+  for (int c = nc - 1; c >= 0; --c) {
+    const int t0 = c * K, len = min(K, T - t0);
+    // the chunk forward from its checkpoint, each owner its elements: the
+    // state before each step, z and the step's gates into scratch; a
+    // step's z, f, i and upd loaded kChainAhead steps ahead
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
+      if (!own[i]) continue;
+      const float* ck = a.ckpt + (size_t)c * 3 * HBd + hbo[i];
+      float cc = ck[0], nn = ck[HBd], mp = ck[2 * HBd];
+      float* w = scr + (size_t)ro[i] * hd + jo[i];
+      float zq[kChainAhead], fq[kChainAhead], iq[kChainAhead];
+      bool uq[kChainAhead];
+      auto load = [&](int sl, int q) {
+        if (sl < len) {
+          const size_t o = (size_t)(t0 + sl) * HBd + hbo[i];
+          zq[q] = a.dz[o];
+          fq[q] = a.fin[o];
+          iq[q] = a.iin[o];
+          uq[q] = upd_of(t0 + sl, i);
+        }
+      };
+#pragma unroll
+      for (int q = 0; q < kChainAhead; ++q) load(q, q);
+      for (int s0 = 0; s0 < len; s0 += kChainAhead) {
+#pragma unroll
+        for (int q = 0; q < kChainAhead; ++q) {
+          const int sl = s0 + q;
+          if (sl >= len) break;
+          const float z = zq[q], f = fq[q], ig_in = iq[q];
+          const bool u = uq[q];
+          load(sl + kChainAhead, q);
+          const Gate g = gate(f, ig_in, mp);
+          const int code =
+              (isfinite(g.mx) ? (g.a > ig_in ? 0 : g.a < ig_in ? 1 : 2) : 3) +
+              (g.fin ? 0 : 4);
+          float* ws = w + (size_t)sl * kBwdFields * F;
+          ws[0] = cc;
+          ws[F] = nn;
+          ws[2 * F] = z;
+          ws[3 * F] = g.fg;
+          ws[4 * F] = g.ig;
+          ws[5 * F] = (float)code;
+          ws[6 * F] = 1.f / (1.f + expf(f));
+          if (u) {
+            cc = lerp_rn(g.fg, cc, g.ig, z);
+            nn = __fadd_rn(__fmul_rn(g.fg, nn), g.ig);
+            mp = g.mn;
+          }
+        }
+      }
+    }
+    // the walk back: a step's inputs a step ahead in registers
+    float X[RPL][kBwdFields + 2];  // the scratch fields, o, dhs
+    bool XU[RPL];
+    auto fetch = [&](int sl, float (&Y)[RPL][kBwdFields + 2], bool (&YU)[RPL]) {
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) {
+        YU[i] = false;
+        if (!own[i]) continue;
+        const float* ws = scr + (size_t)sl * kBwdFields * F + (size_t)ro[i] * hd + jo[i];
+#pragma unroll
+        for (int f = 0; f < kBwdFields; ++f) Y[i][f] = ws[f * F];
+        const size_t o = (size_t)(t0 + sl) * HBd + hbo[i];
+        Y[i][kBwdFields] = a.osig[o];
+        Y[i][kBwdFields + 1] = a.dhs[o];
+        YU[i] = upd_of(t0 + sl, i);
+      }
+    };
+    fetch(len - 1, X, XU);
+    for (int sl = len - 1; sl >= 0; --sl) {
+      float Y[RPL][kBwdFields + 2];
+      bool YU[RPL];
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) {
+        YU[i] = XU[i];
+#pragma unroll
+        for (int f = 0; f < kBwdFields + 2; ++f) Y[i][f] = X[i][f];
+      }
+      if (sl > 0) fetch(sl - 1, X, XU);
+      const int t = t0 + sl;
+      float* dn_ = db + (n_step & 1) * RB * P * SS;
+      float gpass[RPL];
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) {
+        gpass[i] = 0.f;
+        if (!own[i]) continue;
+        const float cp_ = Y[i][0], np = Y[i][1], z = Y[i][2], fg = Y[i][3],
+                    ig = Y[i][4], sig = Y[i][6], og = Y[i][7];
+        const int code = (int)Y[i][5];
+        const float g_h = gh[i] + Y[i][8];
+        gpass[i] = g_h;
+        float dzz = 0.f, dii = 0.f, dff = 0.f, dov = 0.f;
+        if (YU[i]) {
+          const float cn = lerp_rn(fg, cp_, ig, z);
+          const float nw = __fadd_rn(__fmul_rn(fg, np), ig);
+          const float den = fmaxf(nw, 1e-6f);
+          const float oc = __fmul_rn(og, cn);
+          const float da_ = g_h / den;
+          dov = da_ * cn;
+          const float dc = gc[i] + da_ * og;
+          const float dn = gn[i] + (nw >= 1e-6f ? -g_h * oc / (den * den) : 0.f);
+          const float dfg = dc * cp_ + dn * np;
+          const float dig = dc * z + dn;
+          dzz = dc * ig * (1.f - z * z);
+          float dmn = gm[i];
+          dii = dig * ig;
+          dmn -= dii;
+          float da = code < 4 ? dfg * fg : 0.f;
+          dmn -= da;
+          switch (code & 3) {
+            case 0: da += dmn; break;
+            case 1: dii += dmn; break;
+            case 2:
+              da += 0.5f * dmn;
+              dii += 0.5f * dmn;
+              break;
+            default: dii += dmn;
+          }
+          dff = da * sig;
+          gc[i] = fg * dc;
+          gn[i] = fg * dn;
+          gm[i] = da;
+        }
+        dn_[slot[i]] = dzz;
+        const size_t o = (size_t)t * HBd + hbo[i];
+        a.dz[o] = dzz;
+        a.di[o] = dii;
+        a.df[o] = dff;
+        a.dout[o] = dov;
+      }
+      __syncthreads();
+      // dh_{t-1} = dz_t R_h^T: the forward's split product on R's rows
+      float rec[RB][C];
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+        slice_dot<NV, C>(reinterpret_cast<const float4*>(dn_ + (r * P + s) * SS),
+                         RT, nv, rec[r]);
+      butterfly<P>(rec);
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) {
+        if (!own[i]) continue;
+        const int q = s + P * i;
+        float rr = rec[0][0];
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+#pragma unroll
+          for (int cc = 0; cc < C; ++cc)
+            if (C * r + cc == q) rr = rec[r][cc];
+        gh[i] = YU[i] ? rr : gpass[i];
+      }
+      ++n_step;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    if (!own[i]) continue;
+    a.dcnh0[hbo[i]] = gc[i];
+    a.dcnh0[HBd + hbo[i]] = gn[i];
+    a.dcnh0[2 * HBd + hbo[i]] = gh[i];
+    a.dm0[hbo[i]] = gm[i];
+  }
+}
+
+// dR_h = sum over (t, b) of h_{t-1}[b] (x) dz_t[b], deterministic in two
+// passes: a 64 x 64 tile of one head over one of nsplit fixed ranges of
+// rows p = t B + b a CTA (4 x 4 outputs a thread, each summed over its
+// range in order, 32 rows staged at a time by cp.async into a two-stage
+// ring), then the ranges summed in order.
+constexpr int kDrTile = 64;
+constexpr int kDrRows = 32;
+constexpr int kDrMaxSplit = 16;
+constexpr int kDrRowsPerSplit = 4096;
+
+__host__ __device__ inline int dr_splits(int T, int B) {
+  const long long rows = (long long)T * B;
+  return (int)lmax(1, lmin(kDrMaxSplit,
+                           (rows + kDrRowsPerSplit - 1) / kDrRowsPerSplit));
+}
+
+__global__ void __launch_bounds__(256) slstm_dr_kernel(
+    const float* __restrict__ h0, const float* __restrict__ hs,
+    const float* __restrict__ dz, float* __restrict__ part, int T, int B,
+    int H, int hd, int nsplit, int vec) {
+  __shared__ __align__(16) float hp_s[2][kDrRows][kDrTile];
+  __shared__ __align__(16) float dz_s[2][kDrRows][kDrTile];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int jb = blockIdx.x * kDrTile, kb = blockIdx.y * kDrTile;
+  const int hh = blockIdx.z / nsplit, spl = blockIdx.z % nsplit;
+  const long long rows = (long long)T * B, per = (rows + nsplit - 1) / nsplit;
+  const long long p0 = spl * per, p1 = lmin(rows, p0 + per);
+  auto hrow = [&](long long p) {
+    const long long t = p / B, b = p - t * B;
+    return t == 0 ? h0 + ((size_t)hh * B + b) * hd
+                  : hs + (((size_t)(t - 1) * H + hh) * B + b) * hd;
+  };
+  auto zrow = [&](long long p) {
+    const long long t = p / B, b = p - t * B;
+    return dz + (((size_t)t * H + hh) * B + b) * hd;
+  };
+  auto stage = [&](long long pb, int buf) {
+    for (int e = tid; e < kDrRows * kDrTile / 4; e += 256) {
+      const int r = e / (kDrTile / 4), c4 = 4 * (e % (kDrTile / 4));
+      const long long p = pb + r;
+      const bool in = p < p1;
+      const float* hsrc = in ? hrow(p) : nullptr;
+      const float* zsrc = in ? zrow(p) : nullptr;
+      float* hd_ = &hp_s[buf][r][c4];
+      float* zd_ = &dz_s[buf][r][c4];
+      if (in && vec && kb + c4 < hd)
+        cp_async16(hd_, hsrc + kb + c4);
+      else
+        for (int q = 0; q < 4; ++q)
+          hd_[q] = (in && kb + c4 + q < hd) ? hsrc[kb + c4 + q] : 0.f;
+      if (in && vec && jb + c4 < hd)
+        cp_async16(zd_, zsrc + jb + c4);
+      else
+        for (int q = 0; q < 4; ++q)
+          zd_[q] = (in && jb + c4 + q < hd) ? zsrc[jb + c4 + q] : 0.f;
+    }
+    cp_async_commit();
+  };
+  float acc[4][4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int y = 0; y < 4; ++y) acc[x][y] = 0.f;
+  const int nblk = (int)((p1 - p0 + kDrRows - 1) / kDrRows);
+  if (nblk > 0) stage(p0, 0);
+  for (int blk = 0; blk < nblk; ++blk) {
+    const int buf = blk & 1;
+    if (blk + 1 < nblk) {
+      stage(p0 + (long long)(blk + 1) * kDrRows, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int r = 0; r < kDrRows; ++r) {
+      const float4 hv = *reinterpret_cast<const float4*>(&hp_s[buf][r][ty * 4]);
+      const float4 dv = *reinterpret_cast<const float4*>(&dz_s[buf][r][tx * 4]);
+      const float h4[4] = {hv.x, hv.y, hv.z, hv.w};
+      const float d4[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(h4[x], d4[y], acc[x][y]);
+    }
+    __syncthreads();  // this stage is read before it is refilled
+  }
+  float* dst = part + ((size_t)spl * H + hh) * hd * hd;
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int k = kb + ty * 4 + x;
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int j = jb + tx * 4 + y;
+      if (k < hd && j < hd) dst[(size_t)k * hd + j] = acc[x][y];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256) slstm_dr_sum_kernel(
+    const float* __restrict__ part, float* __restrict__ dR, int n,
+    int nsplit) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  float x = 0.f;
+  for (int q = 0; q < nsplit; ++q) x += part[(size_t)q * n + idx];
+  dR[idx] = x;
+}
+
+int launch_dr(const float* h0, const float* hs, const float* dz, float* part,
+              float* dR, int T, int B, int H, int hd, int vec,
+              cudaStream_t st) {
+  const int nsplit = dr_splits(T, B);
+  const int nt = (hd + kDrTile - 1) / kDrTile;
+  slstm_dr_kernel<<<dim3(nt, nt, H * nsplit), 256, 0, st>>>(
+      h0, hs, dz, part, T, B, H, hd, nsplit, vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = H * hd * hd;
+  slstm_dr_sum_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, dR, n, nsplit);
+  return (int)cudaGetLastError();
+}
+
+template <int NV, int P, int C>
+int launch_rec(const float* zin, const float* R, const float* h0,
+               const float* hs, float* zout, int T, int B, int H, int hd,
+               int vec, cudaStream_t st) {
+  const size_t smem = rec_smem_floats(hd) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      slstm_bwd_rec_kernel<NV, P, C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, n_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const long long rows = (long long)T * B;
+  const int parts = (int)lmax(1, lmin(lmax(1, n_sm / H),
+                                      (rows + kRecBlock - 1) / kRecBlock));
+  const int threads = ((hd + C - 1) / C * P + 31) / 32 * 32;
+  slstm_bwd_rec_kernel<NV, P, C><<<dim3(parts, H), threads, smem, st>>>(
+      zin, R, h0, hs, zout, T, B, H, hd, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int NV, int P, int C, int RB>
+int launch_bwd(const BwdArgs& a, cudaStream_t st) {
+  const size_t smem = bwd_smem_floats(a.hd, RB) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      slstm_bwd_kernel<NV, P, C, RB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = ((a.hd + C - 1) / C * P + 31) / 32 * 32;
+  slstm_bwd_kernel<NV, P, C, RB>
+      <<<dim3((a.B + a.rb - 1) / a.rb, a.H), threads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int NV, int P, int C>
+int bwd_rows(const BwdArgs& a, cudaStream_t st) {
+  if (a.rb == 1) return launch_bwd<NV, P, C, 1>(a, st);
+  if (a.rb == 2) return launch_bwd<NV, P, C, 2>(a, st);
+  return launch_bwd<NV, P, C, 4>(a, st);
 }
 
 }  // namespace
@@ -667,6 +980,43 @@ extern "C" int slstm_fwd(const void* zin, const void* iin, const void* fin,
   return fwd_rows<6, 8, 4>(a, st);
 }
 
+// the recompute of z alone (into zout): for timing it apart
+extern "C" int slstm_rec(const void* zin, const void* R, const void* h0,
+                         const void* hs, void* zout, int T, int B, int H,
+                         int hd, void* stream) {
+  if (hd < 1 || hd > 224) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Split sp = split_of(hd);
+  const int vec = hd % 4 == 0 &&
+                  (((uintptr_t)zin | (uintptr_t)h0 | (uintptr_t)hs |
+                    (uintptr_t)zout) & 15) == 0;
+  const float *z = (const float*)zin, *r = (const float*)R,
+              *a = (const float*)h0, *h = (const float*)hs;
+  if (sp.p == 4)
+    return launch_rec<14, 4, 2>(z, r, a, h, (float*)zout, T, B, H, hd, vec, st);
+  if (sp.len <= 8)
+    return launch_rec<2, 8, 4>(z, r, a, h, (float*)zout, T, B, H, hd, vec, st);
+  return launch_rec<6, 8, 4>(z, r, a, h, (float*)zout, T, B, H, hd, vec, st);
+}
+
+// the backward's scratch layout (floats an element a step of a chunk);
+// the wrapper sizes scratch by it (slstm_bwd_plan in kernels/xlstm/ops.py)
+extern "C" int slstm_bwd_layout() { return kBwdFields; }
+
+// the dR pass alone (its split partials in part): for timing it apart
+extern "C" int slstm_dr(const void* h0, const void* hs, const void* dz,
+                        void* part, void* dR, int T, int B, int H, int hd,
+                        void* stream) {
+  if (hd < 1 || hd > 224) return (int)cudaErrorInvalidValue;
+  const int vec = hd % 4 == 0 && (((uintptr_t)h0 | (uintptr_t)hs |
+                                   (uintptr_t)dz) & 15) == 0;
+  return launch_dr((const float*)h0, (const float*)hs, (const float*)dz,
+                   (float*)part, (float*)dR, T, B, H, hd, vec,
+                   (cudaStream_t)stream);
+}
+
+// scratch: the walk's (H ceil(B / rb) CTAs x K steps x kBwdFields x rb x
+// hd floats), then dR's split partials (dr_splits(T, B) x H x hd x hd)
 extern "C" int slstm_bwd(const void* zin, const void* iin, const void* fin,
                          const void* osig, const void* R, const void* h0,
                          const void* upd, const void* hs, const void* ckpt,
@@ -674,27 +1024,27 @@ extern "C" int slstm_bwd(const void* zin, const void* iin, const void* fin,
                          void* scratch, void* dz, void* di, void* df,
                          void* dout, void* dR, void* dcnh0, void* dm0, int T,
                          int B, int H, int hd, int rb, int K, void* stream) {
-  if (rb < 1 || rb > kRows || hd > 224 || K < 1 || K > kKmax)
+  if (rb < 1 || rb > kRows || hd < 1 || hd > 224 || K < 1 || K > kKmax)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = smem_bytes(hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      slstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = ((hd + 31) / 32) * 32;
-  slstm_bwd_kernel<<<dim3((B + rb - 1) / rb, H), threads, smem, st>>>(
-      (const float*)zin, (const float*)iin, (const float*)fin,
-      (const float*)osig, (const float*)R, (const float*)h0,
-      (const bool*)upd, (const float*)hs, (const float*)ckpt,
-      (const float*)dhs, (const float*)dcnh, (const float*)dm,
-      (float*)scratch, (float*)dz, (float*)di, (float*)df, (float*)dout,
-      (float*)dcnh0, (float*)dm0, T, B, H, hd, rb, K);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 tiles((hd + 31) / 32, (hd + 31) / 32, H);
-  slstm_dr_kernel<<<tiles, dim3(32, 8), 0, st>>>(
-      (const float*)h0, (const float*)hs, (const float*)dz, (float*)dR, T, B,
-      H, hd);
-  return (int)cudaGetLastError();
+  const Split sp = split_of(hd);
+  const int vec = hd % 4 == 0 &&
+                  (((uintptr_t)zin | (uintptr_t)h0 | (uintptr_t)hs |
+                    (uintptr_t)R | (uintptr_t)dz) & 15) == 0;
+  // z of every step, the forward's bit for bit, into dz's buffer
+  int err = slstm_rec(zin, R, h0, hs, dz, T, B, H, hd, stream);
+  if (err != 0) return err;
+  const BwdArgs a{(const float*)iin, (const float*)fin, (const float*)osig,
+                  (const float*)R, (const float*)ckpt, (const float*)dhs,
+                  (const float*)dcnh, (const float*)dm, (const bool*)upd,
+                  (float*)scratch, (float*)dz, (float*)di, (float*)df,
+                  (float*)dout, (float*)dcnh0, (float*)dm0, T, B, H, hd, rb,
+                  K, vec};
+  err = sp.p == 4 ? bwd_rows<14, 4, 2>(a, st)
+        : sp.len <= 8 ? bwd_rows<2, 8, 4>(a, st)
+                      : bwd_rows<6, 8, 4>(a, st);
+  if (err != 0) return err;
+  const size_t walk = (size_t)H * ((B + rb - 1) / rb) * K * kBwdFields * rb * hd;
+  return launch_dr((const float*)h0, (const float*)hs, (const float*)dz,
+                   (float*)scratch + walk, (float*)dR, T, B, H, hd, vec, st);
 }

@@ -64,13 +64,25 @@ MLSTM_ROWS = MLSTM_MAX_HD // (MLSTM_THREADS // 32)
 MLSTM_BWD_GROUP = 4
 MLSTM_GROUP_FLOATS = (MLSTM_ROWS + 1) * MLSTM_THREADS
 MLSTM_BWD_CTAS_PER_SM = 3  # the kernel's __launch_bounds__
+# the mLSTM forward: blocks of MLSTM_FWD_BLOCK steps (one a warp folds at
+# the block's end), three CTAs a SM (its __launch_bounds__)
+MLSTM_FWD_BLOCK = MLSTM_THREADS // 32
+MLSTM_FWD_CTAS_PER_SM = 3
 # the sLSTM kernels: at most this many batch rows a CTA; the forward
 # splits each group of columns' dot products over p threads (R's slices
 # in registers) and copies z, i, f, o a block of steps ahead into shared
-# memory; the backward keeps R (hd x hd+1 padded) in shared memory, one
-# thread an element of h
+# memory; the backward's walk splits dz R^T the same way (R's row slices
+# in registers) and keeps SLSTM_BWD_FIELDS floats an element a step of a
+# chunk in scratch; its recompute of z copies SLSTM_REC_BLOCK rows a
+# ring half; its dR pass sums 64 x 64 tiles over at most
+# SLSTM_DR_MAX_SPLIT ranges of SLSTM_DR_ROWS (t, b) rows or more
 SLSTM_MAX_ROWS = 4
 SLSTM_MAX_HD = 224
+SLSTM_BWD_FIELDS = 7
+SLSTM_REC_BLOCK = 8
+SLSTM_DR_TILE = 64
+SLSTM_DR_MAX_SPLIT = 16
+SLSTM_DR_ROWS = 4096
 SMEM_MAX = 232_448  # bytes of shared memory a CTA can have on sm_90
 
 _P = ctypes.c_void_p
@@ -79,10 +91,14 @@ _MLSTM_SIG = {
     "mlstm_fwd": (_P,) * 15 + (_I,) * 7 + (_P,),
     "mlstm_bwd": (_P,) * 24 + (_I,) * 6 + (_P,),
     "mlstm_bwd_layout": (),
+    "mlstm_staged_row": (_I,),
 }
 _SLSTM_SIG = {
     "slstm_fwd": (_P,) * 13 + (_I,) * 7 + (_P,),
     "slstm_bwd": (_P,) * 20 + (_I,) * 6 + (_P,),
+    "slstm_bwd_layout": (),
+    "slstm_dr": (_P,) * 5 + (_I,) * 4 + (_P,),
+    "slstm_rec": (_P,) * 5 + (_I,) * 4 + (_P,),
 }
 
 
@@ -182,8 +198,12 @@ def mlstm_scan_cuda(q, k, v, i_pre, f_pre, C0, n0, m0,
     lib = _build.load("mlstm", _MLSTM_SIG)
     f32 = dict(dtype=torch.float32, device=dev)
     h = torch.empty((T, B, H, hd), **f32)
-    if collect:
-        cn = torch.empty((B, T + 1, H, hd, hd + 1), **f32)
+    if collect:  # rows padded to whole sectors (csrc/mlstm.cu staged_row)
+        srs = mlstm_staged_row(hd)
+        _need(lib.mlstm_staged_row(hd) == srs, what,
+              f"the library's staged row {lib.mlstm_staged_row(hd)} is not "
+              f"{srs}")
+        cn = torch.empty((B, T + 1, H, hd, srs), **f32)[..., :hd + 1]
         m = torch.empty((B, T + 1, H), **f32)
     else:
         cn = torch.empty((B, H, hd, hd + 1), **f32)
@@ -251,6 +271,40 @@ def mlstm_scan_bwd_cuda(q, k, v, i_pre, f_pre, upd, h, s, ckpt, mck,
     _build.check(err, "mlstm_scan_bwd launch")
     MLSTM_BWD_LAUNCHES += 1
     return dq, dk, dv, di, df, dcn0[..., :hd], dcn0[..., hd], dm0
+
+
+def mlstm_staged_row(hd: int) -> int:
+    """Floats between two rows of the mLSTM forward's staged states
+    (collect): hd + 1 rounded up to a 32-byte sector, so that the
+    kernel's row stores fill every sector they touch (``staged_row`` in
+    ``csrc/mlstm.cu``); the wrapper returns the view of the first hd + 1
+    columns."""
+    return -(-(hd + 1) // 8) * 8
+
+
+def mlstm_fwd_plan(B: int, H: int, hd: int, n_sm: int) -> dict:
+    """The mLSTM forward kernel's launch for a shape on ``n_sm`` SMs: a CTA
+    per (b, h) and 32 columns of [C|n] (``col_blocks`` a head) of
+    ``MLSTM_THREADS``; T stepped in blocks of ``block`` steps, the read
+    folded once a block; a two-block ring of the raw inputs
+    (``ring_bytes``: q and k rows, v of the CTA's columns, room for
+    float32); dynamic shared memory (bytes; ``csrc/mlstm.cu``'s
+    ``kFsFloats``), resident CTAs a SM and waves. The C entry launches
+    this grid itself; the CPU tests hold the plan to the card's limits."""
+    _need(1 <= hd <= MLSTM_MAX_HD, "mlstm_fwd_plan", f"hd {hd} not in [1, "
+          f"{MLSTM_MAX_HD}]")
+    njb = -(-hd // MLSTM_COLS)
+    ctas = njb * B * H
+    warps, cols, s = MLSTM_THREADS // 32, MLSTM_COLS, MLSTM_FWD_BLOCK
+    ring = 2 * (2 * s * MLSTM_MAX_HD + s * cols)
+    # the ring, each warp's rows of the block as float, three blocks of
+    # gates (8 a step), two blocks of partials (warp column sums, q_i n_i)
+    floats = (ring + warps * s * 2 * MLSTM_ROWS + 3 * s * 8
+              + 2 * s * warps * cols + 2 * s * MLSTM_THREADS)
+    return dict(col_blocks=njb, ctas=ctas, threads=MLSTM_THREADS, block=s,
+                ring_bytes=4 * ring, smem=4 * floats,
+                ctas_per_sm=MLSTM_FWD_CTAS_PER_SM,
+                waves=-(-ctas // (MLSTM_FWD_CTAS_PER_SM * n_sm)))
 
 
 def mlstm_bwd_plan(B: int, H: int, hd: int, ckpt_every: int, n_sm: int
@@ -451,12 +505,6 @@ def _rows_per_cta(B: int, H: int, n_sm: int) -> int:
     return min(SLSTM_MAX_ROWS, max(1, -(-B // max(1, n_sm // H))))
 
 
-def slstm_rows_per_cta(B: int, H: int, dev) -> int:
-    """Batch rows an sLSTM backward CTA steps (one R in shared memory
-    serves them): ``_rows_per_cta`` on this card."""
-    return _rows_per_cta(B, H, _sm_count(dev))
-
-
 def slstm_split(hd: int) -> Tuple[int, int, int]:
     """(p, c, len) of the forward kernel (``split_of`` in
     ``csrc/slstm.cu``): p threads a group of c columns of h, each over a
@@ -486,6 +534,52 @@ def slstm_fwd_plan(B: int, H: int, hd: int, n_sm: int) -> dict:
     return dict(p=p, cols=c, len=L, rows=rb, rows_compiled=rbt,
                 threads=threads, ring_block=blk, smem=smem, cluster=1,
                 ctas=ctas, waves=-(-ctas // n_sm))
+
+
+def slstm_dr_splits(T: int, B: int) -> int:
+    """Ranges of (t, b) rows the dR pass sums apart (``dr_splits`` in
+    ``csrc/slstm.cu``): one per ``SLSTM_DR_ROWS`` rows, at most
+    ``SLSTM_DR_MAX_SPLIT``; a last pass sums them in order."""
+    return max(1, min(SLSTM_DR_MAX_SPLIT, -(-T * B // SLSTM_DR_ROWS)))
+
+
+def slstm_bwd_plan(B: int, H: int, hd: int, T: int, ckpt_every: int,
+                   n_sm: int) -> dict:
+    """The sLSTM backward's launches for a shape on ``n_sm`` SMs. The
+    recompute of z: ``rec_ctas`` CTAs (a head's (t, b) rows in
+    ``rec_ctas / H`` ranges, one wave) of ``threads``, the forward's
+    split, ``rec_smem`` bytes. The walk: a CTA per head and group of
+    ``rows`` batch rows (the forward's rule; compiled for
+    ``rows_compiled``), the forward's split on R's rows (p threads a
+    group of ``cols`` outputs over slices of len), ``smem`` bytes (dz
+    double-buffered), ``ctas`` and ``waves`` (one CTA a SM). dR: 64 x 64
+    tiles (``dr_tiles`` a head) over ``dr_splits`` ranges of rows,
+    ``dr_ctas`` of 256 threads. ``scratch_floats``: the walk's chunk
+    (``SLSTM_BWD_FIELDS`` floats an element a step) and dR's partials.
+    No cluster: the passes that need no step before them (the recompute,
+    dR) fill the card; a walk's step is one row's chain, of which a
+    split over two SMs would shorten only the product's share, at a
+    cluster barrier a step."""
+    p, c, L = slstm_split(hd)
+    _need(1 <= ckpt_every <= KMAX, "slstm_bwd_plan",
+          f"ckpt_every {ckpt_every} not in [1, {KMAX}]")
+    rb = _rows_per_cta(B, H, n_sm)
+    rbt = rb if rb <= 2 else SLSTM_MAX_ROWS
+    threads = -(-(-(-hd // c) * p) // 32) * 32
+    ctas = H * -(-B // rb)
+    rows = T * B
+    rec_parts = max(1, min(max(1, n_sm // H), -(-rows // SLSTM_REC_BLOCK)))
+    nsplit = slstm_dr_splits(T, B)
+    nt = -(-hd // SLSTM_DR_TILE)
+    walk = ctas * ckpt_every * SLSTM_BWD_FIELDS * rb * hd
+    return dict(p=p, cols=c, len=L, rows=rb, rows_compiled=rbt,
+                threads=threads, smem=4 * 2 * rbt * p * (L + 4), cluster=1,
+                ctas=ctas, waves=-(-ctas // n_sm),
+                rec_ctas=H * rec_parts, rec_waves=-(-H * rec_parts // n_sm),
+                rec_smem=4 * 2 * SLSTM_REC_BLOCK * (p * (L + 4) + hd),
+                dr_splits=nsplit, dr_tiles=nt * nt, dr_ctas=nt * nt * H * nsplit,
+                dr_smem=4 * 2 * 2 * 32 * SLSTM_DR_TILE,
+                scratch_floats=walk + nsplit * H * hd * hd)
 
 
 def slstm_scan_cuda(z_in, i_in, f_in, o_sig, R, cnh0, m0,
@@ -536,8 +630,9 @@ def slstm_scan_cuda(z_in, i_in, f_in, o_sig, R, cnh0, m0,
 
 def slstm_scan_bwd_cuda(z_in, i_in, f_in, o_sig, R, h0, upd, hs, ckpt,
                         ckpt_every: int, dhs, dcnh, dm):
-    """Launch the sLSTM backward kernel and its dR reduction pass (CUDA
-    tensors only); returns what ``slstm_scan_bwd_ref`` returns."""
+    """Launch the sLSTM backward: the recompute of z, the walk and the dR
+    passes (CUDA tensors only); returns what ``slstm_scan_bwd_ref``
+    returns."""
     global SLSTM_BWD_LAUNCHES
     what = "slstm_scan_bwd"
     T, H, B, hd = _slstm_check(what, z_in, i_in, f_in, o_sig, R, upd, None)
@@ -554,10 +649,13 @@ def slstm_scan_bwd_cuda(z_in, i_in, f_in, o_sig, R, h0, upd, hs, ckpt,
     _on_card(what, dev, z_in=z_in, i_in=i_in, f_in=f_in, o_sig=o_sig, R=R,
              h0=h0, upd=upd, hs=hs, ckpt=ckpt, dhs=dhs, dcnh=dcnh, dm=dm)
     lib = _build.load("slstm", _SLSTM_SIG)
-    rb = slstm_rows_per_cta(B, H, dev)
+    _need(lib.slstm_bwd_layout() == SLSTM_BWD_FIELDS, what,
+          f"the library's scratch fields {lib.slstm_bwd_layout()} are not "
+          f"{SLSTM_BWD_FIELDS}")
+    plan = slstm_bwd_plan(B, H, hd, T, ckpt_every, _sm_count(dev))
+    rb = plan["rows"]
     f32 = dict(dtype=torch.float32, device=dev)
-    ctas = H * (-(-B // rb))
-    scratch = torch.empty((ctas, ckpt_every, rb, 4, hd), **f32)
+    scratch = torch.empty((plan["scratch_floats"],), **f32)
     dz, di, df, do = (torch.empty((T, H, B, hd), **f32) for _ in range(4))
     dR = torch.empty((H, hd, hd), **f32)
     dcnh0 = torch.empty((3, H, B, hd), **f32)
