@@ -8,7 +8,7 @@ imports only ``repro_torch``, torch and numpy. Phases (any failure exits
 non-zero; no phase's error is caught):
 
 1. device: the card's name and power limit (nvidia-smi), torch's view;
-2. build: the six CUDA sources from ``src/repro_torch/csrc`` with nvcc
+2. build: the seven CUDA sources from ``src/repro_torch/csrc`` with nvcc
    for sm_90a, in parallel, with the ptxas register/shared-memory report;
 3. kernels against their plain PyTorch versions at main-path shapes
    (spec-verify attention within the bfloat16 tolerance at Qwen3-8B's
@@ -100,14 +100,24 @@ non-zero; no phase's error is caught):
 8. the RL loop on Qwen2-1.5B at its published config (28 layers,
    d_model 1536, 12/2 heads of 128, d_ff 8960, vocab 151,936, QKV bias,
    tied embeddings; random bf16 weights from seed 0):
-   8a. ``_flash_attn_train`` (the memory-bounded flash attention with a
-       hand-written backward) at B 4, S 2304, 12/2 heads, hd 128, float32
-       and bf16, against autograd through plain dense attention
-       (``FLASH_TOL``), timed beside dense attention and SDPA with the
-       same boolean mask, with each one's peak memory;
+   8a. the flash kernels (``csrc/flash_attn.cu``, forward and backward)
+       against their plain version (``kernels/flash/ref.py``) within
+       ``FLASH_TOL`` at ``FLASH_KERNEL_CASES`` (hd 64, 128, 256 and 96
+       padded to 128; windows 0, 257, 2048; left pads and rows that see
+       no key; lengths off the kernels' tiles) and at 8a's, phase 9's
+       and 13c's own shapes as the layer pads them, in float32 and bf16,
+       each backward bit-identical over two launches; the library's
+       launch plans within the card's threads and shared memory;
+       then ``_flash_attn_train`` at B 4, S 2304, 12/2 heads, hd 128,
+       float32 and bf16, against autograd through plain dense attention
+       (``FLASH_TOL``), timed (the layer's and the kernels' forward, the
+       backward kernel, forward + backward) beside the plain version,
+       dense attention and SDPA (the same boolean mask, and
+       ``is_causal``), with each one's peak memory and the bound;
    8b. long-prompt rollouts: 4 rows over 2 problems (prompts of 2,100
        and 2,200 seeded tokens), 64 new tokens, T = 0, lock-step, two
-       epochs: every prefill through ``_flash`` once per layer,
+       epochs: every prefill through ``_flash`` once per layer (one
+       flash forward launch each, no backward),
        spec-verify once per attention layer per verify round (kept
        launches held to the plain version), epoch 2 equal to epoch 1
        and drafting, every token plain greedy's choice (0.25 logit);
@@ -116,8 +126,10 @@ non-zero; no phase's error is caught):
        within ``SURROGATE_RTOL`` of -sum(adv*mask)/sum(mask), every
        gradient finite, every layer's wq/wk/wv gradient non-zero (the
        flash backward carries gradient), update_norm = lr * min(1,
-       clip/gnorm) * gnorm, and a lower surrogate after the step; its
-       time and peak memory;
+       clip/gnorm) * gnorm, and a lower surrogate after the step; one
+       flash forward launch a layer in ``compute_old_logprobs`` and one
+       forward and one backward a layer in the step; its time and peak
+       memory;
    8d. after ``set_params``, a third epoch of 8b's traffic, every token
        plain greedy's under the updated weights;
    8e. ``Trainer.run`` on the first 7 of the 28 layers
@@ -144,8 +156,9 @@ non-zero; no phase's error is caught):
    9b. 8b's long-prompt rollouts and 8c's GRPO step on the cut hybrid:
        every RG-LRU parameter's gradient non-zero in every recurrent
        layer, one forward and one backward scan launch per recurrent
-       layer in the step, and with remat the same loss and gradients
-       with twice the forward launches;
+       layer in the step, one flash forward and one backward launch for
+       its local-attention layer (hd 256, window 2048), and with remat
+       the same loss and gradients with twice the forward launches;
    9c. 8e's ``Trainer.run`` on the cut hybrid (T = 0.6, checkpoint,
        token-identical resume), one backward launch per recurrent layer
        per train step;
@@ -281,7 +294,8 @@ non-zero; no phase's error is caught):
        and the counted eager traffic and peak;
    13c. the same for SeamlessM4T-medium (12 + 12 layers) at B 12 (B 16
        does not fit the card: ``SEAMLESS_TRAIN_BATCH``), S 4,096, stub
-       ``enc_embeds`` of 1,024 frames;
+       ``enc_embeds`` of 1,024 frames, each decoder self-attention layer
+       two flash forward launches (remat) and one backward (gated);
    13d. (with phase 6) the dry run's CLIs: ``launch.dryrun --arch
        qwen3-8b --shape verify_8``, ``launch.train --arch xlstm-125m
        --dry-run``, ``launch.serve --arch qwen3-8b --dry-run --shape
@@ -1828,6 +1842,7 @@ def reset_launches():
     from repro_torch.kernels.spec_verify import ops as sv_ops
     from repro_torch.kernels.suffix_match import ops as sm_ops
 
+    reset_flash_launches()
     sv_ops.LAUNCHES = 0
     sm_ops.LAUNCHES = 0
     sm_ops.LAUNCHES_CHUNKED = 0
@@ -1844,6 +1859,19 @@ def reset_xlstm_launches():
     xo.SLSTM_LAUNCHES = xo.SLSTM_BWD_LAUNCHES = 0
     xo.MLSTM_LAUNCHES_BY_SHAPE.clear()
     xo.SLSTM_LAUNCHES_BY_SHAPE.clear()
+
+
+def reset_flash_launches():
+    from repro_torch.kernels.flash import ops as fl_ops
+
+    fl_ops.FWD_LAUNCHES = fl_ops.BWD_LAUNCHES = 0
+
+
+def read_flash_launches():
+    from repro_torch.kernels.flash import ops as fl_ops
+
+    return {"flash_attn_fwd": fl_ops.FWD_LAUNCHES,
+            "flash_attn_bwd": fl_ops.BWD_LAUNCHES}
 
 
 def read_xlstm_launches():
@@ -1870,6 +1898,7 @@ def read_launches():
     from repro_torch.kernels.suffix_match import ops as sm_ops
 
     return {"spec_verify_attention": sv_ops.LAUNCHES,
+            **read_flash_launches(),
             "suffix_match_propose": sm_ops.LAUNCHES,
             "suffix_match_propose_chunked": sm_ops.LAUNCHES_CHUNKED,
             "rglru_scan": rg_ops.LAUNCHES,
@@ -3404,18 +3433,186 @@ def peak_mb(torch, fn):
     return (torch.cuda.max_memory_allocated() - base) / 1e6
 
 
+# 8a's checks of the flash kernels against their plain version on the
+# card, each in float32 and bf16 (within FLASH_TOL; lse within the float32
+# atol/rtol, the rows that see no key -1e30 in both; the backward twice,
+# bit-identical): (label, B, S, Hkv, G, hd, window, mask). "left pads"
+# pads each row's start (position -1, kval 0) and the last row wholly, so
+# whole rows of queries see no key. S 1000, 2300 and 700 are not
+# multiples of the kernels' 64-row tiles (the kernels are called on the
+# unpadded lengths); hd 96 runs zero-padded to 128. 8a's own shape, as
+# the layer pads it, is checked too.
+FLASH_KERNEL_CASES = (
+    ("hd 64, left pads", 2, 1000, 4, 1, 64, 0, "left pads"),
+    ("hd 128, window 257, left pads", 3, 1000, 2, 6, 128, 257, "left pads"),
+    ("hd 256, window 2048", 2, 2300, 1, 4, 256, 2048, None),
+    ("hd 96 (padded to 128), window 257", 2, 700, 2, 2, 96, 257, None),
+)
+
+
+def flash_layer_cases():
+    """8a's checks of the flash kernels at the other paths' own shapes, as
+    the layer pads them, no mask: (label, arch, B, S, window) for phase
+    9's GRPO step (RecurrentGemma-9B's local attention: 16 query heads on
+    one kv head of 256, ``TRAIN_S``, its window) and 13c's
+    (SeamlessM4T-medium's decoder self-attention: 16/16 heads of 64, B
+    ``SEAMLESS_TRAIN_BATCH``, S 4,096, causal)."""
+    from repro_torch.configs import get_config
+
+    return (("phase 9's shape", "recurrentgemma-9b", 4, TRAIN_S,
+             get_config("recurrentgemma-9b").local_window),
+            ("13c's shape", "seamless-m4t-medium", SEAMLESS_TRAIN_BATCH,
+             p13_jobs()["13c"][1].seq_len, 0))
+
+
+def flash_positions(torch, B, S, mask, dev="cuda"):
+    """(positions (B, S) int32, valid (B, S) bool or None) as prefill
+    gives them: with "left pads" row b's first (0, 37, S // 3, ...)
+    tokens are pads at position -1 and the last row is pads throughout."""
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    if mask is None:
+        return pos, None
+    valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+    for b in range(B):
+        n = S if b == B - 1 else (0, 37, S // 3)[b % 3]
+        valid[b, :n] = False
+        pos[b, :n] = -1
+        pos[b, n:] = torch.arange(S - n, dtype=torch.int32, device=dev)
+    return pos, valid
+
+
+def flash_case_inputs(torch, np, B, S, Hkv, G, hd, window, mask, dtype,
+                      seed, dev="cuda"):
+    """The flash kernels' arguments at one shape: q (B, S, Hkv, G, hd), k,
+    v (B, S, Hkv, hd), dout like q, from a seed, and float positions."""
+    rng = np.random.default_rng(seed)
+    mk = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+          .to(dev, dtype) for shape in ((B, S, Hkv, G, hd), (B, S, Hkv, hd),
+                                        (B, S, Hkv, hd), (B, S, Hkv, G, hd))]
+    pos, valid = flash_positions(torch, B, S, mask, dev)
+    kval = (torch.ones((B, S), device=dev) if valid is None
+            else valid.float())
+    posf = pos.float()
+    return (*mk[:3], posf, posf.clone(), kval), mk[3]
+
+
+def flash_check(torch, card, where, args, dout, window, dtype, qc, kc):
+    """Both kernels against the plain version on the same inputs (see
+    FLASH_KERNEL_CASES); the backward launched twice, bit-identical.
+    Returns (forward max |err|, backward max |err|)."""
+    from repro_torch.kernels.flash import ops as fl_ops
+    from repro_torch.kernels.flash import ref as fl_ref
+
+    tol = FLASH_TOL[dtype]
+    lse_tol = FLASH_TOL["float32"]
+    out, lse = fl_ops.flash_fwd_cuda(*args, window)
+    rout, rlse = fl_ref.flash_fwd_ref(*args, window, qc, kc)
+    grads = fl_ops.flash_bwd_cuda(*args, out, lse, dout, window)
+    again = fl_ops.flash_bwd_cuda(*args, out, lse, dout, window)
+    rgrads = fl_ref.flash_bwd_ref(*args, out, lse, dout, window, qc, kc)
+    torch.cuda.synchronize()
+    err = float((out.float() - rout.float()).abs().max())
+    check(bool(torch.isfinite(out).all()) and torch.allclose(
+        out.float(), rout.float(), atol=tol["atol"], rtol=tol["rtol"]),
+        f"{where} forward: out max |err| {err} against the plain version")
+    empty = rlse <= -1e29
+    check(torch.equal(lse <= -1e29, empty),
+          f"{where} forward: the rows that see no key differ from the plain "
+          "version's")
+    lerr = float((lse[~empty] - rlse[~empty]).abs().max()) \
+        if bool((~empty).any()) else 0.0
+    check(torch.allclose(lse[~empty], rlse[~empty], atol=lse_tol["atol"],
+                         rtol=lse_tol["rtol"]),
+          f"{where} forward: lse max |err| {lerr}")
+    rel, berr = [], 0.0
+    for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, rgrads):
+        check(torch.equal(g, g2), f"{where} {name}: two backward launches "
+              "differ")
+        e = float((g.float() - r.float()).abs().max())
+        berr = max(berr, e)
+        e = e / float(r.float().abs().max().clamp(min=1e-30))
+        check(bool(torch.isfinite(g).all()) and e <= tol["grad"],
+              f"{where} {name}: max |err| / max |ref| {e}")
+        rel.append(f"{name} {e:.2e}")
+    n_empty = int(empty.sum())
+    log(f"{where}: out max |err| {err:.3e} (atol {tol['atol']}, rtol "
+        f"{tol['rtol']}), lse {lerr:.3e}, {n_empty} (query, head) rows see "
+        f"no key in both; gradients max |err| / max |ref| {', '.join(rel)} "
+        f"(<= {tol['grad']}), the backward bit-identical over two launches"
+        f"  [{card}]")
+    return err, berr
+
+
+def flash_bound_ms(torch, args, hd, S, backward):
+    """Least time of one launch at this run's inputs (``flash_work``: the
+    visible pairs counted from the positions, the unpadded length's
+    bytes)."""
+    from repro_torch.kernels.flash import ops as fl_ops
+
+    q, _, _, qpos, kpos, kval = args
+    B, _, Hkv, G, _ = q.shape
+    pairs = fl_ops.visible_pairs(qpos, kpos, kval, 0)
+    dtype = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    return roofline_ms(*reversed(fl_ops.flash_work(
+        B, S, S, Hkv, G, hd, q.element_size(), pairs, backward)), dtype)
+
+
 def phase_flash(torch, np, timer, card, B=4, S=2304, Hq=12, Hkv=2, hd=128):
-    """8a: ``_flash_attn_train`` forward and backward at Qwen2-1.5B's
-    attention shape and a long-tail length, float32 and bf16, against
-    autograd through the plain dense attention (``_attn_core``); times
-    (forward, forward + backward) beside the dense version's and SDPA's
-    forward + backward with the same boolean mask, and each one's peak
-    memory."""
+    """8a: the flash kernels against their plain version on the card
+    (``FLASH_KERNEL_CASES`` and 8a's own shape, float32 and bf16), then
+    ``_flash_attn_train`` forward and backward at Qwen2-1.5B's attention
+    shape and a long-tail length against autograd through the plain dense
+    attention (``_attn_core``); times the kernels' forward, backward and
+    forward + backward beside the plain version's, the dense version's
+    and SDPA's (the boolean mask and ``is_causal``), with each one's peak
+    memory. Returns the bf16 8a numbers of the JSON entries
+    ``flash_attn_fwd`` and ``flash_attn_bwd``."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import ops as fl_ops
+    from repro_torch.kernels.flash import ref as fl_ref
     from repro_torch.models import layers as L
 
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for i, (label, cB, cS, cHkv, cG, chd, w, mk) in enumerate(
+                FLASH_KERNEL_CASES):
+            args, dout = flash_case_inputs(torch, np, cB, cS, cHkv, cG, chd,
+                                           w, mk, dt, 90 + i)
+            flash_check(torch, card, f"8a flash {dtype} {label} (B={cB} "
+                        f"S={cS} Hkv={cHkv} G={cG})", args, dout, w, dtype,
+                        cS, cS)
+            del args, dout
+        for i, (label, arch, cB, cS, w) in enumerate(flash_layer_cases()):
+            c = get_config(arch)
+            rng = np.random.default_rng(95 + i)
+            q, k, v, dout = (
+                torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                .to("cuda", dt) for shape in (
+                    (cB, cS, c.num_heads, c.head_dim),
+                    (cB, cS, c.num_kv_heads, c.head_dim),
+                    (cB, cS, c.num_kv_heads, c.head_dim),
+                    (cB, cS, c.num_heads, c.head_dim)))
+            pos = torch.arange(cS, dtype=torch.int32,
+                               device="cuda")[None].expand(cB, cS)
+            *args, qc, kc = L._flash_inputs(q, k, v, pos, None)
+            dpad = L._flash_inputs(dout, k, v, pos, None)[0]
+            del q, k, v, dout
+            flash_check(torch, card, f"8a flash {dtype} {label} (B={cB} "
+                        f"S={cS} Hq={c.num_heads} Hkv={c.num_kv_heads} "
+                        f"hd={c.head_dim} window={w}, as the layer pads it)",
+                        args, dpad, w, dtype, qc, kc)
+            del args, dpad
+            torch.cuda.empty_cache()
+    for built in fl_ops.FLASH_HDS:  # (hd is 8a's own head dim)
+        for dt in (torch.bfloat16, torch.float32):
+            plan = fl_ops.flash_plan(built, dt)
+            check(all(p["threads"] <= 1024 and p["smem"] <= 232_448
+                      for p in plan.values())
+                  and plan["dkdv"]["rows"] == fl_ops.KEY_TILE,
+                  f"flash_attn plan at hd {built} {dt}: {plan}")
+            log(f"flash_attn plan at hd {built} {dt}: {plan}")
     cfg = get_config("qwen2-1.5b")
     rng = np.random.default_rng(80)
     base = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
@@ -3423,10 +3620,19 @@ def phase_flash(torch, np, timer, card, B=4, S=2304, Hq=12, Hkv=2, hd=128):
                           (B, S, Hq, hd))]
     pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
     mask = (pos[:, None, :] <= pos[:, :, None])[:, None]  # (B, 1, S, S)
+    entries = {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         q, k, v = (t.to(dt).requires_grad_() for t in base[:3])
         dout = base[3].to(dt)
+        # the kernels' arguments as the layer pads them (8a's own shape)
+        *args, qc, kc = L._flash_inputs(q.detach(), k.detach(), v.detach(),
+                                        pos, None)
+        dpad = L._flash_inputs(dout, k.detach(), v.detach(), pos, None)[0]
+        ferr, berr = flash_check(torch, card, f"8a flash {dtype} 8a shape "
+                                 f"(B={B} S={S} Hq={Hq} Hkv={Hkv}, as the "
+                                 "layer pads it)", args, dpad, 0, dtype, qc,
+                                 kc)
 
         def flash():
             return L._flash_attn_train(q, k, v, pos, cfg, window=0,
@@ -3453,16 +3659,29 @@ def phase_flash(torch, np, timer, card, B=4, S=2304, Hq=12, Hkv=2, hd=128):
                   f"_flash {dtype} {name}: max |err| / max |ref| {e}")
             rel.append(f"{name} {e:.2e}")
         del out, grads, ref, rgrads
-        # SDPA yardstick: forward + backward with the same boolean mask,
-        # (B, H, S, hd) layout made outside the timing
+        # SDPA yardsticks: the same boolean mask, and is_causal (no mask
+        # tensor: the route PyTorch's own flash kernel can take); (B, H,
+        # S, hd) layout made outside the timing
         qs, ks, vs = (t.detach().transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
         ds = dout.transpose(1, 2).contiguous()
 
-        def sdpa_fb():
-            o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                               enable_gqa=True)
-            return torch.autograd.grad(o, (qs, ks, vs), ds)
+        def sdpa(causal):
+            if causal:
+                return F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return sdpa(False)
+
+        so = sdpa(False)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(so, (qs, ks, vs), ds,
+                                       retain_graph=True)
 
         def fwd():
             with torch.no_grad():
@@ -3471,22 +3690,85 @@ def phase_flash(torch, np, timer, card, B=4, S=2304, Hq=12, Hkv=2, hd=128):
         def fb():
             return torch.autograd.grad(flash(), (q, k, v), dout)
 
+        kout, klse = fl_ops.flash_fwd_cuda(*args, 0)
+
+        def kfwd():
+            return fl_ops.flash_fwd_cuda(*args, 0)
+
+        def kbwd():
+            return fl_ops.flash_bwd_cuda(*args, kout, klse, dpad, 0)
+
+        def plain_fwd():
+            return fl_ref.flash_fwd_ref(*args, 0, qc, kc)
+
+        def plain_bwd():
+            return fl_ref.flash_bwd_ref(*args, kout, klse, dpad, 0, qc, kc)
+
+        def plain_fb():
+            o, lse_ = fl_ref.flash_fwd_ref(*args, 0, qc, kc)
+            return fl_ref.flash_bwd_ref(*args, o, lse_, dpad, 0, qc, kc)
+
         def dense_fb():
             return torch.autograd.grad(dense(), (q, k, v), dout)
 
         res = {}
-        for name, fn in (("forward", fwd), ("forward + backward", fb),
-                         ("dense forward + backward", dense_fb),
-                         ("SDPA forward + backward", sdpa_fb)):
-            res[name] = (timer.ms(fn, 5, warmup=1), peak_mb(torch, fn))
+        for name, fn, reps in (
+                ("forward", fwd, 10), ("kernel forward", kfwd, 10),
+                ("backward", kbwd, 10),
+                ("forward + backward", fb, 10),
+                ("plain forward", plain_fwd, 2),
+                ("plain backward", plain_bwd, 2),
+                ("plain forward + backward", plain_fb, 2),
+                ("dense forward + backward", dense_fb, 3),
+                ("SDPA (mask) forward", sdpa_fwd, 10),
+                ("SDPA (mask) backward", sdpa_bwd, 10),
+                ("SDPA (mask) forward + backward",
+                 lambda: torch.autograd.grad(sdpa(False), (qs, ks, vs), ds),
+                 10),
+                ("SDPA (is_causal) forward + backward",
+                 lambda: torch.autograd.grad(sdpa(True), (qs, ks, vs), ds),
+                 10)):
+            res[name] = (timer.ms(fn, reps, warmup=1), peak_mb(torch, fn))
         log(f"_flash {dtype} (B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd}, causal): "
-            f"forward max |err| {err:.3e} (atol {tol['atol']}, rtol "
-            f"{tol['rtol']}), gradients max |err| / max |ref|: "
-            f"{', '.join(rel)} (<= {tol['grad']})  ok; "
-            + "; ".join(f"{n} {ms:.2f} ms, peak {mb:.0f} MB"
+            f"against dense autograd: forward max |err| {err:.3e} (atol "
+            f"{tol['atol']}, rtol {tol['rtol']}), gradients max |err| / max "
+            f"|ref|: {', '.join(rel)} (<= {tol['grad']})  ok; "
+            + "; ".join(f"{n} {ms:.3f} ms, peak {mb:.0f} MB"
                         for n, (ms, mb) in res.items()) + f"  [{card}]")
-        del q, k, v, qs, ks, vs
+        fb_bound = (flash_bound_ms(torch, args, hd, S, False)[0]
+                    + flash_bound_ms(torch, args, hd, S, True)[0])
+        log(f"_flash {dtype} kernels at 8a: forward + backward "
+            f"{res['forward + backward'][0]:.3f} ms against a bound of "
+            f"{fb_bound:.3f} ms (bound/time "
+            f"{fb_bound / res['forward + backward'][0]:.3f}); "
+            f"{res['plain forward + backward'][0] / res['forward + backward'][0]:.1f}"
+            f"x the plain version, "
+            f"{res['SDPA (mask) forward + backward'][0] / res['forward + backward'][0]:.2f}"
+            f"x SDPA with the mask, "
+            f"{res['SDPA (is_causal) forward + backward'][0] / res['forward + backward'][0]:.2f}"
+            f"x SDPA is_causal (time ratios: above 1 the kernels are faster)"
+            f"  [{card}]")
+        if dtype == "bfloat16":
+            # the kernels' own launches on the layer's padded arguments,
+            # beside the plain version's and SDPA's (mask) on the same work
+            for name, key, e, bwd in (("flash_attn_fwd", "forward", ferr,
+                                       False),
+                                      ("flash_attn_bwd", "backward", berr,
+                                       True)):
+                bound, by = flash_bound_ms(torch, args, hd, S, bwd)
+                check(by == "operations", f"{name}: bound by {by}")
+                entries[name] = dict(
+                    name=name, route="cuda",
+                    source="src/repro_torch/csrc/flash_attn.cu",
+                    replaces="src/repro/models/layers.py:201 _flash "
+                             "(custom_vjp lax.scan, no pallas_call)",
+                    max_abs_err=e,
+                    ms=res["backward" if bwd else "kernel forward"][0],
+                    plain_ms=res[f"plain {key}"][0], bound_ms=bound,
+                    bound_by=by, library_ms=res[f"SDPA (mask) {key}"][0])
+        del q, k, v, qs, ks, vs, so, args, dpad, kout, klse
         torch.cuda.empty_cache()
+    return list(entries.values())
 
 
 class FlashSpy:
@@ -3549,6 +3831,11 @@ def long_prompt_epochs(torch, np, card, cfg, eng, prompts, pids, epochs,
         check_sv_launches(cfg, launches,
                           sum(st.n_rounds for _, st in runs), where)
         spy.check(torch, card, where)
+        check((launches["flash_attn_fwd"], launches["flash_attn_bwd"])
+              == (flash.n, 0),
+              f"{where}: {launches['flash_attn_fwd']} flash forward and "
+              f"{launches['flash_attn_bwd']} backward launches, expected "
+              f"one forward per _flash call ({flash.n}) and none backward")
     log(f"{where}: {flash.n} _flash calls (one per attention layer per "
         f"prefill); launches {launches}")
     return runs, launches
@@ -3609,6 +3896,21 @@ def scan_launch_delta(before, after):
             after["rglru_scan_bwd"] - before["rglru_scan_bwd"])
 
 
+def flash_launch_delta(before, after):
+    return (after["flash_attn_fwd"] - before["flash_attn_fwd"],
+            after["flash_attn_bwd"] - before["flash_attn_bwd"])
+
+
+def n_flash_layers(cfg, S):
+    """Attention layers whose full-sequence forward at length S takes
+    ``_flash_attn_train`` (one flash launch each): every causal self-
+    attention layer at S >= 2048; an encoder's layers never do."""
+    from repro_torch.models import layers as L
+
+    n = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds)
+    return n if S >= L._FLASH_THRESHOLD else 0
+
+
 def phase_rl_step(torch, np, card, cfg, params, prompts, outs,
                   dev="cuda", tag="8c", remat_check=False):
     """8c (9b for the hybrid): one GRPO step at S >= 2048 on the rollouts'
@@ -3629,6 +3931,7 @@ def phase_rl_step(torch, np, card, cfg, params, prompts, outs,
     n_rec = sum(k == "rglru" for k in cfg.layer_kinds)
     reset_launches()
     tokens, resp = pack_train_arrays(prompts, outs)
+    n_fl = n_flash_layers(cfg, tokens.shape[1])
     adv = np.random.default_rng(82).normal(size=len(prompts)).astype(
         np.float32)
     check(bool((adv != 0).all()), f"{tag}: an advantage is 0")
@@ -3656,6 +3959,12 @@ def phase_rl_step(torch, np, card, cfg, params, prompts, outs,
     check(dev != "cuda" or (fwd, bwd) == (n_rec, n_rec),
           f"{tag}: {fwd} forward and {bwd} backward RG-LRU launches in the "
           f"step, expected {n_rec} each (one per recurrent layer)")
+    ffwd, fbwd = flash_launch_delta(before, read_launches())
+    old_fl = before["flash_attn_fwd"]
+    check(dev != "cuda" or (old_fl, ffwd, fbwd) == (n_fl, n_fl, n_fl),
+          f"{tag}: {old_fl} flash forward launches in compute_old_logprobs,"
+          f" {ffwd} forward and {fbwd} backward in the step, expected "
+          f"{n_fl} each (one per attention layer)")
     remat = ""
     if remat_check:
         before = read_launches()
@@ -3669,6 +3978,10 @@ def phase_rl_step(torch, np, card, cfg, params, prompts, outs,
         check(dev != "cuda" or (rfwd, rbwd) == (2 * n_rec, n_rec),
               f"{tag} remat: {rfwd} forward and {rbwd} backward RG-LRU "
               f"launches, expected {2 * n_rec} and {n_rec}")
+        rffwd, rfbwd = flash_launch_delta(before, read_launches())
+        check(dev != "cuda" or (rffwd, rfbwd) == (2 * n_fl, n_fl),
+              f"{tag} remat: {rffwd} forward and {rfbwd} backward flash "
+              f"launches, expected {2 * n_fl} and {n_fl}")
         rl = float(rloss.detach())
         check(rl == loss, f"{tag} remat: loss {rl} differs from {loss}")
         worst = max(float((rgrads[k].float() - g.float()).abs().max()
@@ -3679,7 +3992,8 @@ def phase_rl_step(torch, np, card, cfg, params, prompts, outs,
         del rgrads, rloss
         remat = (f"; with remat: the same loss, gradients within {worst:.2e} "
                  f"of their largest magnitude, {rfwd} forward / {rbwd} "
-                 f"backward RG-LRU launches, {t_remat:.3f} s")
+                 f"backward RG-LRU launches, {rffwd} forward / {rfbwd} "
+                 f"backward flash launches, {t_remat:.3f} s")
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3715,7 +4029,9 @@ def phase_rl_step(torch, np, card, cfg, params, prompts, outs,
         f"{gn:.4f}, lr {lr:g}, update_norm {un:.6f}; every gradient finite, "
         f"every attention layer's wq/wk/wv and every RG-LRU layer's "
         f"parameters' gradient non-zero; {fwd} forward / {bwd} backward "
-        f"RG-LRU launches; loss + gradients {t_grad:.3f} s, with the AdamW "
+        f"RG-LRU launches; {old_fl} flash forward launches in "
+        f"compute_old_logprobs, {ffwd} forward / {fbwd} backward in the "
+        f"step; loss + gradients {t_grad:.3f} s, with the AdamW "
         f"update {t_step:.3f} s, peak memory {peak:.2f} GiB{remat}  [{card}]")
     return un, read_launches()
 
@@ -3861,13 +4177,13 @@ def phase_trainer(torch, np, card, cfg=None, dev="cuda", tag="8e"):
 
 def phase_rl(torch, np, timer, card):
     """Phase 8, the RL loop on the card; returns its launches (the
-    spec-verify ones at the 12/2-head shape)."""
-    phase_flash(torch, np, timer, card)
+    spec-verify ones at the 12/2-head shape) and 8a's JSON entries."""
+    entries = phase_flash(torch, np, timer, card)
     t0 = time.perf_counter()
     cfg, params = full_width_model(torch, "qwen2-1.5b")
     eng, prompts, pids, outs, l8b = phase_rl_rollouts(torch, np, card, cfg,
                                                       params)
-    un, _ = phase_rl_step(torch, np, card, cfg, params, prompts, outs)
+    un, l8c = phase_rl_step(torch, np, card, cfg, params, prompts, outs)
     l8d = phase_rl_after_update(torch, np, card, cfg, params, eng, prompts,
                                 pids, un)
     del eng, params
@@ -3876,16 +4192,18 @@ def phase_rl(torch, np, timer, card):
                         cfg=cfg.replace(num_layers=TRAINER_LAYERS))
     torch.cuda.empty_cache()
     total = Counter()
-    for run in (l8b, l8d, l8e):
+    for run in (l8b, l8c, l8d, l8e):
         total.update({k: v for k, v in run.items()
                       if k != "rglru_scan_by_shape"})
     check(total["rglru_scan"] == 0 and total["rglru_scan_bwd"] == 0 and
           total["suffix_match_propose_chunked"] == 0,
           f"phase 8 launched a kernel off its path: {dict(total)}")
+    check(total["flash_attn_fwd"] > 0 and total["flash_attn_bwd"] > 0,
+          f"phase 8 left a flash kernel unlaunched: {dict(total)}")
     total["spec_verify_attention_qwen2"] = total.pop("spec_verify_attention")
     log(f"phase 8 (8b-8e) in {time.perf_counter() - t0:.1f} s; launches "
         f"{dict(total)}  [{card}]")
-    return total
+    return total, entries
 
 
 # ---------------------------------------------------------------------------
@@ -4079,7 +4397,8 @@ def phase_hybrid_train(torch, np, timer, card):
                       if k != "rglru_scan_by_shape"})
         shapes.update(run["rglru_scan_by_shape"])
     check(total["rglru_scan"] > 0 and total["rglru_scan_bwd"] > 0
-          and total["suffix_match_propose"] > 0,
+          and total["suffix_match_propose"] > 0
+          and total["flash_attn_fwd"] > 0 and total["flash_attn_bwd"] > 0,
           f"phase 9 left a kernel of its path unlaunched: {dict(total)}")
     check(total["suffix_match_propose_chunked"] == 0,
           f"phase 9 launched the chunked kernel: {dict(total)}")
@@ -4845,7 +5164,10 @@ P13_TRAIN_BATCH = 16
 # 13c's batch, cut from 16: SeamlessM4T's step at B 16 and B 14 ran out
 # of an NVIDIA H100 80GB HBM3's memory (700 W; the dry run counts 83.06
 # GB at B 16, 64.62 at 12: the 256,512-entry head's float32 logits chunks
-# and the encoder's saved scores grow with B); B 12 fits (B 13 untried)
+# and the encoder's saved scores grow with B); B 12 fits (B 13 untried).
+# Counted with the flash kernels' work in place of the plain tiles, the
+# peaks are the same (the tiles were never at the peak), so B 16 stays
+# past the card even before the dry run's known undercount
 SEAMLESS_TRAIN_BATCH = 12
 # 13b's sequence: train_4k's own 4,096 (each mLSTM and sLSTM layer one
 # forward kernel launch, one more in remat's recompute and one backward).
@@ -4902,8 +5224,9 @@ def p13_counted(arch, shape, cfg=None):
 def counted_line(rec):
     """A dry-run record's counted terms (NVIDIA H100 data-sheet peaks).
     Its bytes are the port's eager traffic: every op's operands and
-    results, the plain-PyTorch flash tiles and slice gradients among
-    them, not the least a step must move (the phases' floor)."""
+    results (the slice gradients among them; the hand-written kernels'
+    reported work in their place), not the least a step must move (the
+    phases' floor)."""
     return (f"counted eager traffic: {rec['total_flops'] / 1e12:.3f} TFLOP,"
             f" {rec['total_bytes'] / 1e9:.2f} GB, t_compute "
             f"{rec['t_compute_s'] * 1e3:.3f} ms, t_memory "
@@ -5167,8 +5490,8 @@ def phase_grpo_card(torch, np, card, arch, B, S, tag, dev="cuda",
     (``roofline_ms``) and the dry run's count of the same work on the one
     card's mesh (``counted``, a future of ``start_p13_counts``, where
     given). With ``warm`` a second step, on the updated weights, is timed
-    after the gated one. The gated step's xLSTM kernel launches go into
-    ``launches`` where given. ``cfg`` (with ``dev="cpu"``) rehearses it at
+    after the gated one. The gated step's xLSTM and flash kernel launches
+    are added to the Counter ``launches`` where given. ``cfg`` (with ``dev="cpu"``) rehearses it at
     a small width."""
     from repro_torch.launch import workloads as W
     from repro_torch.models import layers as L
@@ -5233,6 +5556,7 @@ def phase_grpo_card(torch, np, card, arch, B, S, tag, dev="cuda",
         torch.cuda.reset_peak_memory_stats()
     adamw.apply_updates = spy
     reset_xlstm_launches()
+    reset_flash_launches()
     try:
         t0 = time.perf_counter()
         params, opt, loss = step(params, opt, batch)
@@ -5241,9 +5565,20 @@ def phase_grpo_card(torch, np, card, arch, B, S, tag, dev="cuda",
     finally:
         adamw.apply_updates = real
     xl = read_xlstm_launches()
-    if launches is not None:
-        launches.update(xl)
+    fl = read_flash_launches()
+    if launches is not None:  # added to the counts already there
+        for name, n in {**xl, **fl}.items():
+            launches[name] += n
     if dev == "cuda":  # remat: a forward launch, its recompute, a backward
+        n = n_flash_layers(cfg, S)
+        check((fl["flash_attn_fwd"], fl["flash_attn_bwd"]) == (2 * n, n),
+              f"{where}: {fl['flash_attn_fwd']} flash forward and "
+              f"{fl['flash_attn_bwd']} backward launches in the step, "
+              f"expected {2 * n} and {n}")
+        if n:
+            log(f"{where}: the step's flash launches {fl} (remat: a forward,"
+                f" its recompute and a backward a decoder self-attention "
+                f"layer)  [{card}]")
         for block in ("mlstm", "slstm"):
             n = sum(k == block for k in cfg.layer_kinds)
             fwd = xl[f"{block}_scan"] + xl[f"{block}_scan_train"]
@@ -5832,7 +6167,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     sources = ["spec_verify", "suffix_match", "rglru", "rglru_bwd", "mlstm",
-               "slstm"]
+               "slstm", "flash_attn"]
     _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc sm_90a, parallel)  "
         f"[{card}]")
@@ -5943,9 +6278,12 @@ def main() -> None:
     # phase 8: the RL loop on Qwen2-1.5B at its published config
     timer = Timer(torch)
     stamp("phase 7")
-    rl = phase_rl(torch, np, timer, card)
+    rl, entries8 = phase_rl(torch, np, timer, card)
     del timer
     launches.update(rl)
+    kernels.update({k["name"]: k for k in entries8})
+    fl_names = ("flash_attn_fwd", "flash_attn_bwd")
+    flash_by_path = {"8b-8e": tuple(rl[n] for n in fl_names)}
     # phase 10c: two workers over the history service with faults, in
     # float32 (exact against one worker, and the checkpoint resume) and in
     # bf16 (the plain-greedy witness; no checkpoint, for the script's time:
@@ -5983,6 +6321,7 @@ def main() -> None:
     kernels.update({k["name"]: k for k in entries})
     launches.update(l9)
     rglru_shapes.update(shapes9)
+    flash_by_path["9b-9c"] = tuple(l9[n] for n in fl_names)
     # phase 11: the remaining decoder families, one resident at a time
     gc.collect()
     torch.cuda.empty_cache()
@@ -6026,15 +6365,18 @@ def main() -> None:
     stamp("phase 12")
     # phase 13b/13c: a GRPO step of xLSTM-125M and of SeamlessM4T-medium
     # at their published configs, the dry run's count beside each
+    fl_before = tuple(launches[n] for n in fl_names)
     for tag, (arch, shape) in p13_jobs().items():
         if tag in ("13b", "13c"):
-            # 13b's step's xLSTM launches (gated there) join the line's
+            # the step's launches (gated there: 13b's xLSTM ones, 13c's
+            # flash ones) are added to the line's
             phase_grpo_card(torch, np, card, arch, shape.global_batch,
                             shape.seq_len, tag, counted=p13_counts[tag],
-                            warm=tag == "13b",
-                            launches=launches if tag == "13b" else None)
+                            warm=tag == "13b", launches=launches)
     p13_pool.shutdown()
     stamp("phase 13b-c")
+    flash_by_path["13c"] = tuple(launches[n] - b
+                                 for n, b in zip(fl_names, fl_before))
     # phase 14: the paper's RL run through the examples' own configs
     # (SFT-warmed 100m policy, DAS on and off; rl_code's twin)
     gc.collect()
@@ -6062,6 +6404,8 @@ def main() -> None:
     stamp("small references")
     phase_cli(card)
     log(f"launches on every path: {dict(launches)}  [{card}]")
+    log(f"flash (forward, backward) launches by path: {flash_by_path}; on "
+        f"every path {tuple(launches[n] for n in fl_names)}  [{card}]")
     kernels = list(kernels.values())
     for k in kernels:
         k.setdefault("launches", launches[k["name"]])

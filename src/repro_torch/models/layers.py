@@ -13,7 +13,9 @@ Attention has two modes, as in the reference:
   * full sequence (prefill, training): causal (+window) mask from
     absolute positions, plain PyTorch attention (``_attn_core``) below
     ``_FLASH_THRESHOLD`` tokens and the memory-bounded flash attention
-    with a hand-written backward (``_flash_attn_train``) at or past it;
+    with a hand-written backward (``_flash_attn_train``) at or past it,
+    through ``kernels.flash.ops`` (the CUDA kernels for CUDA tensors,
+    the plain tiles for CPU tensors);
   * cached verify block: the block's K/V are written to ring slots
     ``pos % S`` of the position-tagged cache (trash slot ``S`` for
     invalid tokens) *before* the read, so rejected drafts are overwritten
@@ -45,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.spec_verify.ops import spec_verify_attention
 from repro_torch.kernels.xlstm import ops as xlstm_ops
@@ -176,127 +179,21 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, device,
 _NEG = -1e30
 
 
-def _flash_mask(qp, kp, kval, window: int) -> torch.Tensor:
-    """(B, qc, kc) bool from float position chunks."""
-    m = (kp[:, None, :] <= qp[:, :, None]) & (kval[:, None, :] > 0)
-    if window > 0:
-        m &= kp[:, None, :] > (qp[:, :, None] - window)
-    return m
+def _flash(q, k, v, qpos, kpos, kval, window: int, qc: int, kc: int,
+           length: Optional[int] = None):
+    """The counterpart of the reference's ``custom_vjp`` ``_flash``:
+    ``kernels.flash.ops.FlashAttention`` (the CUDA kernels for CUDA
+    tensors, the plain tiles of ``qc`` x ``kc`` for CPU tensors; on meta
+    tensors the kernels' work counted at ``length``)."""
+    return flash_ops.FlashAttention.apply(q, k, v, qpos, kpos, kval, window,
+                                          qc, kc, length)
 
 
-def _f32(t: torch.Tensor) -> torch.Tensor:
-    # bf16 x bf16 products are exact in float32, so an upcast before the
-    # product is the reference's preferred_element_type=float32
-    return t.float()
-
-
-def _flash_fwd_impl(q, k, v, qpos, kpos, kval, window: int, qc: int,
-                    kc: int):
-    """Tiled online softmax; returns out (B, Sq, Hkv, G, hd) in q.dtype
-    and lse (B, Hkv, G, Sq) float32."""
-    B, Sq, Hkv, G, hd = q.shape
-    Sk = k.shape[1]
-    scale = 1.0 / math.sqrt(hd)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, Hkv, G, Sq), dtype=torch.float32, device=q.device)
-    for q0 in range(0, Sq, qc):
-        q_blk = _f32(q[:, q0:q0 + qc])
-        qp = qpos[:, q0:q0 + qc]
-        m = torch.full((B, Hkv, G, qc), _NEG, device=q.device)
-        l = torch.zeros((B, Hkv, G, qc), device=q.device)
-        acc = torch.zeros((B, Hkv, G, qc, hd), device=q.device)
-        for k0 in range(0, Sk, kc):
-            s = torch.einsum("bqkgh,bckh->bkgqc", q_blk,
-                             _f32(k[:, k0:k0 + kc])) * scale
-            msk = _flash_mask(qp, kpos[:, k0:k0 + kc], kval[:, k0:k0 + kc],
-                              window)[:, None, None]
-            s = torch.where(msk, s, _NEG)
-            m_new = torch.maximum(m, s.amax(-1))
-            m_safe = torch.where(m_new <= _NEG, 0.0, m_new)
-            p = torch.exp(s - m_safe[..., None])
-            alpha = torch.where(m <= _NEG, 0.0, torch.exp(m - m_safe))
-            l = alpha * l + p.sum(-1)
-            v_blk = v[:, k0:k0 + kc]
-            acc = alpha[..., None] * acc + torch.einsum(
-                "bkgqc,bckh->bkgqh", _f32(p.to(v_blk.dtype)), _f32(v_blk))
-            m = m_new
-        o = acc / torch.clamp(l[..., None], min=1e-20)
-        out[:, q0:q0 + qc] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
-        lse[..., q0:q0 + qc] = m + torch.log(torch.clamp(l, min=1e-20))
-    return out, lse
-
-
-def _flash_bwd_impl(q, k, v, qpos, kpos, kval, out, lse, dout, window: int,
-                    qc: int, kc: int):
-    """Recomputes P per (q-chunk, kv-chunk) tile from ``lse``; returns
-    (dq, dk, dv) in the inputs' dtypes."""
-    B, Sq, Hkv, G, hd = q.shape
-    Sk = k.shape[1]
-    scale = 1.0 / math.sqrt(hd)
-    # D = rowsum(dO * O)  (B, Hkv, G, Sq)
-    Drow = torch.einsum("bskgh,bskgh->bkgs", _f32(dout), _f32(out))
-    dq = torch.empty((B, Sq, Hkv, G, hd), dtype=torch.float32,
-                     device=q.device)
-    dk = torch.zeros((B, Sk, Hkv, hd), dtype=torch.float32, device=q.device)
-    dv = torch.zeros_like(dk)
-    for q0 in range(0, Sq, qc):
-        q_blk = _f32(q[:, q0:q0 + qc])
-        do_blk = _f32(dout[:, q0:q0 + qc])
-        qp = qpos[:, q0:q0 + qc]
-        lse_q = lse[..., q0:q0 + qc]
-        D_q = Drow[..., q0:q0 + qc]
-        dq_acc = torch.zeros((B, qc, Hkv, G, hd), device=q.device)
-        for k0 in range(0, Sk, kc):
-            k_blk = _f32(k[:, k0:k0 + kc])
-            v_blk = _f32(v[:, k0:k0 + kc])
-            s = torch.einsum("bqkgh,bckh->bkgqc", q_blk, k_blk) * scale
-            msk = _flash_mask(qp, kpos[:, k0:k0 + kc], kval[:, k0:k0 + kc],
-                              window)[:, None, None]
-            p = torch.where(msk, torch.exp(s - lse_q[..., None]), 0.0)
-            dv[:, k0:k0 + kc] += torch.einsum("bkgqc,bqkgh->bckh", p, do_blk)
-            dp = torch.einsum("bqkgh,bckh->bkgqc", do_blk, v_blk)
-            ds = p * (dp - D_q[..., None]) * scale
-            dq_acc += torch.einsum("bkgqc,bckh->bqkgh", ds, k_blk)
-            dk[:, k0:k0 + kc] += torch.einsum("bkgqc,bqkgh->bckh", ds, q_blk)
-        dq[:, q0:q0 + qc] = dq_acc
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-
-
-class _Flash(torch.autograd.Function):
-    """Flash attention with a hand-written backward (O(S) memory forward
-    AND backward), the counterpart of the reference's ``custom_vjp``
-    ``_flash``. q: (B, Sq, Hkv, G, hd); k/v: (B, Sk, Hkv, hd);
-    qpos/kpos/kval are float tensors. Saved residuals: the inputs plus
-    ``out`` and ``lse`` only — the backward recomputes P per tile, so no
-    (Sq, Sk) tensor outlives a tile."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, qpos, kpos, kval, window, qc, kc):
-        out, lse = _flash_fwd_impl(q, k, v, qpos, kpos, kval, window, qc, kc)
-        ctx.save_for_backward(q, k, v, qpos, kpos, kval, out, lse)
-        ctx.cfg = (window, qc, kc)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, qpos, kpos, kval, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd_impl(q, k, v, qpos, kpos, kval, out, lse,
-                                     dout, *ctx.cfg)
-        return dq, dk, dv, None, None, None, None, None, None
-
-
-def _flash(q, k, v, qpos, kpos, kval, window: int, qc: int, kc: int):
-    return _Flash.apply(q, k, v, qpos, kpos, kval, window, qc, kc)
-
-
-def _flash_attn_train(q, k, v, positions, cfg: ModelConfig, *, window: int,
-                      valid, q_chunk: int = 512, kv_chunk: int = 1024):
-    """Memory-bounded causal attention for long full-sequence forwards
-    (training / prefill): O(S·hd) residuals instead of O(S²) scores.
-    positions: (B, S) absolute (left-pad aware); valid: (B, S) key
-    validity or None. A query row that sees no key gets output 0.
-    softcap unsupported here, as in the reference."""
-    assert cfg.logit_softcap == 0.0, "flash train path: softcap unsupported"
+def _flash_inputs(q, k, v, positions, valid, q_chunk: int = 512,
+                  kv_chunk: int = 1024):
+    """``_flash``'s arguments for ``_flash_attn_train``: q (B, Sq, Hkv, G,
+    hd) and k, v (B, Sk, Hkv, hd) padded to whole chunks, float positions
+    (the pads at -1e30, keys past S invalid), and the chunks."""
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -313,8 +210,22 @@ def _flash_attn_train(q, k, v, positions, cfg: ModelConfig, *, window: int,
     kval = (valid.float() if valid is not None
             else torch.ones((B, S), device=q.device))
     kval = F.pad(kval, (0, Sk - S))
-    out = _flash(qq.reshape(B, Sq, Hkv, G, hd), kk, vv, qpos, kpos, kval,
-                 window, qc, kc)
+    return (qq.reshape(B, Sq, Hkv, G, hd).contiguous(), kk.contiguous(),
+            vv.contiguous(), qpos, kpos, kval, qc, kc)
+
+
+def _flash_attn_train(q, k, v, positions, cfg: ModelConfig, *, window: int,
+                      valid, q_chunk: int = 512, kv_chunk: int = 1024):
+    """Memory-bounded causal attention for long full-sequence forwards
+    (training / prefill): O(S·hd) residuals instead of O(S²) scores.
+    positions: (B, S) absolute (left-pad aware); valid: (B, S) key
+    validity or None. A query row that sees no key gets output 0.
+    softcap unsupported here, as in the reference."""
+    assert cfg.logit_softcap == 0.0, "flash train path: softcap unsupported"
+    B, S, Hq, hd = q.shape
+    qq, kk, vv, qpos, kpos, kval, qc, kc = _flash_inputs(
+        q, k, v, positions, valid, q_chunk, kv_chunk)
+    out = _flash(qq, kk, vv, qpos, kpos, kval, window, qc, kc, S)
     return out[:, :S].reshape(B, S, Hq, hd)
 
 
